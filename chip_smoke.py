@@ -1,0 +1,462 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure exits non-zero:
+
+1. environment — torch / CUDA versions and the card's name and power limit;
+2. build — every CUDA source under ``src/repro_torch/csrc`` with ``nvcc``,
+   one process per source, all started together;
+3. kernels — each hand-written kernel held against its plain PyTorch
+   version on the card at the serving path's shapes, with its time beside
+   the plain version's, a bytes/operations bound, and one PyTorch library
+   call computing the same function as a yardstick (timed here only; the
+   port never calls it);
+4. serve — full-width ``qwen2.5-14b`` (random weights from a seed) served
+   through ``repro_torch.api.load(...).serve`` with the kernels on: a
+   shared page-aligned prefix (prefix-cache hit) and a repetitive prompt
+   (n-gram drafts verified through the prefill kernel).  Every kernel's
+   launch count is zeroed just before and read just after; each must be
+   launched;
+5. comparison — the same requests with ``use_kernels=False`` (plain
+   versions on the card); greedy streams must match, or diverge only at a
+   bf16 near-tie of the top two logits;
+6. a JSON ``kernels`` line, then as the last line
+   ``{"ok": true, "device": {...}}``.
+
+Exits with code 2 and prints no result when CUDA is unavailable.
+"""
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+#: H100 SXM data sheet: HBM3 bandwidth and dense bf16 tensor-core peak
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS_PER_S = 989e12
+#: kernel vs plain version: both accumulate in fp32 and round once to bf16,
+#: so they may differ by one bf16 ulp of the output; outputs are averages
+#: of N(0, 1) values, |x| < 4, where one ulp is at most 2**-6
+KERNEL_ATOL = 2.0 ** -6
+#: greedy streams may part only where the reference's top-two logits sit
+#: within this many bf16 ulps of the top logit (a near-tie that fp32
+#: summation order can flip)
+TIE_ULPS = 4
+SEED = 0
+MAX_NEW = 32
+#: L2 flush between timed launches: the serving path reads each layer's
+#: pages once per step with the other layers' weights in between, so the
+#: pages arrive cold; 50 MB of L2 on the H100, flushed with 64 MB
+FLUSH_BYTES = 64 << 20
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+# ---------------------------------------------------------------------------
+# timing
+# ---------------------------------------------------------------------------
+
+def time_ms(torch, fn, iters=20, warmup=3):
+    """Mean device ms of ``fn`` over ``iters`` launches, each timed with
+    CUDA events after an L2 flush (the flush is outside the events)."""
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    for _ in range(warmup):
+        fn()
+    total = 0.0
+    for _ in range(iters):
+        flush.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        total += a.elapsed_time(b)
+    return total / iters
+
+
+def bound(bytes_moved, flops):
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase 1-2: environment and build
+# ---------------------------------------------------------------------------
+
+def env_phase(torch):
+    log(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
+        f"cuda {torch.version.cuda}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()
+    log(f"nvidia-smi: {smi[0]}")
+    return smi[0]
+
+
+def build_phase():
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    logs = build.build_all()
+    dt = time.perf_counter() - t0
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+    log(f"build: {len(logs)} sources in {dt:.2f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+#: main-path geometry of qwen2.5-14b served on the paged pool
+SLOTS, KV, G, HD, PS = 8, 8, 5, 128, 16
+
+
+def _pages(torch, gen, n_pages):
+    shape = (n_pages, PS, KV, HD)
+    k = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+    return k, v
+
+
+def _table_rows(torch, lengths, n_table, n_pages, seed):
+    """Distinct random pages per row for its held blocks, trash page 0
+    after them."""
+    cpu = torch.Generator().manual_seed(seed)
+    perm = torch.randperm(n_pages - 1, generator=cpu) + 1
+    rows = torch.zeros((len(lengths), n_table), dtype=torch.int32)
+    for s, n in enumerate(lengths):
+        held = -(-n // PS)
+        rows[s, :held] = perm[s * n_table:s * n_table + held]
+    return rows.cuda()
+
+
+def k1_case(torch, F, gen):
+    from repro_torch.kernels.paged_attention import ops, ref
+    n_table = 16
+    n_pages = SLOTS * n_table + 1
+    lengths = [1, PS, PS + 1, n_table * PS, 100, 37, 200, 64]
+    k, v = _pages(torch, gen, n_pages)
+    q = torch.randn((SLOTS, KV * G, HD), generator=gen,
+                    device="cuda").bfloat16()
+    table = _table_rows(torch, lengths, n_table, n_pages, SEED + 1)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+
+    def kern():
+        return ops.paged_attention(q, k, v, table, lens, use_kernel=True)
+
+    def plain():
+        return ref.paged_attention_ref(q, k, v, table, lens)
+
+    out, want = kern(), plain()
+    torch.cuda.synchronize()
+    err = (out.float() - want.float()).abs().max().item()
+
+    # library yardstick: SDPA over the pre-gathered [slots, KV, T, hd] K/V
+    T = n_table * PS
+    kg = k[table.long()].reshape(SLOTS, T, KV, HD).transpose(1, 2).contiguous()
+    vg = v[table.long()].reshape(SLOTS, T, KV, HD).transpose(1, 2).contiguous()
+    mask = (torch.arange(T, device="cuda")[None, :] < lens[:, None])
+    mask = mask[:, None, None, :]
+    qs = q[:, :, None, :]
+
+    def lib():
+        return F.scaled_dot_product_attention(qs, kg, vg, attn_mask=mask,
+                                              enable_gqa=True)
+
+    lib_err = (lib()[:, :, 0].float() - want.float()).abs().max().item()
+    tokens = sum(lengths)
+    nbytes = (q.numel() * 2 * 2                         # q in, out
+              + tokens * KV * HD * 2 * 2                # K and V needed
+              + table.numel() * 4 + lens.numel() * 4)
+    flops = 4 * HD * G * KV * tokens
+    b_ms, b_by = bound(nbytes, flops)
+    row = dict(case=f"slots={SLOTS} KV={KV} G={G} hd={HD} ps={PS} "
+                    f"lengths={lengths}",
+               max_abs_err=err, ms=time_ms(torch, kern),
+               plain_ms=time_ms(torch, plain), bound_ms=b_ms, bound_by=b_by,
+               library_ms=time_ms(torch, lib), library_max_abs_err=lib_err)
+    return row
+
+
+def k2_case(torch, F, gen, S, start, n_valid):
+    from repro_torch.kernels.paged_attention import ops, ref
+    n_table = 32
+    n_pages = n_table + 8
+    k, v = _pages(torch, gen, n_pages)
+    q = torch.randn((S, KV * G, HD), generator=gen, device="cuda").bfloat16()
+    row = _table_rows(torch, [start + n_valid], n_table, n_pages,
+                      SEED + S + start)[0]
+
+    def kern():
+        return ops.paged_prefill(q, k, v, row, start, n_valid,
+                                 use_kernel=True)
+
+    def plain():
+        return ref.paged_prefill_ref(q, k, v, row, start, n_valid)
+
+    out, want = kern(), plain()
+    torch.cuda.synchronize()
+    err = (out[:n_valid].float() - want[:n_valid].float()).abs().max().item()
+
+    T = n_table * PS
+    kg = k[row.long()].reshape(T, KV, HD).transpose(0, 1)[None].contiguous()
+    vg = v[row.long()].reshape(T, KV, HD).transpose(0, 1)[None].contiguous()
+    kidx = torch.arange(T, device="cuda")
+    qpos = start + torch.arange(S, device="cuda")
+    mask = (kidx[None, :] < start + n_valid) & (kidx[None, :] <= qpos[:, None])
+    qs = q.transpose(0, 1)[None].contiguous()
+
+    def lib():
+        return F.scaled_dot_product_attention(qs, kg, vg,
+                                              attn_mask=mask[None, None],
+                                              enable_gqa=True)
+
+    lib_out = lib()[0].transpose(0, 1)
+    lib_err = (lib_out[:n_valid].float()
+               - want[:n_valid].float()).abs().max().item()
+    keys = start + n_valid
+    nbytes = (q.numel() * 2 * 2 + keys * KV * HD * 2 * 2 + row.numel() * 4)
+    flops = 4 * HD * G * KV * sum(start + i + 1 for i in range(n_valid))
+    b_ms, b_by = bound(nbytes, flops)
+    return dict(case=f"S={S} start={start} n_valid={n_valid} KV={KV} G={G} "
+                     f"hd={HD} ps={PS}",
+                max_abs_err=err, ms=time_ms(torch, kern),
+                plain_ms=time_ms(torch, plain), bound_ms=b_ms, bound_by=b_by,
+                library_ms=time_ms(torch, lib), library_max_abs_err=lib_err)
+
+
+#: (S, start, n_valid): verify rows (S = spec_tokens + 1 = 5) and prefill
+#: buckets, cold (start 0) and after a prefix hit (start > 0), full and
+#: ragged (n_valid < S)
+K2_CASES = ((5, 0, 5), (5, 37, 3), (16, 0, 11), (16, 32, 16), (64, 0, 40),
+            (64, 64, 64), (256, 0, 200), (256, 48, 256))
+#: the K2 case the kernels line reports: a verify row mid-sequence, the
+#: call the serving path makes most often
+K2_REPORTED = (5, 37, 3)
+
+
+def kernel_phase(torch, F):
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = {"paged_attention": [k1_case(torch, F, gen)],
+            "paged_prefill": [k2_case(torch, F, gen, *c) for c in K2_CASES]}
+    failed = []
+    for name, cases in rows.items():
+        for r in cases:
+            ok = r["max_abs_err"] <= KERNEL_ATOL
+            log(f"kernel {name} [{r['case']}]: max_abs_err "
+                f"{r['max_abs_err']:.3g} (tol {KERNEL_ATOL:.3g}) "
+                f"{'ok' if ok else 'FAIL'}; ms {r['ms']:.4f} plain_ms "
+                f"{r['plain_ms']:.4f} bound_ms {r['bound_ms']:.5f} "
+                f"({r['bound_by']}) library_ms {r['library_ms']:.4f} "
+                f"(sdpa, err {r['library_max_abs_err']:.3g})")
+            if not ok:
+                failed.append(f"{name} [{r['case']}]")
+    if failed:
+        raise AssertionError(f"kernels disagree with their plain versions: "
+                             f"{failed}")
+    k2 = next(r for r, c in zip(rows["paged_prefill"], K2_CASES)
+              if c == K2_REPORTED)
+    return {"paged_attention": rows["paged_attention"][0],
+            "paged_prefill": dict(k2, max_abs_err=max(
+                r["max_abs_err"] for r in rows["paged_prefill"]))}
+
+
+# ---------------------------------------------------------------------------
+# phase 4-5: serve full-width qwen2.5-14b, then the plain comparison arm
+# ---------------------------------------------------------------------------
+
+def make_prompts(vocab):
+    """Six requests: 0 and 3 share a 32-token (two-page) prefix — 3 is
+    admitted a cycle after 0 committed its pages, so it hits the prefix
+    cache; 4 is repetitive, so the n-gram drafter proposes every cycle."""
+    import numpy as np
+    rng = np.random.default_rng(SEED)
+
+    def rand(n):
+        return [int(t) for t in rng.integers(0, vocab, n)]
+
+    shared = rand(32)
+    return [shared + rand(9), rand(23), rand(40), shared + rand(14),
+            [11, 12, 13, 14, 15, 16] * 6, rand(17)]
+
+
+def serve_once(torch, sess, prompts, **overrides):
+    from repro_torch.kernels.paged_attention import kernel as pk
+    pk.paged_attention_kernel.launches = 0
+    pk.paged_prefill_kernel.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = sess.serve(prompts, max_new=MAX_NEW, **overrides)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"paged_attention": pk.paged_attention_kernel.launches,
+              "paged_prefill": pk.paged_prefill_kernel.launches}
+    return outs, wall, counts, sess.engine.metrics.summary()
+
+
+def logit_gap(torch, sess, prompt, tokens, j):
+    """Top-two logit gap of the plain forward at stream index ``j`` and
+    the tie tolerance there (TIE_ULPS bf16 ulps of the top logit)."""
+    from repro_torch.models import transformer
+    eng = sess.engine
+    seq = torch.tensor([list(prompt) + list(tokens[:j])], device=eng.device)
+    with torch.no_grad():
+        x, _, _ = transformer.lm_forward(eng.model_cfg, eng.params, seq)
+        logits = transformer.lm_head(eng.model_cfg, eng.params,
+                                     x[:, -1:])[0, 0].float()
+    top = torch.topk(logits, 2).values.tolist()
+    ulp = 2.0 ** (math.floor(math.log2(max(abs(top[0]), 1e-30))) - 7)
+    return top[0] - top[1], TIE_ULPS * ulp
+
+
+def profile_phase(torch, sess, prompts):
+    """One more drive of the same requests under ``torch.profiler`` (CUDA
+    activity only, which keeps its overhead and post-processing small):
+    wall time, the device's busy share (kernel time over wall) and the
+    kernels that take the most device time.  The drive reuses the warm
+    engine of the kernels arm, so every prompt is a full prefix-cache hit
+    and the profile is decode and verify.  Printed only; nothing is
+    asserted."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sess.serve(prompts, max_new=MAX_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = []
+    for e in prof.key_averages():
+        if e.device_type != cuda:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        kernels.append((us, e.count, e.key))
+    busy = sum(k[0] for k in kernels) / 1e6
+    if not busy:
+        log(f"profile: wall {wall:.2f} s; device time not measured (the "
+            "profiler recorded no CUDA kernels)")
+        return
+    log(f"profile (warm engine): wall {wall:.2f} s, device busy {busy:.3f} s "
+        f"({100 * busy / wall:.1f}% of wall), {sum(k[1] for k in kernels)} "
+        "kernel launches")
+    for us, n, name in sorted(kernels, reverse=True)[:12]:
+        log(f"  {100 * us / 1e6 / busy:5.1f}% of device  {us / 1e3:9.2f} ms  "
+            f"{n:7d} launches  {name[:100]}")
+
+
+def serve_phase(torch):
+    from repro_torch import api
+    t0 = time.perf_counter()
+    sess = api.load("qwen2.5-14b", device="cuda", seed=SEED)
+    cfg = sess.model
+    log(f"model {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"heads {cfg.num_heads}/{cfg.num_kv_heads} kv, hd "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{cfg.param_count() / 1e9:.2f} B params (no depth cut)")
+    prompts = make_prompts(cfg.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    _ = sess.params                          # init on the card, timed apart
+    torch.cuda.synchronize()
+    log(f"weights: init {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB peak")
+
+    # warm-up (cuBLAS handles, allocator growth, first launches) on a
+    # one-request engine of its own, so the timed drive below is steady
+    sess.serve([prompts[1][:8]], max_new=2)
+    outs, wall, counts, m = serve_once(torch, sess, prompts)
+    log(f"serve (kernels): {len(prompts)} requests x {MAX_NEW} new tokens in "
+        f"{wall:.2f} s; tok/s {m['tokens_per_sec']:.2f}; ttft mean "
+        f"{m['ttft_mean_s']:.3f} s p99 {m['ttft_p99_s']:.3f} s; prefix-hit "
+        f"tokens {m['prefill_tokens_saved']}; drafted {m['drafted_tokens']} "
+        f"accepted {m['accepted_tokens']}; prefill shapes "
+        f"{m['compile_count']}; launches {counts}; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    for name, n in counts.items():
+        if n <= 0:
+            raise AssertionError(f"{name} kernel never launched on the main "
+                                 "path")
+    if m["prefill_tokens_saved"] <= 0:
+        raise AssertionError("no prefix-cache hit on the main path")
+    if m["drafted_tokens"] <= 0:
+        raise AssertionError("no speculative drafts were verified")
+    for o in outs:
+        if len(o) != MAX_NEW or not all(0 <= t < cfg.vocab_size for t in o):
+            raise AssertionError(f"bad stream {o}")
+
+    plain, pwall, pcounts, pm = serve_once(torch, sess, prompts,
+                                           use_kernels=False)
+    log(f"serve (plain, use_kernels=False): {pwall:.2f} s; tok/s "
+        f"{pm['tokens_per_sec']:.2f}; launches {pcounts}")
+    if any(pcounts.values()):
+        raise AssertionError(f"plain arm launched kernels: {pcounts}")
+    identical = 0
+    for i, (a, b) in enumerate(zip(outs, plain)):
+        if a == b:
+            identical += 1
+            continue
+        j = next(k for k in range(len(a)) if a[k] != b[k])
+        gap, tol = logit_gap(torch, sess, prompts[i], b, j)
+        log(f"request {i}: streams part at index {j} ({a[j]} vs {b[j]}); "
+            f"plain top-2 logit gap {gap:.4g} (tie tolerance {tol:.4g})")
+        if gap > tol:
+            raise AssertionError(f"request {i} diverges at {j} with top-2 gap "
+                                 f"{gap} > {tol}")
+    log(f"comparison: {identical}/{len(outs)} greedy streams identical, the "
+        "rest part only at bf16 near-ties")
+    profile_phase(torch, sess, prompts)
+    return counts
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.nn.functional as F
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    env_phase(torch)
+    build_phase()
+    stats = kernel_phase(torch, F)
+    counts = serve_phase(torch)
+
+    sources = {"paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
+                                   "src/repro/kernels/paged_attention/kernel.py:199"),
+               "paged_prefill": ("src/repro_torch/csrc/paged_prefill.cu",
+                                 "src/repro/kernels/paged_attention/kernel.py:436")}
+    kernels = []
+    for name, (src, replaces) in sources.items():
+        r = stats[name]
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": replaces, "launches": counts[name],
+                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"],
+                        "library_ms": r["library_ms"]})
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,186 @@
+// Paged chunked-prefill attention for Hopper (sm_90a), contiguous fp pages.
+//
+// Replaces the TPU kernel src/repro/kernels/paged_attention/kernel.py
+// `paged_prefill_kernel` / `_paged_prefill_kernel` (fp pages): one
+// request's bucketed chunk of S queries (query i at absolute position
+// start + i) attends that request's pages after the chunk's own K/V were
+// written.  Key kidx is valid for query i when kidx < start + n_valid (the
+// written bound) and kidx <= start + i (causal).  Query blocks that hold
+// only bucket padding (q0 >= n_valid) emit 0 without touching a page, and a
+// block stops at its causal horizon min(start + n_valid, start + q0 + QB).
+// This kernel also writes 0 to every padding row (i >= n_valid) of a
+// partially valid block; callers never read those rows.
+//
+// What bounds it on an H100: bytes at the serving shapes (S = 5 verify
+// rows, S = 16..256 prefill buckets): each block reads the request's pages
+// up to its horizon once and does one multiply-add per (query, head) for
+// each element it reads, so a block of QB = 8 queries x G = 5 heads runs
+// at ~40 flop per byte of bf16 pages — still under the ~295 flop/byte
+// ridge.  The design therefore reads each page once per (kv-head, query
+// block) into shared memory and lets all QB x G query rows of the block
+// share it: one block per (kv-head, block of QB queries), one warp per
+// query, each warp holding the fp32 online-softmax state of all G heads
+// of its query in registers.  Ragged S (5 verify rows) and ragged G are
+// masked inside the block.  wgmma tiles, TMA and split-K are later work.
+#include "paged_common.cuh"
+
+namespace repro_torch {
+
+constexpr int QB = 8;          // queries per block = warps per block
+constexpr int MAXG = 8;        // largest GQA group the kernel holds
+
+template <typename T, int HD>
+__global__ void paged_prefill_kernel(const T* __restrict__ q,
+                                     const T* __restrict__ k_pages,
+                                     const T* __restrict__ v_pages,
+                                     const int* __restrict__ page_row,
+                                     T* __restrict__ out, int S, int KV,
+                                     int G, int ps, int n_table, int start,
+                                     int n_valid, float scale) {
+  constexpr int E = HD / 32;
+  extern __shared__ float smem[];
+  float* k_tile = smem;                     // [ps, HD]
+  float* v_tile = k_tile + ps * HD;         // [ps, HD]
+  float* scores = v_tile + ps * HD;         // [QB, MAXG, ps]
+
+  const int h = blockIdx.x;
+  const int q0 = blockIdx.y * QB;
+  const int w = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int i = q0 + w;                     // this warp's query
+  float* sc = scores + w * MAXG * ps;
+
+  // out/q [S, KV, G, HD]
+  auto row_off = [&](int g) {
+    return ((static_cast<int64_t>(i) * KV + h) * G + g) * HD;
+  };
+
+  if (q0 >= n_valid) {                      // all-padding block: emit 0
+    if (i < S)
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          out[row_off(g) + lane * E + e] = from_f32<T>(0.f);
+    return;
+  }
+
+  const bool active = i < n_valid;          // n_valid <= S
+  const int limit = start + n_valid;        // keys written so far
+  const int horizon = min(limit, start + q0 + QB);
+  const int qlimit = min(limit, start + i + 1);   // this query's keys
+
+  float qv[MAXG][E], acc[MAXG][E], m[MAXG], l[MAXG];
+#pragma unroll
+  for (int g = 0; g < MAXG; ++g) {
+    m[g] = NEG_INF;
+    l[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      acc[g][e] = 0.f;
+      qv[g][e] = (active && g < G) ? to_f32(q[row_off(g) + lane * E + e])
+                                   : 0.f;
+    }
+  }
+
+  const int n_pages = min(n_table, (horizon + ps - 1) / ps);
+  for (int p = 0; p < n_pages; ++p) {
+    const int page = page_row[p];
+    __syncthreads();                        // previous tile fully consumed
+    load_tile<T, HD>(k_tile, k_pages, page, ps, KV, h);
+    load_tile<T, HD>(v_tile, v_pages, page, ps, KV, h);
+    __syncthreads();
+    if (!active) continue;                  // padding query: loads only
+    const int base = p * ps;
+#pragma unroll
+    for (int g = 0; g < MAXG; ++g) {
+      if (g >= G) break;
+      for (int t = 0; t < ps; ++t) {
+        const float s = score<HD>(qv[g], k_tile, t, lane) * scale;
+        if (lane == 0) sc[g * ps + t] = (base + t < qlimit) ? s : NEG_INF;
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int g = 0; g < MAXG; ++g) {
+      if (g >= G) break;
+      online_update<HD>(m[g], l[g], acc[g], sc + g * ps, v_tile, ps, lane);
+    }
+    __syncwarp();                           // sc reused by the next page
+  }
+
+  if (i >= S) return;
+#pragma unroll
+  for (int g = 0; g < MAXG; ++g) {
+    if (g >= G) break;
+    const float inv = active ? 1.f / fmaxf(l[g], 1e-30f) : 0.f;
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      out[row_off(g) + lane * E + e] = from_f32<T>(acc[g][e] * inv);
+  }
+}
+
+template <typename T, int HD>
+int launch(const void* q, const void* k_pages, const void* v_pages,
+           const void* page_row, void* out, int S, int KV, int G, int ps,
+           int n_table, int start, int n_valid, cudaStream_t stream) {
+  const size_t smem = (2 * static_cast<size_t>(ps) * HD +
+                       static_cast<size_t>(QB) * MAXG * ps) * sizeof(float);
+  auto kernel = paged_prefill_kernel<T, HD>;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  dim3 grid(KV, (S + QB - 1) / QB);
+  kernel<<<grid, QB * 32, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k_pages),
+      static_cast<const T*>(v_pages), static_cast<const int*>(page_row),
+      static_cast<T*>(out), S, KV, G, ps, n_table, start, n_valid,
+      1.f / sqrtf(static_cast<float>(HD)));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_hd(int hd, const void* q, const void* k, const void* v,
+              const void* row, void* out, int S, int KV, int G, int ps,
+              int n_table, int start, int n_valid, cudaStream_t stream) {
+  switch (hd) {
+    case 64:
+      return launch<T, 64>(q, k, v, row, out, S, KV, G, ps, n_table, start,
+                           n_valid, stream);
+    case 128:
+      return launch<T, 128>(q, k, v, row, out, S, KV, G, ps, n_table,
+                            start, n_valid, stream);
+    case 256:
+      return launch<T, 256>(q, k, v, row, out, S, KV, G, ps, n_table,
+                            start, n_valid, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace repro_torch
+
+// q [S, KV, G, hd]; k/v_pages [P, ps, KV, hd]; page_row [n_table] int32;
+// out [S, KV, G, hd]; start / n_valid as in the header note.  Returns the
+// cudaError_t of the launch (0 = queued).
+extern "C" int paged_prefill_launch(const void* q, const void* k_pages,
+                                    const void* v_pages,
+                                    const void* page_row, void* out, int S,
+                                    int KV, int G, int hd, int ps,
+                                    int n_table, int start, int n_valid,
+                                    int dtype, void* stream) {
+  using namespace repro_torch;
+  if (G < 1 || G > MAXG || n_valid > S || S < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == DTYPE_BF16)
+    return launch_hd<__nv_bfloat16>(hd, q, k_pages, v_pages, page_row, out,
+                                    S, KV, G, ps, n_table, start, n_valid,
+                                    s);
+  if (dtype == DTYPE_F32)
+    return launch_hd<float>(hd, q, k_pages, v_pages, page_row, out, S, KV,
+                            G, ps, n_table, start, n_valid, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

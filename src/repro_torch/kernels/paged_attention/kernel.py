@@ -1,0 +1,152 @@
+"""Wrappers of the hand-written CUDA paged-attention kernels.
+
+  * ``paged_attention_kernel`` — K1, decode: ``csrc/paged_attention.cu``,
+    the port of the TPU kernel ``paged_attention_kernel`` (window=0, fp
+    pages) of the JAX package.
+  * ``paged_prefill_kernel`` — K2, chunked prefill and speculative
+    verify: ``csrc/paged_prefill.cu``, the port of ``paged_prefill_kernel``.
+
+Each wrapper takes the plain PyTorch version (``ref.py``) for tensors on
+the CPU — and only there.  For CUDA tensors it checks device, dtype, shape
+and contiguity, allocates the output with ``torch.empty``, launches the
+kernel on the current stream, raises if the launch was refused, and adds
+one to its ``launches`` counter; there is no fallback.  The library builds
+from the repo's sources on the first CUDA launch (``kernels/build.py``).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.paged_attention.ref import (paged_attention_ref,
+                                                     paged_prefill_ref)
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (64, 128, 256)
+#: the largest GQA group K2 holds (MAXG in paged_prefill.cu)
+PREFILL_MAX_G = 8
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def _lib(name: str, fn: str, argtypes):
+    f = getattr(build.load(name), fn)
+    if f.argtypes is None:
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+    return f
+
+
+def _check(t: torch.Tensor, what: str, dtype, device, ndim: int):
+    if t.device != device:
+        raise ValueError(f"{what} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{what} has dtype {t.dtype}, expected {dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{what} must be {ndim}-D, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what} must be contiguous")
+
+
+def _check_pages(q, k_pages, v_pages):
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"q dtype {q.dtype} not in {sorted(map(str, _DTYPES))}")
+    for t, name in ((k_pages, "k_pages"), (v_pages, "v_pages")):
+        _check(t, name, q.dtype, q.device, 4)
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    if k_pages.shape != v_pages.shape:
+        raise ValueError(f"k/v page shapes differ: {tuple(k_pages.shape)} "
+                         f"vs {tuple(v_pages.shape)}")
+    hd = k_pages.shape[-1]
+    if hd not in _HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in the CUDA kernels' "
+                         f"{_HEAD_DIMS}")
+
+
+def _raise_on(err: int, name: str):
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def paged_attention_kernel(q, k_pages, v_pages, page_table, lengths):
+    """K1.  q: [slots, KV, G, hd]; k/v_pages: [P, ps, KV, hd]; page_table:
+    [slots, n_table] int32; lengths: [slots] int32.  Returns
+    [slots, KV, G, hd] in q.dtype (0 for a slot with length 0)."""
+    slots, KV, G, hd = q.shape
+    if q.device.type == "cpu":
+        out = paged_attention_ref(q.reshape(slots, KV * G, hd), k_pages,
+                                  v_pages, page_table, lengths)
+        return out.reshape(slots, KV, G, hd)
+    if q.device.type != "cuda":
+        raise ValueError(f"no paged-attention kernel for {q.device}")
+    _check(q, "q", q.dtype, q.device, 4)
+    _check_pages(q, k_pages, v_pages)
+    _check(page_table, "page_table", torch.int32, q.device, 2)
+    _check(lengths, "lengths", torch.int32, q.device, 1)
+    P, ps, kv_p, hd_p = k_pages.shape
+    if (kv_p, hd_p) != (KV, hd) or page_table.shape[0] != slots \
+            or lengths.shape[0] != slots:
+        raise ValueError(
+            f"shape mismatch: q {tuple(q.shape)}, pages {tuple(k_pages.shape)},"
+            f" table {tuple(page_table.shape)}, lengths {tuple(lengths.shape)}")
+    if not 1 <= G <= 32:
+        raise ValueError(f"GQA group {G} outside the kernel's 1..32")
+    out = torch.empty_like(q)
+    fn = _lib("paged_attention", "paged_attention_launch",
+              [_P] * 6 + [_I] * 7 + [_P])
+    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+             page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+             slots, KV, G, hd, ps, page_table.shape[1], _DTYPES[q.dtype],
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(err, "paged_attention")
+    paged_attention_kernel.launches += 1
+    return out
+
+
+paged_attention_kernel.launches = 0
+
+
+def paged_prefill_kernel(q, k_pages, v_pages, page_row, start: int,
+                         n_valid: int):
+    """K2.  q: [S, KV, G, hd] — one request's bucketed chunk (post-rope);
+    k/v_pages: [P, ps, KV, hd] — the pool AFTER the chunk's K/V were
+    written; page_row: [n] int32; start / n_valid ints.  Returns
+    [S, KV, G, hd] in q.dtype; rows past ``n_valid`` are padding and come
+    back 0 from the kernel (never read by callers)."""
+    S, KV, G, hd = q.shape
+    if q.device.type == "cpu":
+        out = paged_prefill_ref(q.reshape(S, KV * G, hd), k_pages, v_pages,
+                                page_row, start, n_valid)
+        return out.reshape(S, KV, G, hd)
+    if q.device.type != "cuda":
+        raise ValueError(f"no paged-prefill kernel for {q.device}")
+    _check(q, "q", q.dtype, q.device, 4)
+    _check_pages(q, k_pages, v_pages)
+    _check(page_row, "page_row", torch.int32, q.device, 1)
+    P, ps, kv_p, hd_p = k_pages.shape
+    if (kv_p, hd_p) != (KV, hd):
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, pages "
+                         f"{tuple(k_pages.shape)}")
+    if not 1 <= G <= PREFILL_MAX_G:
+        raise ValueError(f"GQA group {G} outside the kernel's "
+                         f"1..{PREFILL_MAX_G}")
+    if not 0 <= n_valid <= S or start < 0:
+        raise ValueError(f"bad chunk bounds start={start} n_valid={n_valid}"
+                         f" for S={S}")
+    out = torch.empty_like(q)
+    fn = _lib("paged_prefill", "paged_prefill_launch",
+              [_P] * 5 + [_I] * 9 + [_P])
+    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+             page_row.data_ptr(), out.data_ptr(), S, KV, G, hd, ps,
+             page_row.shape[0], int(start), int(n_valid), _DTYPES[q.dtype],
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(err, "paged_prefill")
+    paged_prefill_kernel.launches += 1
+    return out
+
+
+paged_prefill_kernel.launches = 0

@@ -1,0 +1,45 @@
+"""Public paged-attention entry points in the serving pool's layouts.
+
+``use_kernel`` selects the hand-written CUDA kernel wrapper (which itself
+takes the plain version for CPU tensors, see ``kernel.py``); False runs the
+plain PyTorch version (``ref.py``) on any device — the engine's
+``ServeConfig.use_kernels=False`` comparison arm.  Head conventions match
+``repro_torch.models.attention`` (head h reads kv-head ``h // G``).
+"""
+from __future__ import annotations
+
+from repro_torch.kernels.paged_attention.kernel import (
+    paged_attention_kernel, paged_prefill_kernel)
+from repro_torch.kernels.paged_attention.ref import (paged_attention_ref,
+                                                     paged_prefill_ref)
+
+
+def paged_attention(q, k_pages, v_pages, page_table, lengths, *,
+                    use_kernel: bool = False):
+    """Decode.  q: [slots, H, hd]; k/v_pages: [P, ps, KV, hd]; page_table:
+    [slots, n_table] int32 (0-padded = trash page); lengths: [slots] int32.
+    Returns [slots, H, hd] in q.dtype."""
+    if not use_kernel:
+        return paged_attention_ref(q, k_pages, v_pages, page_table, lengths)
+    slots, H, hd = q.shape
+    KV = k_pages.shape[2]
+    out = paged_attention_kernel(q.reshape(slots, KV, H // KV, hd).contiguous(),
+                                 k_pages, v_pages, page_table, lengths)
+    return out.reshape(slots, H, hd)
+
+
+def paged_prefill(q, k_pages, v_pages, page_table, start: int, n_valid: int,
+                  *, use_kernel: bool = False):
+    """Chunked prefill.  q: [S, H, hd] — one request's bucketed chunk
+    (post-rope; query i at absolute position ``start + i``); k/v_pages: the
+    pool AFTER the chunk's K/V were written; page_table: [n] int32 — the
+    request's row.  Rows past ``n_valid`` are padding and must not be read.
+    Returns [S, H, hd] in q.dtype."""
+    if not use_kernel:
+        return paged_prefill_ref(q, k_pages, v_pages, page_table, start,
+                                 n_valid)
+    S, H, hd = q.shape
+    KV = k_pages.shape[2]
+    out = paged_prefill_kernel(q.reshape(S, KV, H // KV, hd).contiguous(),
+                               k_pages, v_pages, page_table, start, n_valid)
+    return out.reshape(S, H, hd)

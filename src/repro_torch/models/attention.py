@@ -1,0 +1,335 @@
+"""Attention substrate, GQA half (full causal attention, contiguous pages).
+
+Layouts: activations ``[batch, seq, d_model]``; heads ``[batch, seq, heads,
+head_dim]`` — the JAX package's layouts, so the parity tests compare like
+with like.
+
+Execution paths:
+  * ``attention_core``  — blocked online-softmax attention (train/prefill);
+  * ``decode_attend``   — single-step decode against a ring-buffer cache;
+  * ``paged_prefill_apply`` / ``paged_attention_apply`` — one prefill chunk
+    / one batched decode step against the shared page pool, through the
+    hand-written CUDA kernels (``use_kernels``) or their plain versions
+    (``repro_torch.kernels.paged_attention``).
+
+Sliding-window (ring) and MLA (latent) attention are not ported yet; their
+entry points raise ``NotImplementedError`` naming the ROADMAP item.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.common import NEG_INF
+from repro_torch.models.common import ParamSpec, apply_rope, dot
+
+#: ROADMAP items that port the geometries this module does not cover yet
+RING_TODO = ("sliding-window (ring) attention is not ported yet — ROADMAP "
+             "queue 1 item 6 (mixtral: windowed_attention, ring layout)")
+MLA_TODO = ("MLA latent attention is not ported yet — ROADMAP queue 1 "
+            "item 7 (deepseek-v2-lite: mla_apply, latent pages)")
+
+
+# ---------------------------------------------------------------------------
+# Parameter specs
+# ---------------------------------------------------------------------------
+
+def attention_specs(cfg):
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    h, kv = cfg.num_heads, cfg.num_kv_heads
+    specs = {
+        "wq": ParamSpec((d, h * hd), ("embed", "heads")),
+        "wk": ParamSpec((d, kv * hd), ("embed", "kv_heads")),
+        "wv": ParamSpec((d, kv * hd), ("embed", "kv_heads")),
+        "wo": ParamSpec((h * hd, d), ("heads", "embed2")),
+    }
+    if cfg.qkv_bias:
+        specs["bq"] = ParamSpec((h * hd,), ("heads",), init="zeros")
+        specs["bk"] = ParamSpec((kv * hd,), ("kv_heads",), init="zeros")
+        specs["bv"] = ParamSpec((kv * hd,), ("kv_heads",), init="zeros")
+    return specs
+
+
+def require_full(cfg) -> None:
+    """Raise for the attention geometries not ported yet (sliding-window
+    ring, MLA latent); full causal attention passes."""
+    if cfg.attn_kind in ("swa", "local") and cfg.window:
+        raise NotImplementedError(RING_TODO)
+    if cfg.attn_kind == "mla":
+        raise NotImplementedError(MLA_TODO)
+
+
+# ---------------------------------------------------------------------------
+# Blocked online-softmax attention (full / causal)
+# ---------------------------------------------------------------------------
+
+def _split_heads(x, n, hd):
+    return x.reshape(*x.shape[:-1], n, hd)
+
+
+def _project_qkv_rope(cfg, p, x, positions):
+    """Shared GQA front half: q/k/v projections (+bias), head split, rope.
+
+    x [B,S,D] -> q [B,S,H,hd], k/v [B,S,KV,hd] — used by the ring-cache
+    (``attention_apply``) and paged (``paged_*_apply``) paths alike.
+    """
+    hd = cfg.resolved_head_dim
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    cd = x.dtype
+    q = dot(x, p["wq"], cd)
+    k = dot(x, p["wk"], cd)
+    v = dot(x, p["wv"], cd)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(cd)
+        k = k + p["bk"].to(cd)
+        v = v + p["bv"].to(cd)
+    q = _split_heads(q, H, hd)
+    k = _split_heads(k, KV, hd)
+    v = _split_heads(v, KV, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _gqa_scores(q, k, scale):
+    """q: [B,qb,KV,G,hd]  k: [B,kb,KV,hd]  ->  [B,KV,G,qb,kb] (fp32)."""
+    return torch.einsum("bqkgh,btkh->bkgqt", q.float(), k.float()) * scale
+
+
+def attention_core(q, k, v, q_pos, k_pos, *, causal: bool = True,
+                   q_block: int = 512, kv_block: int = 1024,
+                   kv_valid: Optional[torch.Tensor] = None):
+    """Blocked attention with an online softmax over key blocks.
+
+    q: [B,S,H,hd]; k,v: [B,T,KV,hd]; q_pos: [S] or [B,S]; k_pos: [T] or
+    [B,T]; kv_valid: optional [B,T] bool mask of valid cache slots.
+    Returns [B,S,H,hd] in q.dtype.  The loops over query and key blocks
+    are the JAX package's double ``lax.scan``; probabilities are cast to
+    v's dtype before the PV product, as there.
+    """
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    hd_v = v.shape[-1]
+    G = H // KV
+    scale = hd ** -0.5
+    qb = min(q_block, S)
+    kb = min(kv_block, T)
+    dev = q.device
+    if q_pos.dim() == 1:
+        q_pos = q_pos[None, :].expand(B, S)
+    if k_pos.dim() == 1:
+        k_pos = k_pos[None, :].expand(B, T)
+    if kv_valid is None:
+        kv_valid = torch.ones((B, T), dtype=torch.bool, device=dev)
+    neg = torch.full((), NEG_INF, device=dev)
+    outs = []
+    for q0 in range(0, S, qb):
+        q_i = q[:, q0:q0 + qb]
+        n = q_i.shape[1]
+        q_i = q_i.reshape(B, n, KV, G, hd)
+        qpos_i = q_pos[:, q0:q0 + qb]
+        m = torch.full((B, KV, G, n), NEG_INF, device=dev)
+        l = torch.zeros((B, KV, G, n), device=dev)
+        acc = torch.zeros((B, KV, G, n, hd_v), device=dev)
+        for t0 in range(0, T, kb):
+            k_j, v_j = k[:, t0:t0 + kb], v[:, t0:t0 + kb]
+            s = _gqa_scores(q_i, k_j, scale)                # [B,KV,G,n,kb]
+            msk = kv_valid[:, None, None, None, t0:t0 + kb]
+            if causal:
+                msk = msk & (k_pos[:, None, None, None, t0:t0 + kb]
+                             <= qpos_i[:, None, None, :, None])
+            s = torch.where(msk, s, neg)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            corr = torch.exp(m - m_new)
+            pr = torch.exp(s - m_new[..., None])
+            l = l * corr + pr.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgqt,btkh->bkgqh", pr.to(v_j.dtype).float(), v_j.float())
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None]    # [B,KV,G,n,hd]
+        outs.append(out.permute(0, 3, 1, 2, 4).reshape(B, n, H, hd_v))
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Decode: ring-buffer KV cache (one private cache per sequence)
+# ---------------------------------------------------------------------------
+
+def init_cache(batch: int, cache_len: int, num_kv: int, head_dim: int, dtype,
+               device):
+    """Cache slots carry their absolute position (-1 = empty)."""
+    return {
+        "k": torch.zeros((batch, cache_len, num_kv, head_dim), dtype=dtype,
+                         device=device),
+        "v": torch.zeros((batch, cache_len, num_kv, head_dim), dtype=dtype,
+                         device=device),
+        "pos": torch.full((cache_len,), -1, dtype=torch.int32, device=device),
+        "index": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+def cache_update(cache, k_new, v_new):
+    """Append one step (k_new/v_new: [B,1,KV,hd]) at ring slot index % len.
+    Returns a new cache dict (the caller's cache is not mutated)."""
+    L = cache["k"].shape[1]
+    slot = int(cache["index"]) % L
+    k = cache["k"].clone()
+    v = cache["v"].clone()
+    pos = cache["pos"].clone()
+    k[:, slot] = k_new[:, 0].to(k.dtype)
+    v[:, slot] = v_new[:, 0].to(v.dtype)
+    pos[slot] = cache["index"]
+    return {"k": k, "v": v, "pos": pos, "index": cache["index"] + 1}
+
+
+def decode_attend(q, cache):
+    """q: [B,1,H,hd] against the cache. Returns [B,1,H,hd]."""
+    B, _, H, hd = q.shape
+    KV = cache["k"].shape[2]
+    G = H // KV
+    scale = hd ** -0.5
+    cur = cache["index"] - 1                      # position of the newest token
+    kpos = cache["pos"]                           # [L]
+    valid = (kpos >= 0) & (kpos <= cur)
+    q_ = q.reshape(B, 1, KV, G, hd)
+    s = _gqa_scores(q_, cache["k"], scale)        # [B,KV,G,1,L]
+    s = torch.where(valid[None, None, None, None, :], s,
+                    torch.full((), NEG_INF, device=q.device))
+    pr = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqt,btkh->bkgqh",
+                       pr.to(cache["v"].dtype).float(), cache["v"].float())
+    return out.permute(0, 3, 1, 2, 4).reshape(B, 1, H, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Paged KV cache (global page pool shared by all slots)
+#
+# Page writes are in place: the JAX package donated the page buffers and
+# returned new ones; here the pool's tensors are updated where they lie
+# and the same dict is returned.
+# ---------------------------------------------------------------------------
+
+def paged_cache_update(kv, k_new, v_new, page_table, pos):
+    """Write one decode step's K/V into the shared page pool, in place.
+
+    kv: {"k","v"}: [P, ps, KV, hd] (one layer's pages); k_new/v_new
+    [slots, 1, KV, hd]; page_table [slots, n] int32; pos [slots] int32 —
+    token t of slot s lands in page ``page_table[s, t // ps]`` at offset
+    ``t % ps``.  Slots without a request carry an all-trash table (page 0),
+    so their writes clobber only the reserved trash page (duplicate targets
+    there are harmless: nothing reads it).
+    """
+    ps = kv["k"].shape[1]
+    pos = pos.long()
+    page = torch.gather(page_table.long(), 1, (pos // ps)[:, None])[:, 0]
+    off = pos % ps
+    for name, new in (("k", k_new), ("v", v_new)):
+        kv[name][page, off] = new[:, 0].to(kv[name].dtype)
+    return kv
+
+
+def _chunk_targets(page_ids, start: int, n_valid: int, S: int, ps: int):
+    """(page, off) scatter targets for one prefill chunk of S bucket slots:
+    token i holds absolute position ``start + i``; bucket padding
+    (i >= n_valid) routes to the reserved trash page 0 so the fixed bucket
+    shape never scatters garbage into held pages."""
+    i = torch.arange(S, device=page_ids.device)
+    pos = start + i
+    blk = torch.clamp(pos // ps, 0, page_ids.shape[0] - 1)
+    page = torch.where(i < n_valid, page_ids.long()[blk], 0)
+    return page, pos % ps
+
+
+def paged_prefill_write(kv, k_new, v_new, page_ids, start: int,
+                        n_valid: int):
+    """Write one prefill chunk's K/V into the shared page pool, in place.
+
+    kv: {"k","v"}: [P, ps, KV, hd]; k_new/v_new [1, S, KV, hd] (S = padded
+    bucket length); page_ids [n] int32 — one request's page-table row.
+    Padding rows land in the trash page.
+    """
+    ps = kv["k"].shape[1]
+    page, off = _chunk_targets(page_ids, start, n_valid, k_new.shape[1], ps)
+    for name, new in (("k", k_new), ("v", v_new)):
+        kv[name][page, off] = new[0].to(kv[name].dtype)
+    return kv
+
+
+def paged_prefill_apply(cfg, p, x, positions, kv, page_ids, start: int,
+                        n_valid: int, *, use_kernels: bool = False):
+    """Prefill-chunk GQA self-attention directly against the page pool.
+
+    x [1, S, D] — one request's chunk, padded to a bucket; positions =
+    start + arange(S); page_ids [n] the request's page-table row.  The
+    chunk's K/V are written into the pool first (pages covering the cached
+    prefix are never written: the chunk starts at ``start`` >= prefix
+    length, and padding writes hit the trash page), then the chunk's
+    queries attend causally over everything cached so far — shared prefix
+    pages, earlier chunks and the chunk itself — through the prefill
+    kernel (``use_kernels``) or its plain version.
+
+    Returns (out [1, S, D], kv) — kv updated in place.
+    """
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    require_full(cfg)
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    H = cfg.num_heads
+    cd = x.dtype
+    q, k, v = _project_qkv_rope(cfg, p, x, positions)
+    kv = paged_prefill_write(kv, k, v, page_ids, start, n_valid)
+    out = pa_ops.paged_prefill(q[0], kv["k"], kv["v"], page_ids, start,
+                               n_valid, use_kernel=use_kernels)[None]
+    out = out.reshape(B, S, H * hd)
+    return dot(out, p["wo"], cd), kv
+
+
+def paged_attention_apply(cfg, p, x, positions, kv, page_table, lengths, *,
+                          use_kernels: bool = False):
+    """One batched decode step of GQA self-attention over a paged pool.
+
+    x [slots, 1, D]; positions [slots, 1] (= lengths[:, None]); kv one
+    layer's pages.  The whole slot batch runs against the shared pool:
+    write this step's K/V, then attend through the decode kernel
+    (``use_kernels``) or its plain version.  Returns (out [slots, 1, D],
+    kv) — kv updated in place.
+    """
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    require_full(cfg)
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    H = cfg.num_heads
+    cd = x.dtype
+    q, k, v = _project_qkv_rope(cfg, p, x, positions)
+    kv = paged_cache_update(kv, k, v, page_table, lengths)
+    out = pa_ops.paged_attention(q[:, 0], kv["k"], kv["v"], page_table,
+                                 (lengths + 1).to(torch.int32),
+                                 use_kernel=use_kernels)
+    out = out[:, None].reshape(B, S, H * hd)
+    return dot(out, p["wo"], cd), kv
+
+
+# ---------------------------------------------------------------------------
+# Full GQA block apply (projections + rope + core/decode dispatch)
+# ---------------------------------------------------------------------------
+
+def attention_apply(cfg, p, x, positions, *, cache=None):
+    """Self-attention for train/prefill (cache=None) or one decode step
+    against a ring cache.  Returns (out [B,S,D], new_cache_or_None)."""
+    require_full(cfg)
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    H = cfg.num_heads
+    cd = x.dtype
+    q, k, v = _project_qkv_rope(cfg, p, x, positions)
+    if cache is None:
+        out = attention_core(q, k, v, positions, positions, causal=True,
+                             q_block=cfg.attn_q_block,
+                             kv_block=cfg.attn_kv_block)
+        new_cache = None
+    else:
+        new_cache = cache_update(cache, k, v)
+        out = decode_attend(q, new_cache)
+    out = out.reshape(B, S, H * hd)
+    return dot(out, p["wo"], cd), new_cache

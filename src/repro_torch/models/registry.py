@@ -1,0 +1,181 @@
+"""Architecture registry: one uniform interface over the model families.
+
+A ``ModelBundle`` exposes, per architecture, the ParamSpec tree and the
+entry points the runtime dispatches on.  Decode-path contracts are typed
+(the Protocols below) and ``ModelBundle.capabilities()`` reports which of
+them a family declares; the serving engine and ``repro_torch.api``
+dispatch on that set, never on ``is None`` probes.
+
+This slice of the port builds the ``dense`` family.  The other families
+(moe, hybrid, ssm, encdec, vlm, cnn) raise one line naming their ROADMAP
+item.
+"""
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+from typing import (Any, Callable, FrozenSet, Optional, Protocol, Tuple,
+                    runtime_checkable)
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import common, transformer
+from repro_torch.serving.layouts import KVLayout, layout_for
+
+
+# ---------------------------------------------------------------------------
+# Decode-path contracts (typed Protocols; see ModelBundle.capabilities)
+# ---------------------------------------------------------------------------
+
+@runtime_checkable
+class TrainStepContract(Protocol):
+    """Sequential training semantics: ``loss_fn(params, batch) -> scalar``."""
+
+    def __call__(self, params, batch) -> torch.Tensor: ...
+
+
+@runtime_checkable
+class ServeContract(Protocol):
+    """Whole-prompt prefill: ``(params, tokens, *, cache_len[, n_valid]) ->
+    (last_logits, state)`` with ``state`` shaped like ``init_decode_state``;
+    paired with ``decode_fn``."""
+
+    def __call__(self, params, tokens, *, cache_len: int) -> Tuple[Any, Any]: ...
+
+
+@runtime_checkable
+class PagedServeContract(Protocol):
+    """Paged batched decode against the shared page pool:
+    ``(params, tokens, state, *, use_kernels=False) -> (logits [slots, V],
+    pages)`` with ``state = {"pages": {leaf: [L, P, ps, ...]},
+    "page_table": [slots, n] int32, "pos": [slots] int32}``; pages are
+    written in place."""
+
+    def __call__(self, params, tokens, state, *,
+                 use_kernels: bool = False) -> Tuple[Any, Any]: ...
+
+
+@runtime_checkable
+class PagedPrefillContract(Protocol):
+    """Chunked prefill straight into the page pool (the prefix-cache path):
+    ``(params, tokens, state, *, use_kernels=False) -> (logits [1, V],
+    pages)`` with ``state = {"pages", "page_table": [n] int32, "start":
+    int, "n_valid": int}``."""
+
+    def __call__(self, params, tokens, state, *,
+                 use_kernels: bool = False) -> Tuple[Any, Any]: ...
+
+
+@runtime_checkable
+class PagedVerifyContract(Protocol):
+    """Speculative-decode verify forward: as ``PagedPrefillContract`` but
+    the head runs over every position (logits [S, V])."""
+
+    def __call__(self, params, tokens, state, *,
+                 use_kernels: bool = False) -> Tuple[Any, Any]: ...
+
+
+#: capability names a bundle may declare (see ModelBundle.capabilities)
+CAPABILITIES = ("train", "serve", "paged_serve", "prefix_serve",
+                "spec_serve", "bucketed_prefill")
+
+
+@dataclass
+class ModelBundle:
+    cfg: ModelConfig
+    specs: Any
+    loss_fn: TrainStepContract            # (params, batch) -> scalar loss
+    prefill_fn: Optional[Callable]        # (params, tokens) -> (logits, state)
+    decode_fn: Optional[Callable]         # (params, tokens, state) -> (logits, state)
+    init_decode_state: Callable           # (batch, seq_len, device) -> state
+    serve_prefill_fn: Optional[ServeContract] = None
+    paged_decode_fn: Optional[PagedServeContract] = None
+    paged_prefill_fn: Optional[PagedPrefillContract] = None
+    paged_verify_fn: Optional[PagedVerifyContract] = None
+    kv_layout: Optional[KVLayout] = None
+    # True when serve_prefill_fn accepts ``n_valid`` (masked bucket tail)
+    masked_prefill: bool = False
+
+    def capabilities(self) -> FrozenSet[str]:
+        """Declared decode-path contracts (subset of ``CAPABILITIES``)."""
+        caps = set()
+        if self.loss_fn is not None:
+            caps.add("train")
+        if self.serve_prefill_fn is not None and self.decode_fn is not None:
+            caps.add("serve")
+            if self.masked_prefill:
+                caps.add("bucketed_prefill")
+        if self.paged_decode_fn is not None:
+            caps.add("paged_serve")
+            if self.paged_prefill_fn is not None:
+                caps.add("prefix_serve")
+            if self.paged_verify_fn is not None:
+                caps.add("spec_serve")
+        return frozenset(caps)
+
+    def init_params(self, gen: torch.Generator, *, device="cpu", dtype=None):
+        """Seeded init from ``gen`` (a generator on ``device``); ``dtype``
+        casts each leaf as it is made (see ``common.init_params``)."""
+        return common.init_params(self.specs, gen, device=device,
+                                  dtype=dtype)
+
+
+# ---------------------------------------------------------------------------
+# Family builders
+# ---------------------------------------------------------------------------
+
+def _build_lm(cfg: ModelConfig) -> ModelBundle:
+    # the layout seam decides paged capability — never an attn_kind probe
+    layout = layout_for(cfg)
+    return ModelBundle(
+        cfg=cfg,
+        specs=transformer.lm_specs(cfg),
+        loss_fn=functools.partial(transformer.lm_loss, cfg),
+        prefill_fn=lambda params, tokens: transformer.lm_prefill(
+            cfg, params, tokens, cache_len=tokens.shape[1]),
+        decode_fn=functools.partial(transformer.lm_decode, cfg),
+        init_decode_state=lambda b, s, device="cpu":
+            transformer.init_decode_caches(cfg, b, s, device=device),
+        serve_prefill_fn=lambda params, tokens, *, cache_len, n_valid=None:
+            transformer.lm_prefill(cfg, params, tokens, cache_len=cache_len,
+                                   n_valid=n_valid),
+        paged_decode_fn=(functools.partial(transformer.lm_paged_decode, cfg)
+                         if layout is not None else None),
+        paged_prefill_fn=(functools.partial(transformer.lm_paged_prefill,
+                                            cfg)
+                          if layout is not None else None),
+        paged_verify_fn=(functools.partial(transformer.lm_paged_verify, cfg)
+                         if layout is not None else None),
+        kv_layout=layout,
+        masked_prefill=(layout is not None and not layout.ring),
+    )
+
+
+_TODO = {
+    "moe": "moe (mixtral, deepseek) — ROADMAP queue 1 items 6-7",
+    "hybrid": "hybrid (recurrentgemma) — ROADMAP queue 1 item 9",
+    "ssm": "ssm (rwkv6) — ROADMAP queue 1 item 9",
+    "encdec": "encdec (whisper) — ROADMAP queue 1 item 11",
+    "vlm": "vlm (pixtral) — ROADMAP queue 1 item 11",
+    "cnn": "cnn (alexnet) — ROADMAP queue 1 item 11",
+}
+
+_BUILDERS = {"dense": _build_lm}
+
+
+def build(cfg: ModelConfig) -> ModelBundle:
+    cfg.validate()
+    if cfg.family not in _BUILDERS:
+        raise NotImplementedError(
+            f"family {_TODO.get(cfg.family, cfg.family)} is not ported yet")
+    return _BUILDERS[cfg.family](cfg)
+
+
+def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Analytic parameter count (total, incl. embeddings); the dense family
+    has no inactive experts, so ``active_only`` changes nothing here."""
+    bundle = build(cfg)
+    return sum(int(np.prod(leaf.shape))
+               for leaf in common.tree_leaves(bundle.specs))

@@ -1,0 +1,343 @@
+"""Decoder-only LM assembly, dense path: embeddings + stacked layers + head.
+
+Entry points (the JAX package's, same names and contracts):
+  * ``lm_loss``         — tokens -> scalar loss
+  * ``lm_prefill``      — tokens -> last-token logits + ring caches
+  * ``lm_decode``       — 1 token + ring caches -> logits
+  * ``lm_paged_prefill`` / ``lm_paged_verify`` / ``lm_paged_decode`` — the
+    serving engine's paged paths against the shared page pool
+
+Parameters keep the JAX pytree layout: ``params["layers"]`` holds stacked
+``[L, ...]`` leaves, and the scan over layers is a Python loop over their
+slices (views — no copy).  Page pools are ``{"k", "v"}: [L, P, ps, KV,
+hd]`` tensors written in place.  MoE, MLA and sliding-window families are
+not ported yet (``attention.py`` raises naming the ROADMAP item).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import attention as attn
+from repro_torch.models import mlp as mlp_mod
+from repro_torch.models.common import (ParamSpec, apply_norm, cast_tree, dot,
+                                       norm_specs, stack_specs, torch_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Specs
+# ---------------------------------------------------------------------------
+
+def embed_specs(cfg):
+    return ParamSpec((cfg.vocab_size, cfg.d_model), ("vocab_table", "embed"),
+                     init="embed")
+
+
+def head_specs(cfg):
+    return ParamSpec((cfg.d_model, cfg.vocab_size), ("embed", "vocab"))
+
+
+def decoder_layer_specs(cfg):
+    return {"ln1": norm_specs(cfg), "attn": attn.attention_specs(cfg),
+            "ln2": norm_specs(cfg), "ff": mlp_mod.mlp_specs(cfg)}
+
+
+def lm_specs(cfg):
+    specs = {
+        "embed": embed_specs(cfg),
+        "layers": stack_specs(decoder_layer_specs(cfg), cfg.num_layers),
+        "final_norm": norm_specs(cfg),
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = head_specs(cfg)
+    return specs
+
+
+def layer_params(params, i: int):
+    """Layer ``i``'s parameters: views into the stacked ``[L, ...]`` leaves."""
+    def sl(t):
+        if isinstance(t, dict):
+            return {k: sl(v) for k, v in t.items()}
+        return t[i]
+    return sl(params["layers"])
+
+
+def _layer_pages(pages, i: int):
+    """Layer ``i``'s page pool: views, so kernels and in-place writes reach
+    the shared [L, P, ps, KV, hd] tensors."""
+    return {k: v[i] for k, v in pages.items()}
+
+
+# ---------------------------------------------------------------------------
+# Layer apply
+# ---------------------------------------------------------------------------
+
+def decoder_layer_apply(cfg, p, x, positions, cache=None):
+    """Returns (x, new_cache)."""
+    h = apply_norm(cfg, p["ln1"], x)
+    a, new_cache = attn.attention_apply(cfg, p["attn"], h, positions,
+                                        cache=cache)
+    x = x + a
+    h = apply_norm(cfg, p["ln2"], x)
+    x = x + mlp_mod.mlp_apply(cfg, p["ff"], h)
+    return x, new_cache
+
+
+def _check_family(cfg):
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            "MoE feed-forward is not ported yet — ROADMAP queue 1 item 6 "
+            "(models/moe.py)")
+
+
+# ---------------------------------------------------------------------------
+# Embedding / head
+# ---------------------------------------------------------------------------
+
+def embed_lookup(cfg, params, tokens, compute_dtype):
+    x = params["embed"][tokens.long()].to(compute_dtype)
+    if cfg.scale_embed:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=compute_dtype)
+    return x
+
+
+def lm_head(cfg, params, x):
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return dot(x, w, x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Forward (train / prefill)
+# ---------------------------------------------------------------------------
+
+def lm_forward(cfg, params, tokens, *, collect_cache: bool = False,
+               cache_len: int = 0, n_valid=None):
+    """tokens [B,S] -> (final-normed hidden [B,S,d], caches_or_None, aux).
+
+    ``n_valid`` (cache-collection path only) marks a masked bucket tail:
+    tokens at positions >= n_valid are padding — their cache slots carry
+    pos = -1 and the cache index is n_valid.  ``aux`` is the MoE auxiliary
+    loss of the JAX package, always 0 for the dense family.
+    """
+    _check_family(cfg)
+    cd = torch_dtype(cfg.compute_dtype)
+    B, S = tokens.shape
+    positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
+    x = embed_lookup(cfg, params, tokens, cd)
+    kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    caches = []
+    for i in range(cfg.num_layers):
+        lp = layer_params(params, i)
+        if not collect_cache:
+            x, _ = decoder_layer_apply(cfg, lp, x, positions)
+            continue
+        h = apply_norm(cfg, lp["ln1"], x)
+        a, _ = attn.attention_apply(cfg, lp["attn"], h, positions)
+        # project k/v once more for the cache (cheap next to attention;
+        # keeps attention_apply pure), as the JAX package does
+        k = dot(h, lp["attn"]["wk"], cd)
+        v = dot(h, lp["attn"]["wv"], cd)
+        if cfg.qkv_bias:
+            k = k + lp["attn"]["bk"].to(cd)
+            v = v + lp["attn"]["bv"].to(cd)
+        k = attn.apply_rope(k.reshape(B, S, kv, hd), positions, cfg.rope_theta)
+        v = v.reshape(B, S, kv, hd)
+        caches.append(_fill_kv_cache(k, v, positions, cache_len, n_valid))
+        x = x + a
+        h2 = apply_norm(cfg, lp["ln2"], x)
+        x = x + mlp_mod.mlp_apply(cfg, lp["ff"], h2)
+    x = apply_norm(cfg, params["final_norm"], x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if not collect_cache:
+        return x, None, aux
+    stacked = {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
+    return x, stacked, aux
+
+
+def _fill_kv_cache(k, v, positions, cache_len: int, n_valid=None):
+    """Build a ring cache from prefill k/v (keep the last cache_len tokens).
+
+    With ``n_valid`` (masked bucket tail; requires S <= cache_len) padding
+    entries carry pos = -1 and ``index`` = n_valid.
+    """
+    B, S, KV, hd = k.shape
+    dev = k.device
+    L = min(cache_len, S) if cache_len else S
+    Lc = cache_len or S
+    pos = positions[S - L:].long()
+    slots = pos % Lc
+    ck = torch.zeros((B, Lc, KV, hd), dtype=k.dtype, device=dev)
+    cv = torch.zeros((B, Lc, KV, hd), dtype=v.dtype, device=dev)
+    ck[:, slots] = k[:, S - L:]
+    cv[:, slots] = v[:, S - L:]
+    cpos = torch.full((Lc,), -1, dtype=torch.int32, device=dev)
+    if n_valid is None:
+        cpos[slots] = pos.to(torch.int32)
+        index = torch.tensor(S, dtype=torch.int32, device=dev)
+    else:
+        cpos[slots] = torch.where(pos < n_valid, pos, -1).to(torch.int32)
+        index = torch.tensor(int(n_valid), dtype=torch.int32, device=dev)
+    return {"k": ck, "v": cv, "pos": cpos, "index": index}
+
+
+# ---------------------------------------------------------------------------
+# Entry points
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits, labels, vocab: int):
+    """Mean token cross-entropy in fp32 (labels == -100 are masked)."""
+    logits = logits.float()
+    mask = labels >= 0
+    labels = torch.where(mask, labels, 0).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    nll = (lse - gold) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1)
+
+
+def lm_loss(cfg, params, batch):
+    """batch: {"tokens": [B,S], "labels": [B,S]} -> scalar fp32 loss."""
+    params = cast_tree(params, cfg.compute_dtype)
+    x, _, _ = lm_forward(cfg, params, batch["tokens"])
+    logits = lm_head(cfg, params, x)
+    return cross_entropy(logits, batch["labels"], cfg.vocab_size)
+
+
+def lm_prefill(cfg, params, tokens, *, cache_len: int = 0, n_valid=None):
+    """tokens [B,S] -> (last_logits [B,V], caches).  With ``n_valid``, S is
+    a padded bucket and the logits are the n_valid-th token's."""
+    params = cast_tree(params, cfg.compute_dtype)
+    x, caches, _ = lm_forward(cfg, params, tokens, collect_cache=True,
+                              cache_len=cache_len or tokens.shape[1],
+                              n_valid=n_valid)
+    last = x[:, -1:] if n_valid is None else \
+        x[:, int(n_valid) - 1:int(n_valid)]
+    logits = lm_head(cfg, params, last)
+    return logits[:, 0], caches
+
+
+def lm_paged_prefill(cfg, params, tokens, state, *, use_kernels: bool = False):
+    """Prefill one request's (suffix) chunk straight into the paged pool.
+
+    tokens [1, S] — S is a padded bucket; state:
+      * ``pages``      {"k","v"}: [L, P, ps, KV, hd] — global page pool
+      * ``page_table`` [n] int32 — this request's page-table row
+      * ``start``      int — tokens already cached (shared prefix pages +
+        earlier chunks); the chunk holds positions start..start+S-1
+      * ``n_valid``    int — real tokens in the chunk (the bucket tail past
+        it is masked and written to the trash page)
+
+    Returns (logits [1, V] of the last valid token, pages) — pages written
+    in place.  ``use_kernels`` selects the CUDA chunked-prefill kernel.
+    """
+    x, n_valid, pages = _paged_forward(cfg, params, tokens, state,
+                                       use_kernels=use_kernels)
+    logits = lm_head(cfg, params, x[:, n_valid - 1:n_valid])
+    return logits[:, 0], pages
+
+
+def lm_paged_verify(cfg, params, tokens, state, *, use_kernels: bool = False):
+    """Speculative-decode verify forward: the drafted span runs through the
+    paged-prefill scatter, and the head runs over every position — logits
+    [S, V], row ``j`` predicting sequence index ``start + 1 + j``."""
+    x, _, pages = _paged_forward(cfg, params, tokens, state,
+                                 use_kernels=use_kernels)
+    return lm_head(cfg, params, x)[0], pages
+
+
+def _paged_forward(cfg, params, tokens, state, *, use_kernels: bool = False):
+    """Shared paged prefill/verify body -> (x [1,S,d], n_valid, pages)."""
+    _check_family(cfg)
+    params = cast_tree(params, cfg.compute_dtype)
+    cd = torch_dtype(cfg.compute_dtype)
+    S = tokens.shape[1]
+    start, n_valid = int(state["start"]), int(state["n_valid"])
+    positions = start + torch.arange(S, dtype=torch.int32,
+                                     device=tokens.device)
+    x = embed_lookup(cfg, params, tokens, cd)
+    pages = state["pages"]
+    for i in range(cfg.num_layers):
+        lp = layer_params(params, i)
+        h = apply_norm(cfg, lp["ln1"], x)
+        a, _ = attn.paged_prefill_apply(
+            cfg, lp["attn"], h, positions, _layer_pages(pages, i),
+            state["page_table"], start, n_valid, use_kernels=use_kernels)
+        x = x + a
+        h = apply_norm(cfg, lp["ln2"], x)
+        x = x + mlp_mod.mlp_apply(cfg, lp["ff"], h)
+    x = apply_norm(cfg, params["final_norm"], x)
+    return x, n_valid, pages
+
+
+def lm_decode(cfg, params, tokens, caches):
+    """One decode step. tokens [B,1]; caches stacked [L,...] ring caches.
+
+    Returns (logits [B,V], new_caches)."""
+    _check_family(cfg)
+    params = cast_tree(params, cfg.compute_dtype)
+    cd = torch_dtype(cfg.compute_dtype)
+    B = tokens.shape[0]
+    positions = torch.zeros((B, 1), dtype=torch.int32,
+                            device=tokens.device) + caches["index"][0]
+    x = embed_lookup(cfg, params, tokens, cd)
+    new = []
+    for i in range(cfg.num_layers):
+        cache = {k: v[i] for k, v in caches.items()}
+        x, c = decoder_layer_apply(cfg, layer_params(params, i), x,
+                                   positions, cache=cache)
+        new.append(c)
+    x = apply_norm(cfg, params["final_norm"], x)
+    logits = lm_head(cfg, params, x)
+    return logits[:, 0], {k: torch.stack([c[k] for c in new]) for k in new[0]}
+
+
+def paged_decoder_layer_apply(cfg, p, x, positions, kv, page_table, lengths,
+                              use_kernels=False):
+    """Decode-step layer over a shared paged KV pool.  Returns (x, kv)."""
+    h = apply_norm(cfg, p["ln1"], x)
+    a, kv = attn.paged_attention_apply(cfg, p["attn"], h, positions, kv,
+                                       page_table, lengths,
+                                       use_kernels=use_kernels)
+    x = x + a
+    h = apply_norm(cfg, p["ln2"], x)
+    x = x + mlp_mod.mlp_apply(cfg, p["ff"], h)
+    return x, kv
+
+
+def lm_paged_decode(cfg, params, tokens, state, *, use_kernels: bool = False):
+    """One decode step for *all* serving slots against a paged KV pool.
+
+    tokens [slots, 1]; state:
+      * ``pages``      {"k","v"}: [L, P, ps, KV, hd] — global page pool
+      * ``page_table`` [slots, n] int32 — per-slot page ids (0 = trash)
+      * ``pos``        [slots] int32 — tokens already cached per slot
+        (= the position this step's token is written at)
+
+    Returns (logits [slots, V], pages) — pages written in place.
+    ``use_kernels`` selects the CUDA paged decode kernel.
+    """
+    _check_family(cfg)
+    params = cast_tree(params, cfg.compute_dtype)
+    cd = torch_dtype(cfg.compute_dtype)
+    lengths = state["pos"]
+    positions = lengths[:, None]
+    x = embed_lookup(cfg, params, tokens, cd)
+    pages = state["pages"]
+    for i in range(cfg.num_layers):
+        x, _ = paged_decoder_layer_apply(
+            cfg, layer_params(params, i), x, positions,
+            _layer_pages(pages, i), state["page_table"], lengths,
+            use_kernels=use_kernels)
+    x = apply_norm(cfg, params["final_norm"], x)
+    logits = lm_head(cfg, params, x)
+    return logits[:, 0], pages
+
+
+def init_decode_caches(cfg, batch: int, seq_len: int, device="cpu"):
+    """Stacked [L,...] cache tree for lm_decode."""
+    _check_family(cfg)
+    attn.require_full(cfg)
+    one = attn.init_cache(batch, seq_len, cfg.num_kv_heads,
+                          cfg.resolved_head_dim,
+                          torch_dtype(cfg.compute_dtype), device)
+    return {k: v[None].expand((cfg.num_layers,) + v.shape).clone()
+            for k, v in one.items()}

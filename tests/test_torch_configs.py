@@ -1,0 +1,35 @@
+"""The port's configs equal the JAX package's, field by field.
+
+``repro_torch.configs`` is a copy of ``repro.configs`` (pure dataclasses
+with construction-time validation); every preset, smoke and full, must
+resolve to the same values in both packages.  ``ServeConfig`` differs in
+one renamed knob: the JAX ``use_pallas`` is the port's ``use_kernels``.
+"""
+import dataclasses
+
+import pytest
+
+from repro import configs as jax_configs
+from repro_torch import configs as torch_configs
+
+ARCHS = sorted(jax_configs.ARCHS) + ["alexnet", "tinycnn", "examples-lm-100m"]
+
+
+@pytest.mark.parametrize("smoke", [False, True])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_model_config_matches_reference(arch, smoke):
+    ref = jax_configs.get_config(arch, smoke=smoke)
+    port = torch_configs.get_config(arch, smoke=smoke)
+    assert type(port).__name__ == type(ref).__name__
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+
+
+def test_serve_config_defaults_match_reference():
+    ref = dataclasses.asdict(jax_configs.ServeConfig())
+    port = dataclasses.asdict(torch_configs.ServeConfig())
+    assert ref.pop("use_pallas") is None and port.pop("use_kernels") is None
+    assert port == ref
+    with pytest.raises(ValueError, match="use_kernels"):
+        torch_configs.ServeConfig(use_kernels=1)
+    with pytest.raises(ValueError, match="page_size"):
+        torch_configs.ServeConfig(page_size=12)

@@ -1,0 +1,124 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+CUDA kernels have no CPU mode, so every test here is marked ``cuda`` and
+skips without an NVIDIA GPU; on the card run
+
+    PYTHONPATH=src python -m pytest -m cuda --noconftest tests/test_torch_cuda_kernels.py
+
+This file imports torch and the port only (no jax), so it runs where the
+JAX package is not installed.  Tolerances: fp32 1e-5; bf16 1e-2 (kernel
+and plain version both accumulate in fp32 and round once to bf16, so they
+may differ by one bf16 ulp).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.paged_attention import kernel as port_kernel
+from repro_torch.kernels.paged_attention import ops as port_ops
+
+TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (CUDA kernels have no "
+                    "CPU mode; run on the card with `pytest -m cuda`)")
+    # the fp32 plain versions must not round through TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _t(x, dtype, dev):
+    return torch.from_numpy(x).to(TORCH[dtype]).to(dev)
+
+
+def _decode_case(seed, slots, H, KV, hd, ps, n):
+    """Disjoint per-slot tables padded with the trash page 0 (filled with
+    garbage that must never be read); lengths include 1, ps, ps + 1 and a
+    full table."""
+    rng = np.random.default_rng(seed)
+    P = slots * n + 1
+    q = rng.normal(size=(slots, H, hd)).astype(np.float32)
+    k = rng.normal(size=(P, ps, KV, hd)).astype(np.float32)
+    v = rng.normal(size=(P, ps, KV, hd)).astype(np.float32)
+    edge = [1, ps, ps + 1, n * ps]
+    lengths = np.asarray([edge[s] if s < len(edge)
+                          else rng.integers(1, n * ps + 1)
+                          for s in range(slots)], np.int32)
+    table = np.zeros((slots, n), np.int32)
+    pid = 1
+    for s in range(slots):
+        for i in range(-(-int(lengths[s]) // ps)):
+            table[s, i] = pid
+            pid += 1
+    k[0], v[0] = 1e4, -1e4
+    return q, k, v, table, lengths
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,KV,hd", [(40, 8, 128), (24, 8, 64), (8, 8, 256)])
+def test_cuda_decode_kernel_matches_plain(dtype, H, KV, hd):
+    dev = _cuda()
+    q, k, v, table, lengths = _decode_case(4, 8, H, KV, hd, 16, 6)
+    args = (_t(q, dtype, dev), _t(k, dtype, dev), _t(v, dtype, dev),
+            torch.from_numpy(table).to(dev), torch.from_numpy(lengths).to(dev))
+    n0 = port_kernel.paged_attention_kernel.launches
+    out = port_ops.paged_attention(*args, use_kernel=True)
+    want = port_ops.paged_attention(*args, use_kernel=False)
+    assert port_kernel.paged_attention_kernel.launches == n0 + 1
+    torch.testing.assert_close(out.float(), want.float(), rtol=0,
+                               atol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,start,n_valid", [(5, 37, 3), (5, 0, 5),
+                                             (16, 0, 11), (64, 16, 64),
+                                             (256, 0, 200)])
+def test_cuda_prefill_kernel_matches_plain(dtype, S, start, n_valid):
+    dev = _cuda()
+    rng = np.random.default_rng(5)
+    n, ps, H, KV, hd = 20, 16, 40, 8, 128
+    q = rng.normal(size=(S, H, hd)).astype(np.float32)
+    k = rng.normal(size=(n + 2, ps, KV, hd)).astype(np.float32)
+    v = rng.normal(size=(n + 2, ps, KV, hd)).astype(np.float32)
+    k[0], v[0] = 1e4, -1e4
+    table = np.arange(2, n + 2, dtype=np.int32)
+    table[-1] = 0                          # trash-padded tail entry
+    assert start + n_valid <= (n - 1) * ps
+    args = (_t(q, dtype, dev), _t(k, dtype, dev), _t(v, dtype, dev),
+            torch.from_numpy(table).to(dev), start, n_valid)
+    n0 = port_kernel.paged_prefill_kernel.launches
+    out = port_ops.paged_prefill(*args, use_kernel=True)
+    want = port_ops.paged_prefill(*args, use_kernel=False)
+    assert port_kernel.paged_prefill_kernel.launches == n0 + 1
+    torch.testing.assert_close(out[:n_valid].float(),
+                               want[:n_valid].float(), rtol=0,
+                               atol=TOL[dtype])
+    assert (out[n_valid:] == 0).all()      # padding rows come back 0
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
+    dev = _cuda()
+    q = torch.zeros((2, 4, 16), device=dev)
+    pages = torch.zeros((3, 4, 2, 16), device=dev)
+    table = torch.zeros((2, 1), dtype=torch.int32, device=dev)
+    lengths = torch.ones((2,), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        port_ops.paged_attention(q, pages, pages, table, lengths,
+                                 use_kernel=True)
+    q = torch.zeros((2, 4, 64), device=dev)
+    pages = torch.zeros((3, 4, 2, 64), device=dev)
+    with pytest.raises(ValueError, match="int32"):
+        port_ops.paged_attention(q, pages, pages, table.long(), lengths,
+                                 use_kernel=True)
+    with pytest.raises(ValueError, match="GQA group"):
+        port_ops.paged_prefill(torch.zeros((5, 18, 64), device=dev),
+                               pages[:, :, :1].contiguous(),
+                               pages[:, :, :1].contiguous(), table[0], 0, 5,
+                               use_kernel=True)

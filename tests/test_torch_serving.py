@@ -1,0 +1,269 @@
+"""The port's serving stack against the JAX engine, end to end on the CPU.
+
+Greedy streams from ``repro_torch.api`` ``Session.serve`` must equal the
+JAX ``Session.serve`` streams on the same weights (carried across with
+``from_jax_params``) and prompts: cold, with a warm prefix-cache hit, with
+speculation on and off, and with chunked prefill.  Sampled rows draw from
+the port's own counter-keyed Philox stream (not JAX's threefry bits), so
+they are held to the purity rows of ``tests/test_sampling.py``: a
+request's tokens are a pure function of (prompt, SamplingParams) whatever
+the batch, pipeline depth, cache warmth, speculation or preemption.
+"""
+import functools
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro import api as jax_api
+from repro_torch import api as port_api
+from repro_torch.convert import from_jax_params
+from repro_torch.serving import GREEDY, SamplingParams
+from repro_torch.serving.sampling import pack_params, philox4x32, sample_tokens
+from repro_torch.serving.spec import NGramDrafter
+
+ARCH = "qwen2.5-14b"
+SAMPLED = SamplingParams(temperature=0.8, top_k=8, top_p=0.9, seed=13)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_session():
+    return jax_api.load(ARCH, smoke=True, seed=3)
+
+
+def _port_session():
+    sess = port_api.load(ARCH, smoke=True, device="cpu")
+    sess.set_params(from_jax_params(jax.tree.map(np.asarray,
+                                                 _jax_session().params)))
+    return sess
+
+
+def _prompts(seed, lengths, vocab=256):
+    rng = np.random.default_rng(seed)
+    return [[int(t) for t in rng.integers(0, vocab, n)] for n in lengths]
+
+
+def _rep_prompt(n=12, a=7, b=3):
+    """A repetitive prompt the n-gram drafter can always propose from."""
+    return ([a, b] * n)[:n]
+
+
+# ---------------------------------------------------------------------------
+# Port == JAX, greedy
+# ---------------------------------------------------------------------------
+
+def _serve_both(batches, **kw):
+    """Serve each batch in turn on one JAX and one port session (the
+    second batch sees the first's warm prefix cache); returns the streams
+    and the last engines' metrics."""
+    js, ps = _jax_session(), _port_session()
+    out = []
+    for prompts in batches:
+        j = js.serve(prompts, **kw)
+        p = ps.serve(prompts, **kw)
+        out.append((j, p))
+    return out, js.engine.metrics, ps.engine.metrics
+
+
+SERVE_CASES = {
+    "cold": dict(batches=[_prompts(0, [9, 17, 5, 12])], kw=dict(max_new=10)),
+    "warm_prefix": dict(
+        batches=[_prompts(1, [20, 7]),
+                 [_prompts(1, [20])[0] + [1, 2, 3],
+                  _prompts(1, [20])[0][:16] + [9, 9],
+                  _prompts(2, [6])[0]]],
+        kw=dict(max_new=8, page_size=4, max_batch=4)),
+    "spec_on": dict(batches=[[_rep_prompt(12), _prompts(3, [9])[0],
+                              _rep_prompt(16, 1, 1)]],
+                    kw=dict(max_new=16, spec_tokens=4)),
+    "spec_off": dict(batches=[[_rep_prompt(12), _prompts(3, [9])[0],
+                               _rep_prompt(16, 1, 1)]],
+                     kw=dict(max_new=16, spec_tokens=4, enable_spec=False)),
+    "chunked_prefill": dict(batches=[_prompts(4, [30, 21, 3])],
+                            kw=dict(max_new=6, prefill_chunk_tokens=8)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SERVE_CASES))
+def test_port_serve_matches_jax_greedy(case):
+    c = SERVE_CASES[case]
+    pairs, jm, pm = _serve_both(c["batches"], **c["kw"])
+    for j, p in pairs:
+        assert p == j
+    assert pm.prefix_hit_tokens == jm.prefix_hit_tokens
+    assert pm.drafted_tokens == jm.drafted_tokens
+    if case == "warm_prefix":
+        assert pm.prefix_hit_tokens > 0
+    if case == "spec_on":
+        assert pm.drafted_tokens > 0
+    if case == "chunked_prefill":
+        assert pm.prefill_compiles == jm.prefill_compiles
+
+
+def test_spec_on_equals_spec_off_in_port():
+    sess = _port_session()
+    prompts = [_rep_prompt(16), _prompts(5, [10])[0]]
+    on = sess.serve(prompts, max_new=32, spec_tokens=4)
+    assert sess.engine.metrics.accepted_tokens > 0
+    off = sess.serve(prompts, max_new=32, spec_tokens=4, enable_spec=False)
+    assert on == off
+    assert not sess.engine._pending and sess.engine.pool.pages_held == 0
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+def test_greedy_pipeline_depth_and_kernels_flag_invariant(depth):
+    """use_kernels=True on CPU tensors takes the plain versions; output is
+    the same at both pipeline depths."""
+    sess = _port_session()
+    prompts = _prompts(6, [11, 4, 19])
+    base = sess.serve(prompts, max_new=6)
+    assert sess.serve(prompts, max_new=6, pipeline_depth=depth,
+                      use_kernels=True) == base
+
+
+# ---------------------------------------------------------------------------
+# Sampled rows: purity (ported from tests/test_sampling.py)
+# ---------------------------------------------------------------------------
+
+def test_philox_known_answers():
+    """Random123's Philox4x32-10 known-answer vectors."""
+    def run(ctr, key):
+        t = [torch.tensor(x, dtype=torch.int64) for x in ctr + key]
+        return [int(w) for w in philox4x32(t[:4], t[4:])]
+    assert run([0] * 4, [0] * 2) == [0x6627e8d5, 0xe169c58d, 0xbc57ac4c,
+                                     0x9b00dbd8]
+    assert run([0xffffffff] * 4, [0xffffffff] * 2) == [
+        0x408f276d, 0x41c83b0e, 0xa20bc7c6, 0x6d5451fd]
+    assert run([0x243f6a88, 0x85a308d3, 0x13198a2e, 0x03707344],
+               [0xa4093822, 0x299f31d0]) == [0xd16cfe09, 0x94fdcceb,
+                                             0x5001e420, 0x24126ea1]
+
+
+def test_sample_tokens_greedy_and_determinism():
+    rng = np.random.default_rng(0)
+    logits = torch.from_numpy(rng.normal(size=(4, 32)).astype(np.float32))
+    idx = torch.arange(4) + 10
+    rows = lambda p: torch.from_numpy(np.stack([pack_params(p)] * 4))
+    out = sample_tokens(logits, rows(GREEDY), idx)
+    assert (out == logits.argmax(-1)).all()        # temp 0 -> argmax
+    # top_k=1 pins the support to the argmax whatever the temperature
+    out1 = sample_tokens(logits, rows(SamplingParams(temperature=2.0,
+                                                     top_k=1, seed=5)), idx)
+    assert (out1 == logits.argmax(-1)).all()
+    # pure function of (logits, params, idx): row position is irrelevant
+    a = sample_tokens(logits, rows(SAMPLED), idx)
+    b = sample_tokens(logits.flip(0), rows(SAMPLED), idx.flip(0))
+    assert (a == b.flip(0)).all()
+    # ... but the counter index matters (different position, fresh draw)
+    flat = torch.zeros((4, 32))
+    hot = rows(SamplingParams(temperature=5.0, seed=3))
+    assert (sample_tokens(flat, hot, idx)
+            != sample_tokens(flat, hot, idx + 17)).any()
+
+
+def test_sampled_draws_follow_the_distribution():
+    """Gumbel-max over Philox noise samples softmax(logits / T): the
+    empirical frequencies over many counter indices match the
+    probabilities (4 categories, 4000 draws, 3-sigma band)."""
+    logits = torch.log(torch.tensor([[0.1, 0.2, 0.3, 0.4]]))
+    n = 4000
+    p = torch.from_numpy(np.stack([pack_params(
+        SamplingParams(temperature=1.0, seed=11))] * n))
+    toks = sample_tokens(logits.expand(n, 4), p, torch.arange(n))
+    freq = torch.bincount(toks.long(), minlength=4).double() / n
+    want = torch.tensor([0.1, 0.2, 0.3, 0.4], dtype=torch.float64)
+    assert ((freq - want).abs() <= 3 * (want * (1 - want) / n).sqrt()).all()
+
+
+def test_ngram_drafter_proposes_continuations():
+    d = NGramDrafter(ngram=2)
+    hist = [1, 2, 3, 1, 2, 3, 1, 2]
+    assert d.propose(hist, 3) == (3, 1, 2)
+    assert d.propose(hist + [9], 3) == ()
+    assert d.propose(hist, 0) == ()
+
+
+def test_sampled_invariant_to_batch_composition():
+    sess = _port_session()
+    target = _prompts(7, [9])[0]
+    others = _prompts(8, [7, 12, 5])
+    alone = sess.serve([target], max_new=5, sampling=SAMPLED,
+                       max_batch=2, max_seq_len=64)[0]
+    mixed = sess.serve([others[0], target, others[1]], max_new=5,
+                       sampling=[None, SAMPLED, None], max_batch=2,
+                       max_seq_len=64)
+    assert mixed[1] == alone
+    both = sess.serve([others[2], target], max_new=5,
+                      sampling=[SamplingParams(temperature=1.3, seed=99),
+                                SAMPLED], max_batch=2, max_seq_len=64)
+    assert both[1] == alone
+
+
+def test_sampled_pipeline_depth_and_spec_invariant():
+    sess = _port_session()
+    prompts = [_rep_prompt(12), _prompts(9, [8])[0], _prompts(10, [5])[0]]
+    samp = [SamplingParams(temperature=0.7, top_k=1, seed=42), SAMPLED,
+            SamplingParams(temperature=1.1, top_p=0.8, seed=21)]
+    base = sess.serve(prompts, max_new=12, sampling=samp, pipeline_depth=1,
+                      enable_spec=False)
+    assert sess.serve(prompts, max_new=12, sampling=samp,
+                      pipeline_depth=2, enable_spec=False) == base
+    spec = sess.serve(prompts, max_new=12, sampling=samp, pipeline_depth=1)
+    assert sess.engine.metrics.drafted_tokens > 0
+    assert spec == base
+    assert len({tuple(o) for o in base}) > 1
+
+
+def test_sampled_warm_vs_cold_prefix_cache():
+    """A warm prefix cache changes how much prefill runs, never which
+    tokens come out; the greedy next-token memo must not serve a sampled
+    request's first token."""
+    sess = _port_session()
+    p = _prompts(11, [12])[0]
+    kw = dict(max_new=5, max_batch=2, max_seq_len=64, page_size=4)
+    cold = sess.serve([p], sampling=SAMPLED, **kw)[0]
+    warm_sess = _port_session()
+    greedy = warm_sess.serve([p, p], **kw)           # seeds cache + memo
+    warm = warm_sess.serve([p, p], sampling=SAMPLED, **kw)
+    assert warm[0] == warm[1] == cold
+    assert warm_sess.engine.metrics.prefix_hit_tokens > 0
+    assert cold != greedy[0]
+
+
+def test_sampled_preemption_resume_exact():
+    """Page pressure evicts a sampled request mid-run; on resume with a
+    longer prompt the counter-keyed draws replay the same continuation."""
+    sess = _port_session()
+    prompts = _prompts(12, [14, 15])
+    kw = dict(max_new=12, max_batch=2, max_seq_len=32, page_size=4)
+    calm = sess.serve(prompts, sampling=SAMPLED, **kw)
+    tight = sess.serve(prompts, sampling=SAMPLED, num_pages=12,
+                       pipeline_depth=2, **kw)
+    assert sess.engine.metrics.preemptions >= 1
+    assert tight == calm
+
+
+# ---------------------------------------------------------------------------
+# What this slice does not port fails loudly, naming the ROADMAP item
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("knobs", [dict(kv_layout="slotted"),
+                                   dict(enable_prefix_cache=False),
+                                   dict(kv_dtype="int8")])
+def test_unported_engine_paths_raise(knobs):
+    sess = port_api.load(ARCH, smoke=True, device="cpu")
+    with pytest.raises(ValueError, match="ROADMAP"):
+        sess.serve([[1, 2, 3]], max_new=2, **knobs)
+
+
+def test_unported_families_and_train_raise():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port_api.load("mixtral-8x22b", smoke=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port_api.load("rwkv6-1.6b", smoke=True, device="cpu")
+    sess = port_api.load(ARCH, smoke=True, device="cpu")
+    assert {"serve", "paged_serve", "prefix_serve",
+            "spec_serve"} <= sess.capabilities()
+    with pytest.raises(port_api.CapabilityError, match="trainer"):
+        sess.train(steps=1)
