@@ -9,10 +9,12 @@ Phases, in order; any failure exits non-zero:
 2. build — every CUDA source under ``src/repro_torch/csrc`` with ``nvcc``,
    one process per source, all started together;
 3. kernels — each hand-written kernel held against its plain PyTorch
-   version on the card at the serving path's shapes, with its time beside
-   the plain version's, a bytes/operations bound, and one PyTorch library
-   call computing the same function as a yardstick (timed here only; the
-   port never calls it);
+   version on the card at its path's shapes (K1, K2: serving; K3: the
+   training forward, plus a sliding-window and a ragged case, and the
+   flash autograd Function's gradients against autograd through the plain
+   version), with its time beside the plain version's, a bytes/operations
+   bound, and one PyTorch library call computing the same function as a
+   yardstick (timed here only; the port never calls it);
 4. serve — full-width ``qwen2.5-14b`` (random weights from a seed) served
    through ``repro_torch.api.load(...).serve`` with the kernels on: a
    shared page-aligned prefix (prefix-cache hit) and a repetitive prompt
@@ -22,15 +24,27 @@ Phases, in order; any failure exits non-zero:
 5. comparison — the same requests with ``use_kernels=False`` (plain
    versions on the card); greedy streams must match, or diverge only at a
    bf16 near-tie of the top two logits;
-6. a JSON ``kernels`` line, then as the last line
+6. train — full-width ``qwen2.5-14b`` cut to 4 layers, trained through
+   ``repro_torch.api.load(...).train`` on one seeded global batch (2 x 2048
+   tokens, repeated, so the loss must fall), in a one-rank NCCL process
+   group with the ``bucketed`` all-reduce: ``train(1)`` then ``train(5)``
+   (the stream continues, so this is ``train(6)``; the second call's time
+   is the steady step time).  K3's count is zeroed before and must equal
+   steps x layers x (2 under remat, which runs each layer's forward
+   again in the backward); one more step runs under the profiler for K3's
+   share of device time.  Then the plain arm (``use_kernels=False``) from
+   the same init: step-1 loss and grad norm agree, and its loss falls too;
+7. a JSON ``kernels`` line, then as the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits with code 2 and prints no result when CUDA is unavailable.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -55,6 +69,16 @@ MAX_NEW = 32
 #: pages once per step with the other layers' weights in between, so the
 #: pages arrive cold; 50 MB of L2 on the H100, flushed with 64 MB
 FLUSH_BYTES = 64 << 20
+#: K3's row logsumexp: kernel and plain version sum the same fp32 terms in
+#: another order
+LSE_RTOL = 1e-4
+#: K3 gradients (fp32): max |err| over max |reference|
+GRAD_RTOL = 1e-4
+#: train drive: qwen2.5-14b at full width, depth cut 48 -> 4
+TRAIN_LAYERS, TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_LR = 4, 6, 2048, 2, 1e-4
+#: step-1 agreement of the two train arms (bf16 compute: the two attention
+#: paths round at other places)
+LOSS_RTOL, GNORM_RTOL = 2e-3, 1e-2
 
 
 def log(*a):
@@ -249,22 +273,125 @@ K2_CASES = ((5, 0, 5), (5, 37, 3), (16, 0, 11), (16, 32, 16), (64, 0, 40),
 K2_REPORTED = (5, 37, 3)
 
 
+def _valid_pairs(Sq, Sk, causal, window):
+    """(query, key) pairs the masks keep, counted from this case's shape."""
+    total = 0
+    for i in range(Sq):
+        hi = min(i + 1, Sk) if causal else Sk
+        lo = max(0, i - window + 1) if window else 0
+        total += max(0, hi - lo)
+    return total
+
+
+def k3_case(torch, F, gen, B, S, H, KV_, hd, causal, window):
+    """K3 at the training path's shapes: q [B*H, S, hd], k/v [B*KV, S, hd]
+    in bf16; O against ``attention_ref`` and L against
+    ``attention_lse_ref``."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ref
+    q = torch.randn((B * H, S, hd), generator=gen, device="cuda").bfloat16()
+    k = torch.randn((B * KV_, S, hd), generator=gen, device="cuda").bfloat16()
+    v = torch.randn((B * KV_, S, hd), generator=gen, device="cuda").bfloat16()
+
+    def kern():
+        return fk.flash_attention_kernel(q, k, v, causal=causal,
+                                         window=window)
+
+    def plain():
+        return ref.attention_ref(q, k, v, causal=causal, window=window)
+
+    (out, lse), want = kern(), plain()
+    want_lse = ref.attention_lse_ref(q, k, causal=causal, window=window)
+    torch.cuda.synchronize()
+    err = (out.float() - want.float()).abs().max().item()
+    lse_err = ((lse - want_lse).abs().max()
+               / want_lse.abs().max()).item()
+
+    q4, k4, v4 = (x.view(B, -1, S, hd) for x in (q, k, v))
+    if window:
+        i = torch.arange(S, device="cuda")
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+
+        def lib():
+            return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
+                                                  enable_gqa=True)
+    else:
+        def lib():
+            return F.scaled_dot_product_attention(q4, k4, v4,
+                                                  is_causal=causal,
+                                                  enable_gqa=True)
+    lib_err = (lib().reshape(B * H, S, hd).float()
+               - want.float()).abs().max().item()
+    nbytes = (q.numel() * 2 * 2 + k.numel() * 2 * 2 + lse.numel() * 4)
+    flops = 4 * hd * B * H * _valid_pairs(S, S, causal, window)
+    b_ms, b_by = bound(nbytes, flops)
+    return dict(case=f"B={B} S={S} H={H} KV={KV_} hd={hd} causal={causal} "
+                     f"window={window}",
+                max_abs_err=err, lse_rel_err=lse_err,
+                ms=time_ms(torch, kern), plain_ms=time_ms(torch, plain),
+                bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(torch, lib),
+                library_max_abs_err=lib_err)
+
+
+#: (B, S, H, KV, hd, causal, window): the training shape of qwen2.5-14b at
+#: 2 x 2048 tokens (reported), the same with a 512 sliding window, a ragged
+#: length
+K3_CASES = ((2, 2048, 40, 8, 128, True, 0), (2, 2048, 40, 8, 128, True, 512),
+            (2, 1000, 40, 8, 128, True, 0))
+
+
+def k3_grad_check(torch):
+    """The flash autograd Function (K3 forward, ``_bwd`` backward) against
+    autograd through the plain version, fp32, S = 512: max |err| of dq,
+    dk, dv over max |reference|."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models.flash_vjp import flash_attention_vjp
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    B, S, H, KV_, hd = 2, 512, 40, 8, 128
+    q = torch.randn((B, S, H, hd), generator=gen, device="cuda")
+    k = torch.randn((B, S, KV_, hd), generator=gen, device="cuda")
+    v = torch.randn((B, S, KV_, hd), generator=gen, device="cuda")
+    do = torch.randn((B, S, H, hd), generator=gen, device="cuda")
+    xs = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(flash_attention_vjp(*xs, use_kernel=True),
+                              xs, do)
+    ys = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(ops.flash_attention(*ys, use_kernel=False),
+                               ys, do)
+    return {n: ((g - w).abs().max() / w.abs().max()).item()
+            for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+
+
 def kernel_phase(torch, F):
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = {"paged_attention": [k1_case(torch, F, gen)],
-            "paged_prefill": [k2_case(torch, F, gen, *c) for c in K2_CASES]}
+            "paged_prefill": [k2_case(torch, F, gen, *c) for c in K2_CASES],
+            "flash_attention": [k3_case(torch, F, gen, *c)
+                                for c in K3_CASES]}
     failed = []
     for name, cases in rows.items():
         for r in cases:
             ok = r["max_abs_err"] <= KERNEL_ATOL
+            extra = ""
+            if "lse_rel_err" in r:
+                ok = ok and r["lse_rel_err"] <= LSE_RTOL
+                extra = (f"; L rel err {r['lse_rel_err']:.3g} "
+                         f"(tol {LSE_RTOL:.3g})")
             log(f"kernel {name} [{r['case']}]: max_abs_err "
-                f"{r['max_abs_err']:.3g} (tol {KERNEL_ATOL:.3g}) "
+                f"{r['max_abs_err']:.3g} (tol {KERNEL_ATOL:.3g}){extra} "
                 f"{'ok' if ok else 'FAIL'}; ms {r['ms']:.4f} plain_ms "
                 f"{r['plain_ms']:.4f} bound_ms {r['bound_ms']:.5f} "
                 f"({r['bound_by']}) library_ms {r['library_ms']:.4f} "
                 f"(sdpa, err {r['library_max_abs_err']:.3g})")
             if not ok:
                 failed.append(f"{name} [{r['case']}]")
+    grads = k3_grad_check(torch)
+    log(f"kernel flash_attention autograd (fp32, B=2 S=512 H=40 KV=8 "
+        f"hd=128): max |err| / max |ref| "
+        + " ".join(f"{n} {e:.3g}" for n, e in grads.items())
+        + f" (tol {GRAD_RTOL:.3g})")
+    if max(grads.values()) > GRAD_RTOL:
+        failed.append(f"flash_attention autograd {grads}")
     if failed:
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{failed}")
@@ -272,7 +399,9 @@ def kernel_phase(torch, F):
               if c == K2_REPORTED)
     return {"paged_attention": rows["paged_attention"][0],
             "paged_prefill": dict(k2, max_abs_err=max(
-                r["max_abs_err"] for r in rows["paged_prefill"]))}
+                r["max_abs_err"] for r in rows["paged_prefill"])),
+            "flash_attention": dict(rows["flash_attention"][0], max_abs_err=max(
+                r["max_abs_err"] for r in rows["flash_attention"]))}
 
 
 # ---------------------------------------------------------------------------
@@ -423,6 +552,154 @@ def serve_phase(torch):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 6: train full-width qwen2.5-14b (4 layers) through Session.train
+# ---------------------------------------------------------------------------
+
+def _one_batch_dataset(vocab):
+    """One seeded global batch of TRAIN_BATCH x TRAIN_SEQ tokens: every
+    batch the pipeline draws is these rows, so training must lower the
+    loss."""
+    import numpy as np
+    from repro_torch.data.readers import DataSet
+    toks = np.random.default_rng(SEED + 3).integers(
+        0, vocab, (TRAIN_BATCH, TRAIN_SEQ + 1), dtype=np.int32)
+    return DataSet(training_data=toks[:, :-1], training_labels=toks[:, 1:])
+
+
+#: kernel-name markers of the device-time groups the train profile reports
+#: (cuBLAS GEMMs are nvjet / cutlass / gemm kernels on this stack)
+GEMM_MARKS = ("nvjet", "gemm", "cutlass", "xmma")
+
+
+def _k3_device_share(torch, sess, kw):
+    """One more train step under the profiler (CUDA activity): K3's share
+    of the step's device time, the GEMMs' share, and the busy share of the
+    step's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sess.train(1, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    cuda = torch.autograd.DeviceType.CUDA
+    total = flash = gemm = 0.0
+    top = []
+    for e in prof.key_averages():
+        if e.device_type != cuda:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        total += us
+        if "flash_fwd_kernel" in e.key:
+            flash += us
+        elif any(m in e.key.lower() for m in GEMM_MARKS):
+            gemm += us
+        top.append((us, e.count, e.key))
+    if not total:
+        log("train profile: device time not measured (the profiler "
+            "recorded no CUDA kernels)")
+        return None
+    log(f"train profile (one step): wall {wall:.3f} s, device busy "
+        f"{total / 1e6:.3f} s ({100 * total / 1e6 / wall:.1f}% of wall); "
+        f"K3 {flash / 1e3:.2f} ms = {100 * flash / total:.1f}% of device "
+        f"time, GEMMs {gemm / 1e3:.2f} ms = {100 * gemm / total:.1f}%, the "
+        f"rest (elementwise, reductions, copies, collectives) "
+        f"{100 * (total - flash - gemm) / total:.1f}%")
+    for us, n, name in sorted(top, reverse=True)[:10]:
+        log(f"  {100 * us / total:5.1f}% of device  {us / 1e3:9.2f} ms  "
+            f"{n:7d} launches  {name[:100]}")
+    return flash / total
+
+
+def train_arm(torch, card, use_kernels: bool):
+    from repro_torch import api
+    from repro_torch.kernels.flash_attention import kernel as fk
+    t0 = time.perf_counter()
+    sess = api.load("qwen2.5-14b", num_layers=TRAIN_LAYERS, device="cuda",
+                    seed=SEED, allreduce="bucketed")
+    cfg = sess.model
+    ds = _one_batch_dataset(cfg.vocab_size)
+    kw = dict(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, lr=TRAIN_LR,
+              data=ds, use_kernels=use_kernels)
+    torch.cuda.reset_peak_memory_stats()
+    fk.flash_attention_kernel.launches = 0
+    first = sess.train(1, **kw)               # init + step 1
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    rest = sess.train(TRAIN_STEPS - 1, **kw)  # the stream continues
+    torch.cuda.synchronize()
+    steady = (time.perf_counter() - t1) / (TRAIN_STEPS - 1)
+    launches = fk.flash_attention_kernel.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = first.losses + rest.losses
+    arm = "kernels" if use_kernels else "plain"
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / steady
+    log(f"train ({arm}, {cfg.name}: {cfg.num_layers} of 48 layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, hd "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{cfg.param_count() / 1e9:.2f} B params, remat {cfg.remat}, "
+        f"allreduce bucketed over a 1-rank NCCL group): {TRAIN_STEPS} steps "
+        f"of {TRAIN_BATCH}x{TRAIN_SEQ} tokens in "
+        f"{time.perf_counter() - t0:.1f} s incl. init; step 1 loss "
+        f"{losses[0]:.5f} grad_norm {first.metrics['grad_norm']:.5f}; "
+        f"losses {[round(x, 5) for x in losses]}; steady step "
+        f"{steady * 1e3:.1f} ms, {tok_s:.0f} tokens/s, peak {peak:.1f} GiB; "
+        f"K3 launches {launches} [{card}]")
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x)
+                                             for x in losses):
+        raise AssertionError(f"bad loss curve {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{arm} arm: the loss did not fall: {losses}")
+    share = None
+    if use_kernels:
+        layer_passes = 2 if cfg.remat != "none" else 1
+        want = TRAIN_STEPS * cfg.num_layers * layer_passes
+        if launches != want:
+            raise AssertionError(f"K3 launched {launches} times on the train "
+                                 f"path, expected {want}")
+        share = _k3_device_share(torch, sess, kw)
+    elif launches:
+        raise AssertionError(f"plain arm launched K3 {launches} times")
+    out = dict(losses=losses, grad_norm1=first.metrics["grad_norm"],
+               launches=launches, steady_s=steady, tok_s=tok_s, peak=peak,
+               k3_share=share)
+    del sess, first, rest
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_phase(torch, card):
+    import torch.distributed as dist
+    pg_file = ROOT / "build" / f"chip_smoke_pg_{os.getpid()}"
+    pg_file.parent.mkdir(parents=True, exist_ok=True)
+    pg_file.unlink(missing_ok=True)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{pg_file}",
+                            world_size=1, rank=0)
+    try:
+        kern = train_arm(torch, card, use_kernels=True)
+        plain = train_arm(torch, card, use_kernels=False)
+    finally:
+        dist.destroy_process_group()
+        pg_file.unlink(missing_ok=True)
+    l_err = abs(kern["losses"][0] - plain["losses"][0]) / abs(
+        plain["losses"][0])
+    g_err = abs(kern["grad_norm1"] - plain["grad_norm1"]) / abs(
+        plain["grad_norm1"])
+    log(f"train comparison: step-1 loss rel diff {l_err:.3g} (tol "
+        f"{LOSS_RTOL:.3g}), grad-norm rel diff {g_err:.3g} (tol "
+        f"{GNORM_RTOL:.3g}); steady step kernels {kern['steady_s'] * 1e3:.1f}"
+        f" ms vs plain {plain['steady_s'] * 1e3:.1f} ms [{card}]")
+    if l_err > LOSS_RTOL or g_err > GNORM_RTOL:
+        raise AssertionError("the kernel and plain train arms disagree at "
+                             "step 1")
+    return kern
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -433,15 +710,20 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    env_phase(torch)
+    card = env_phase(torch)
     build_phase()
     stats = kernel_phase(torch, F)
     counts = serve_phase(torch)
+    gc.collect()                        # the serve session and its engines
+    torch.cuda.empty_cache()
+    counts["flash_attention"] = train_phase(torch, card)["launches"]
 
     sources = {"paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                                    "src/repro/kernels/paged_attention/kernel.py:199"),
                "paged_prefill": ("src/repro_torch/csrc/paged_prefill.cu",
-                                 "src/repro/kernels/paged_attention/kernel.py:436")}
+                                 "src/repro/kernels/paged_attention/kernel.py:436"),
+               "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                                   "src/repro/kernels/flash_attention/kernel.py:109")}
     kernels = []
     for name, (src, replaces) in sources.items():
         r = stats[name]

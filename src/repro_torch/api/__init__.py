@@ -3,12 +3,13 @@
     from repro_torch import api
 
     session = api.load("qwen2.5-14b")                 # on CUDA
+    session.train(steps=10, seq_len=2048, global_batch=2)
     session.generate([3, 1, 4, 1, 5], max_new=16)     # continuous batching
     session.serve(list_of_prompts, max_new=8)         # closed batch
 
 ``api.load(arch, smoke=True, device="cpu")`` runs the same script on the
 CPU with the kernels' plain PyTorch versions.
 """
-from repro_torch.api.session import CapabilityError, Session, load
+from repro_torch.api.session import CapabilityError, Session, TrainResult, load
 
-__all__ = ["CapabilityError", "Session", "load"]
+__all__ = ["CapabilityError", "Session", "TrainResult", "load"]

@@ -1,30 +1,42 @@
 """The user-transparent Session: one object per model.
 
 ``load(arch)`` returns a ``Session`` that owns the resolved configs, the
-registry bundle, the parameters and the serving engines, and exposes
+registry bundle, the parameters, the trainer and the serving engines, and
+exposes
 
+  * ``session.train(steps=...)``    — the paper's user-transparent
+                                      trainer: broadcast init, gradient
+                                      all-reduce, rank-sharded data (data
+                                      parallel over the processes of the
+                                      default ``torch.distributed`` group);
   * ``session.serve(requests)``     — the continuous-batching engine (paged
                                       pool, prefix cache, chunked prefill,
                                       n-gram speculation);
   * ``session.generate(prompt(s))`` — one-shot generation over the same
                                       engine.
 
-``session.train`` is the trainer slice (ROADMAP queue 1 item 5) and raises
-``CapabilityError`` until it is ported.  The device is explicit: ``"cuda"``
-by default, raising when CUDA is absent; ``device="cpu"`` runs the port on
-the CPU with the kernels' plain PyTorch versions.
+The device is explicit: ``"cuda"`` by default, raising when CUDA is
+absent; ``device="cpu"`` runs the port on the CPU with the kernels' plain
+PyTorch versions.
 """
 from __future__ import annotations
 
+import dataclasses
+import time
+import warnings
+from dataclasses import dataclass, field
 from typing import Any, Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config
-from repro_torch.configs.base import ModelConfig, ServeConfig, floor_pow2
+from repro_torch.configs.base import (MeshConfig, ModelConfig,
+                                      OptimizerConfig, RunConfig,
+                                      ServeConfig, ShapeConfig, floor_pow2)
 from repro_torch.models import registry
-from repro_torch.models.common import torch_dtype
+from repro_torch.models.common import tree_map, torch_dtype
 from repro_torch.serving.engine import resolve_device
 
 #: auto-sized serve capacity rounds up to this bucket (bounds the engine
@@ -35,25 +47,56 @@ _SEQ_BUCKET = 64
 _MAX_ENGINES = 4
 
 
+#: what train() does not port yet (its error names the ROADMAP item)
+_CKPT_TODO = ("checkpointing and elastic resume (ckpt_dir / resume) are not "
+              "ported yet — ROADMAP queue 1 item 5 (checkpoint/checkpoint.py,"
+              " checkpoint/elastic.py, run_with_recovery)")
+
+
 class CapabilityError(ValueError):
     """A workload the loaded family does not declare (see
     ``ModelBundle.capabilities``), or one the port has not reached yet."""
 
 
+@dataclass
+class TrainResult:
+    """What ``Session.train`` hands back: the per-step loss trajectory plus
+    the last step's metrics and the straggler-monitor summary."""
+    losses: List[float]
+    metrics: Dict[str, float]
+    step: int
+    elapsed_s: float
+    straggler: Dict[str, float] = field(default_factory=dict)
+
+    @property
+    def loss(self) -> float:
+        return self.losses[-1] if self.losses else float("nan")
+
+
 class Session:
-    """One architecture on one device; owns params and engine lifecycles so
-    user scripts never touch them directly.  Construct through
-    :func:`load`.  Lazy: nothing touches the device until the first
-    ``serve`` / ``generate`` call."""
+    """One architecture on one device; owns params, trainer and engine
+    lifecycles so user scripts never touch them directly.  Construct
+    through :func:`load`.  Lazy: nothing touches the device until the
+    first ``train`` / ``serve`` / ``generate`` call."""
 
     def __init__(self, model_cfg: ModelConfig, *, seed: int = 0,
-                 device=None):
+                 device=None, dp_mode: Optional[str] = None,
+                 allreduce: Optional[str] = None):
         model_cfg.validate()
         self.model = model_cfg
         self.seed = seed
         self.device = resolve_device(device)
         self.bundle = registry.build(model_cfg)
+        self._mesh_overrides = {k: v for k, v in
+                                (("dp_mode", dp_mode), ("allreduce", allreduce))
+                                if v is not None}
         self._params = None
+        self._init_params = None       # set_params: where training starts
+        self._trainer = None
+        self._trainer_key = None
+        self._train_state = None
+        self._stream = None            # (iterator, prefetcher) kept across
+        self._stream_key = None        # train() calls: data must not replay
         self._engines: Dict[ServeConfig, Any] = {}
         self._last_engine = None
 
@@ -74,8 +117,10 @@ class Session:
 
     @property
     def params(self):
-        """A seeded init on the session's device, made leaf by leaf in the
-        compute dtype (shared by every engine of the session)."""
+        """The parameters serving uses, in the compute dtype: a copy of
+        the trained masters once ``train`` has run, else those given to
+        ``set_params``, else a seeded init on the session's device made
+        leaf by leaf (shared by every engine of the session)."""
         if self._params is None:
             gen = torch.Generator(device=self.device).manual_seed(self.seed)
             self._params = self.bundle.init_params(
@@ -85,18 +130,141 @@ class Session:
 
     def set_params(self, params) -> None:
         """Replace the parameters (e.g. JAX weights carried across with
-        ``repro_torch.convert.from_jax_params``); drops every engine, whose
-        prefix caches hold K/V of the old weights."""
+        ``repro_torch.convert.from_jax_params``): serving uses them, and
+        the next ``train`` starts from them (as fp32 masters) instead of
+        continuing a trained state.  Drops every engine, whose prefix
+        caches hold K/V of the old weights."""
         for key in list(self._engines):
             self._drop_engine(key)
         self._params = params
+        self._init_params = params
+        self._train_state = None
 
     # -- train -------------------------------------------------------------
 
-    def train(self, *args, **kwargs):
-        raise CapabilityError(
-            "Session.train is not ported yet — the trainer slice, ROADMAP "
-            "queue 1 item 5 (TransparentTrainer, allreduce strategies)")
+    def _train_mesh_cfg(self) -> MeshConfig:
+        """One data-parallel replica per process of the default process
+        group (one without a group), no model axis."""
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        base = MeshConfig(shape=(world, 1), axis_names=("data", "model"))
+        return dataclasses.replace(base, **self._mesh_overrides) \
+            if self._mesh_overrides else base
+
+    def train(self, steps: int = 50, *, data=None, seq_len: int = 64,
+              global_batch: int = 8,
+              optimizer: Optional[OptimizerConfig] = None,
+              lr: Optional[float] = None, microbatch: int = 0,
+              use_kernels: Optional[bool] = None, ckpt_dir: str = "",
+              ckpt_every: int = 25, resume: bool = False,
+              log_every: int = 0) -> TrainResult:
+        """Run ``steps`` training steps of the sequential ``loss_fn``; the
+        runtime injects broadcast init, gradient all-reduce and rank-sharded
+        data (the paper's §III-D/F).  Data-parallel when the caller has
+        started one process per replica and called
+        ``torch.distributed.init_process_group`` in each.
+
+        ``data`` is a ``repro_torch.data.readers.DataSet`` — this rank's
+        shard (default: synthetic tokens seeded from the session seed).
+        ``use_kernels`` runs attention through kernel K3 (None: on CUDA
+        only).  Repeated calls with the same knobs continue from the
+        current state and the next batches of the stream: ``train(N)`` then
+        ``train(N)`` equals ``train(2N)``.  Masters and optimizer state are
+        fp32; afterwards serving gets a compute-dtype copy of the trained
+        parameters.  ``ckpt_dir`` / ``resume`` raise (not ported yet).
+        """
+        self._require("train")
+        if ckpt_dir or resume:
+            raise CapabilityError(_CKPT_TODO)
+        from repro_torch.checkpoint.failures import StragglerMonitor
+        from repro_torch.core.transparent import TransparentTrainer
+        from repro_torch.data.pipeline import make_input_pipeline
+        from repro_torch.data.readers import synthetic_tokens
+
+        opt = optimizer or OptimizerConfig(
+            name="adam", lr=1e-3 if lr is None else lr)
+        if optimizer is not None and lr is not None:
+            opt = dataclasses.replace(opt, lr=lr)
+        mesh_cfg = self._train_mesh_cfg()
+        key = (seq_len, global_batch, opt, microbatch, mesh_cfg, use_kernels)
+        if self._trainer is not None and self._trainer_key != key \
+                and self._train_state is not None:
+            warnings.warn(
+                "train() knobs changed (shape/optimizer/mesh/kernels): the "
+                "trained state is discarded and training restarts from a "
+                "fresh init; pass the same knobs to continue a run",
+                stacklevel=2)
+        if self._trainer is None or self._trainer_key != key:
+            run = RunConfig(
+                model=self.model,
+                shape=ShapeConfig("api", "train", seq_len, global_batch),
+                mesh=mesh_cfg, optimizer=opt, seed=self.seed,
+                microbatch=microbatch)
+            self._trainer = TransparentTrainer.from_bundle(
+                run, self.bundle, device=self.device, use_kernels=use_kernels)
+            self._trainer_key = key
+            self._train_state = None
+        trainer = self._trainer
+
+        # the data stream persists across train() calls: a continuation
+        # consumes the *next* batches, never a replay of already-seen ones
+        stream_key = (key, None if data is None else id(data))
+        if self._stream is None or self._stream_key != stream_key:
+            if self._stream is not None:
+                self._stream[1].close()
+            if data is None:
+                data = synthetic_tokens(
+                    self.model.vocab_size, seq_len,
+                    num_samples=global_batch * 64, seed=self.seed,
+                    rank=trainer.rank, world=trainer.dp)
+            self._stream = make_input_pipeline(
+                data, global_batch, self.device, world=trainer.dp,
+                seed=self.seed)
+            self._stream_key = stream_key
+        it, _ = self._stream
+
+        if self._train_state is None:
+            self._train_state = trainer.init(self.seed,
+                                             params=self._init_params)
+        state = self._train_state
+        start = state.step
+        monitor = StragglerMonitor()
+
+        losses: List[float] = []
+        t_start = time.time()
+        step = start
+        m = None
+        try:
+            for batch in it:
+                t0 = time.time()
+                state, m = trainer.step(state, batch)
+                losses.append(float(m["loss"]))        # waits for the step
+                monitor.record(time.time() - t0)
+                step = int(m["step"])
+                if log_every and (step % log_every == 0 or step == start + 1):
+                    print(f"step {step:5d}  loss {losses[-1]:.4f}  "
+                          f"gnorm {float(m['grad_norm']):.3f}", flush=True)
+                if step >= start + steps:
+                    break
+        except BaseException:
+            # stream state is unknown mid-batch: drop it so the next call
+            # starts a fresh pipeline (the prefetch thread is daemon)
+            self._stream[1].close()
+            self._stream = None
+            raise
+        self._train_state = state
+        # serving must see the new params: drop the engines and hand them
+        # a compute-dtype copy (their per-call cast stays a no-op)
+        for k in list(self._engines):
+            self._drop_engine(k)
+        cd = torch_dtype(self.model.compute_dtype)
+        self._params = tree_map(lambda p: p.detach().to(cd, copy=True),
+                                state.params)
+        metrics = {"loss": losses[-1] if losses else float("nan"),
+                   "grad_norm": float(m["grad_norm"]) if losses else 0.0,
+                   "step": step}
+        return TrainResult(losses=losses, metrics=metrics, step=step,
+                           elapsed_s=time.time() - t_start,
+                           straggler=monitor.summary())
 
     # -- serve / generate --------------------------------------------------
 
@@ -210,19 +378,23 @@ class Session:
 
 
 def load(arch: str, *, smoke: bool = False, seed: int = 0, device=None,
+         dp_mode: Optional[str] = None, allreduce: Optional[str] = None,
          require: Iterable[str] = (), **overrides) -> Session:
     """The one supported entrypoint: ``load(arch) -> Session``.
 
     ``arch``      any registry architecture of a ported family;
     ``smoke``     the small config variant;
     ``device``    ``"cuda"`` (default; raises without CUDA) or ``"cpu"``;
+    ``dp_mode`` / ``allreduce``  training placement / gradient-reduction
+                  strategy (``MeshConfig`` fields);
     ``require``   capability names that must be declared now;
     ``overrides`` ``ModelConfig.replace`` fields (``num_layers=2``, ...).
     """
     cfg = get_config(arch, smoke=smoke)
     if overrides:
         cfg = cfg.replace(**overrides)
-    sess = Session(cfg, seed=seed, device=device)
+    sess = Session(cfg, seed=seed, device=device, dp_mode=dp_mode,
+                   allreduce=allreduce)
     for cap in require:
         sess._require(cap)
     return sess

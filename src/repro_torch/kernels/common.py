@@ -1,10 +1,48 @@
 """Shared constants for the hand-written CUDA kernels and their plain
-PyTorch versions."""
+PyTorch versions, and the checks every kernel wrapper makes before it
+launches."""
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
+import torch
 
 # Large-negative mask value safe to exponentiate in fp32 (exp -> exactly 0).
 # Finite on purpose: a fully masked row keeps finite scores, so the online
 # softmax divides 0 by max(l, 1e-30) and emits 0 instead of NaN.
 NEG_INF = -0.7 * float(np.finfo(np.float32).max)
+
+#: dtype codes of the CUDA sources (DTYPE_F32 / DTYPE_BF16 in
+#: csrc/paged_common.cuh)
+KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def lib_fn(name: str, fn: str, argtypes):
+    """``fn`` of the library built from ``csrc/<name>.cu`` (built on first
+    use), with its ctypes signature set; every entry point returns the
+    ``cudaError_t`` of its launch."""
+    from repro_torch.kernels import build
+    f = getattr(build.load(name), fn)
+    if f.argtypes is None:
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+    return f
+
+
+def check_tensor(t: torch.Tensor, what: str, dtype, device, ndim: int):
+    """Raise unless ``t`` has this device, dtype and rank and is contiguous."""
+    if t.device != device:
+        raise ValueError(f"{what} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{what} has dtype {t.dtype}, expected {dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{what} must be {ndim}-D, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what} must be contiguous")
+
+
+def raise_on(err: int, name: str):
+    """Raise if a launch was refused (``err`` is its cudaError_t)."""
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")

@@ -19,36 +19,19 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels.common import KERNEL_DTYPES as _DTYPES
+from repro_torch.kernels.common import check_tensor as _check
+from repro_torch.kernels.common import lib_fn as _lib
+from repro_torch.kernels.common import raise_on as _raise_on
 from repro_torch.kernels.paged_attention.ref import (paged_attention_ref,
                                                      paged_prefill_ref)
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128, 256)
 #: the largest GQA group K2 holds (MAXG in paged_prefill.cu)
 PREFILL_MAX_G = 8
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-
-
-def _lib(name: str, fn: str, argtypes):
-    f = getattr(build.load(name), fn)
-    if f.argtypes is None:
-        f.argtypes = argtypes
-        f.restype = ctypes.c_int
-    return f
-
-
-def _check(t: torch.Tensor, what: str, dtype, device, ndim: int):
-    if t.device != device:
-        raise ValueError(f"{what} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{what} has dtype {t.dtype}, expected {dtype}")
-    if t.dim() != ndim:
-        raise ValueError(f"{what} must be {ndim}-D, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{what} must be contiguous")
 
 
 def _check_pages(q, k_pages, v_pages):
@@ -65,11 +48,6 @@ def _check_pages(q, k_pages, v_pages):
     if hd not in _HEAD_DIMS:
         raise ValueError(f"head_dim {hd} not in the CUDA kernels' "
                          f"{_HEAD_DIMS}")
-
-
-def _raise_on(err: int, name: str):
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
 def paged_attention_kernel(q, k_pages, v_pages, page_table, lengths):

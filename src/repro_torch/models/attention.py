@@ -6,6 +6,8 @@ with like.
 
 Execution paths:
   * ``attention_core``  — blocked online-softmax attention (train/prefill);
+  * ``flash_vjp.flash_attention_vjp`` — train/prefill attention with O(S)
+    residuals, its forward through kernel K3 (``use_kernels``);
   * ``decode_attend``   — single-step decode against a ring-buffer cache;
   * ``paged_prefill_apply`` / ``paged_attention_apply`` — one prefill chunk
     / one batched decode step against the shared page pool, through the
@@ -23,6 +25,7 @@ import torch
 
 from repro_torch.kernels.common import NEG_INF
 from repro_torch.models.common import ParamSpec, apply_rope, dot
+from repro_torch.models.flash_vjp import flash_attention_vjp
 
 #: ROADMAP items that port the geometries this module does not cover yet
 RING_TODO = ("sliding-window (ring) attention is not ported yet — ROADMAP "
@@ -98,12 +101,13 @@ def _gqa_scores(q, k, scale):
 
 
 def attention_core(q, k, v, q_pos, k_pos, *, causal: bool = True,
-                   q_block: int = 512, kv_block: int = 1024,
+                   window: int = 0, q_block: int = 512, kv_block: int = 1024,
                    kv_valid: Optional[torch.Tensor] = None):
     """Blocked attention with an online softmax over key blocks.
 
     q: [B,S,H,hd]; k,v: [B,T,KV,hd]; q_pos: [S] or [B,S]; k_pos: [T] or
-    [B,T]; kv_valid: optional [B,T] bool mask of valid cache slots.
+    [B,T]; window > 0 also masks keys older than ``window`` positions;
+    kv_valid: optional [B,T] bool mask of valid cache slots.
     Returns [B,S,H,hd] in q.dtype.  The loops over query and key blocks
     are the JAX package's double ``lax.scan``; probabilities are cast to
     v's dtype before the PV product, as there.
@@ -136,9 +140,12 @@ def attention_core(q, k, v, q_pos, k_pos, *, causal: bool = True,
             k_j, v_j = k[:, t0:t0 + kb], v[:, t0:t0 + kb]
             s = _gqa_scores(q_i, k_j, scale)                # [B,KV,G,n,kb]
             msk = kv_valid[:, None, None, None, t0:t0 + kb]
+            kp = k_pos[:, None, None, None, t0:t0 + kb]
+            qp = qpos_i[:, None, None, :, None]
             if causal:
-                msk = msk & (k_pos[:, None, None, None, t0:t0 + kb]
-                             <= qpos_i[:, None, None, :, None])
+                msk = msk & (kp <= qp)
+            if window:
+                msk = msk & (kp > qp - window)
             s = torch.where(msk, s, neg)
             m_new = torch.maximum(m, s.amax(dim=-1))
             corr = torch.exp(m - m_new)
@@ -314,19 +321,34 @@ def paged_attention_apply(cfg, p, x, positions, kv, page_table, lengths, *,
 # Full GQA block apply (projections + rope + core/decode dispatch)
 # ---------------------------------------------------------------------------
 
-def attention_apply(cfg, p, x, positions, *, cache=None):
+def attention_apply(cfg, p, x, positions, *, cache=None,
+                    use_kernels: bool = False):
     """Self-attention for train/prefill (cache=None) or one decode step
-    against a ring cache.  Returns (out [B,S,D], new_cache_or_None)."""
+    against a ring cache.  Returns (out [B,S,D], new_cache_or_None).
+
+    The train/prefill core is chosen as the JAX package chooses it: the
+    flash-attention autograd Function with kernel K3 in its forward
+    (``use_kernels``; on a CPU tensor its forward is the plain ``_fwd``),
+    else the O(S)-residual ``flash_attention_vjp`` (``cfg.attn_remat``),
+    else the blocked ``attention_core``.
+    """
     require_full(cfg)
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     H = cfg.num_heads
     cd = x.dtype
     q, k, v = _project_qkv_rope(cfg, p, x, positions)
+    window = cfg.window if cfg.attn_kind in ("swa", "local") else 0
     if cache is None:
-        out = attention_core(q, k, v, positions, positions, causal=True,
-                             q_block=cfg.attn_q_block,
-                             kv_block=cfg.attn_kv_block)
+        if use_kernels or cfg.attn_remat:
+            out = flash_attention_vjp(
+                q, k, v, causal=True, window=window,
+                q_block=cfg.attn_q_block, kv_block=cfg.attn_kv_block,
+                use_kernel=use_kernels)
+        else:
+            out = attention_core(q, k, v, positions, positions, causal=True,
+                                 window=window, q_block=cfg.attn_q_block,
+                                 kv_block=cfg.attn_kv_block)
         new_cache = None
     else:
         new_cache = cache_update(cache, k, v)

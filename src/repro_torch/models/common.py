@@ -72,6 +72,18 @@ def tree_leaves(tree):
     return [tree]
 
 
+def tree_unflatten(leaves, like):
+    """Inverse of ``tree_leaves``: a tree shaped like ``like`` holding
+    ``leaves`` (in sorted-key order)."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        return next(it)
+    return build(like)
+
+
 def stack_specs(tree, n: int):
     """Prepend a stacked-layer dimension (logical axis "layers")."""
     def one(s: ParamSpec):

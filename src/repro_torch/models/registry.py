@@ -31,9 +31,12 @@ from repro_torch.serving.layouts import KVLayout, layout_for
 
 @runtime_checkable
 class TrainStepContract(Protocol):
-    """Sequential training semantics: ``loss_fn(params, batch) -> scalar``."""
+    """Sequential training semantics: ``loss_fn(params, batch, *,
+    use_kernels=False) -> scalar`` (``use_kernels`` runs attention through
+    kernel K3)."""
 
-    def __call__(self, params, batch) -> torch.Tensor: ...
+    def __call__(self, params, batch, *,
+                 use_kernels: bool = False) -> torch.Tensor: ...
 
 
 @runtime_checkable
@@ -86,7 +89,7 @@ CAPABILITIES = ("train", "serve", "paged_serve", "prefix_serve",
 class ModelBundle:
     cfg: ModelConfig
     specs: Any
-    loss_fn: TrainStepContract            # (params, batch) -> scalar loss
+    loss_fn: TrainStepContract            # (params, batch, *, use_kernels) -> loss
     prefill_fn: Optional[Callable]        # (params, tokens) -> (logits, state)
     decode_fn: Optional[Callable]         # (params, tokens, state) -> (logits, state)
     init_decode_state: Callable           # (batch, seq_len, device) -> state

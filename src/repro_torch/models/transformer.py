@@ -12,10 +12,17 @@ Parameters keep the JAX pytree layout: ``params["layers"]`` holds stacked
 slices (views — no copy).  Page pools are ``{"k", "v"}: [L, P, ps, KV,
 hd]`` tensors written in place.  MoE, MLA and sliding-window families are
 not ported yet (``attention.py`` raises naming the ROADMAP item).
+
+``use_kernels`` on ``lm_forward`` / ``lm_loss`` / ``lm_prefill`` runs every
+layer's attention through kernel K3 (the JAX package's ``use_pallas``);
+``cfg.remat`` checkpoints each layer as the JAX scan does.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
@@ -71,15 +78,46 @@ def _layer_pages(pages, i: int):
 # Layer apply
 # ---------------------------------------------------------------------------
 
-def decoder_layer_apply(cfg, p, x, positions, cache=None):
+def decoder_layer_apply(cfg, p, x, positions, cache=None,
+                        use_kernels=False):
     """Returns (x, new_cache)."""
     h = apply_norm(cfg, p["ln1"], x)
     a, new_cache = attn.attention_apply(cfg, p["attn"], h, positions,
-                                        cache=cache)
+                                        cache=cache, use_kernels=use_kernels)
     x = x + a
     h = apply_norm(cfg, p["ln2"], x)
     x = x + mlp_mod.mlp_apply(cfg, p["ff"], h)
     return x, new_cache
+
+
+#: matmuls without batch dims: what the "dots" policy keeps (the JAX
+#: package's ``dots_with_no_batch_dims_saveable``); everything else is
+#: recomputed in the backward
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (_ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg, fn):
+    """Activation checkpointing of one layer per ``cfg.remat``: "none"
+    saves everything, "full" recomputes the layer in the backward, "dots"
+    saves only the weight matmuls' outputs.  Values never change; without
+    grad mode the layer just runs."""
+    if cfg.remat == "none":
+        return fn
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            _ckpt.create_selective_checkpoint_contexts, _dots_policy)
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return _ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+    return wrapped
 
 
 def _check_family(cfg):
@@ -110,7 +148,7 @@ def lm_head(cfg, params, x):
 # ---------------------------------------------------------------------------
 
 def lm_forward(cfg, params, tokens, *, collect_cache: bool = False,
-               cache_len: int = 0, n_valid=None):
+               cache_len: int = 0, n_valid=None, use_kernels: bool = False):
     """tokens [B,S] -> (final-normed hidden [B,S,d], caches_or_None, aux).
 
     ``n_valid`` (cache-collection path only) marks a masked bucket tail:
@@ -125,13 +163,16 @@ def lm_forward(cfg, params, tokens, *, collect_cache: bool = False,
     x = embed_lookup(cfg, params, tokens, cd)
     kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     caches = []
+    layer_fn = _remat(cfg, lambda lp, x: decoder_layer_apply(
+        cfg, lp, x, positions, use_kernels=use_kernels)[0])
     for i in range(cfg.num_layers):
         lp = layer_params(params, i)
         if not collect_cache:
-            x, _ = decoder_layer_apply(cfg, lp, x, positions)
+            x = layer_fn(lp, x)
             continue
         h = apply_norm(cfg, lp["ln1"], x)
-        a, _ = attn.attention_apply(cfg, lp["attn"], h, positions)
+        a, _ = attn.attention_apply(cfg, lp["attn"], h, positions,
+                                    use_kernels=use_kernels)
         # project k/v once more for the cache (cheap next to attention;
         # keeps attention_apply pure), as the JAX package does
         k = dot(h, lp["attn"]["wk"], cd)
@@ -194,21 +235,23 @@ def cross_entropy(logits, labels, vocab: int):
     return nll.sum() / torch.clamp(mask.sum(), min=1)
 
 
-def lm_loss(cfg, params, batch):
+def lm_loss(cfg, params, batch, *, use_kernels: bool = False):
     """batch: {"tokens": [B,S], "labels": [B,S]} -> scalar fp32 loss."""
     params = cast_tree(params, cfg.compute_dtype)
-    x, _, _ = lm_forward(cfg, params, batch["tokens"])
+    x, _, _ = lm_forward(cfg, params, batch["tokens"],
+                         use_kernels=use_kernels)
     logits = lm_head(cfg, params, x)
     return cross_entropy(logits, batch["labels"], cfg.vocab_size)
 
 
-def lm_prefill(cfg, params, tokens, *, cache_len: int = 0, n_valid=None):
+def lm_prefill(cfg, params, tokens, *, cache_len: int = 0, n_valid=None,
+               use_kernels: bool = False):
     """tokens [B,S] -> (last_logits [B,V], caches).  With ``n_valid``, S is
     a padded bucket and the logits are the n_valid-th token's."""
     params = cast_tree(params, cfg.compute_dtype)
     x, caches, _ = lm_forward(cfg, params, tokens, collect_cache=True,
                               cache_len=cache_len or tokens.shape[1],
-                              n_valid=n_valid)
+                              n_valid=n_valid, use_kernels=use_kernels)
     last = x[:, -1:] if n_valid is None else \
         x[:, int(n_valid) - 1:int(n_valid)]
     logits = lm_head(cfg, params, last)

@@ -8,14 +8,20 @@ skips without an NVIDIA GPU; on the card run
 This file imports torch and the port only (no jax), so it runs where the
 JAX package is not installed.  Tolerances: fp32 1e-5; bf16 1e-2 (kernel
 and plain version both accumulate in fp32 and round once to bf16, so they
-may differ by one bf16 ulp).
+may differ by one bf16 ulp); K3's row logsumexp rtol 1e-4 (the same fp32
+terms summed in another order); K3's gradients 1e-4 of their largest
+magnitude (fp32).
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.flash_attention import kernel as flash_kernel
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.kernels.paged_attention import kernel as port_kernel
 from repro_torch.kernels.paged_attention import ops as port_ops
+from repro_torch.models.flash_vjp import flash_attention_vjp
 
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -122,3 +128,67 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
                                pages[:, :, :1].contiguous(),
                                pages[:, :, :1].contiguous(), table[0], 0, 5,
                                use_kernel=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Sq,Sk,H,KV,hd,causal,window", [
+    (256, 256, 40, 8, 128, True, 0), (200, 200, 8, 2, 64, True, 48),
+    (100, 160, 4, 4, 128, False, 0), (1000, 1000, 10, 2, 128, True, 0),
+    (130, 130, 6, 1, 64, False, 40)])
+def test_cuda_flash_kernel_matches_plain(dtype, Sq, Sk, H, KV, hd, causal,
+                                         window):
+    dev = _cuda()
+    rng = np.random.default_rng(6)
+    q = _t(rng.normal(size=(2 * H, Sq, hd)).astype(np.float32), dtype, dev)
+    k = _t(rng.normal(size=(2 * KV, Sk, hd)).astype(np.float32), dtype, dev)
+    v = _t(rng.normal(size=(2 * KV, Sk, hd)).astype(np.float32), dtype, dev)
+    n0 = flash_kernel.flash_attention_kernel.launches
+    out, lse = flash_kernel.flash_attention_kernel(q, k, v, causal=causal,
+                                                   window=window)
+    assert flash_kernel.flash_attention_kernel.launches == n0 + 1
+    want = flash_ref.attention_ref(q, k, v, causal=causal, window=window)
+    want_lse = flash_ref.attention_lse_ref(q, k, causal=causal,
+                                           window=window)
+    torch.testing.assert_close(out.float(), want.float(), rtol=0,
+                               atol=TOL[dtype])
+    torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,window", [(256, 0), (200, 64)])
+def test_cuda_flash_function_grads_match_plain(S, window):
+    """The autograd Function with K3 in its forward against autograd
+    through the plain version (fp32)."""
+    dev = _cuda()
+    rng = np.random.default_rng(7)
+    B, H, KV, hd = 2, 8, 2, 64
+    arrs = [rng.normal(size=shape).astype(np.float32) for shape in
+            ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd), (B, S, H, hd))]
+    do = torch.from_numpy(arrs[3]).to(dev)
+    xs = [torch.from_numpy(a).to(dev).requires_grad_() for a in arrs[:3]]
+    n0 = flash_kernel.flash_attention_kernel.launches
+    out = flash_attention_vjp(*xs, window=window, q_block=64, kv_block=128,
+                              use_kernel=True)
+    assert flash_kernel.flash_attention_kernel.launches == n0 + 1
+    got = torch.autograd.grad(out, xs, do)
+    ys = [torch.from_numpy(a).to(dev).requires_grad_() for a in arrs[:3]]
+    ref_out = flash_ops.flash_attention(*ys, window=window, use_kernel=False)
+    want = torch.autograd.grad(ref_out, ys, do)
+    torch.testing.assert_close(out, ref_out, rtol=0, atol=1e-5)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0,
+                                   atol=1e-4 * float(w.abs().max()))
+
+
+@pytest.mark.cuda
+def test_cuda_flash_wrapper_rejects_what_the_kernel_does_not_take():
+    dev = _cuda()
+    q = torch.zeros((4, 16, 32), device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_kernel.flash_attention_kernel(q, q[:2], q[:2])
+    q = torch.zeros((4, 16, 64), device=dev)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        flash_kernel.flash_attention_kernel(q, q[:3], q[:3])
+    with pytest.raises(ValueError, match="dtype"):
+        flash_kernel.flash_attention_kernel(q, q[:2].half(), q[:2].half())

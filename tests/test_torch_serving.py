@@ -265,5 +265,10 @@ def test_unported_families_and_train_raise():
     sess = port_api.load(ARCH, smoke=True, device="cpu")
     assert {"serve", "paged_serve", "prefix_serve",
             "spec_serve"} <= sess.capabilities()
-    with pytest.raises(port_api.CapabilityError, match="trainer"):
-        sess.train(steps=1)
+    assert "train" in sess.capabilities()
+    # the trainer's unported parts: checkpoint/resume and fsdp placement
+    with pytest.raises(port_api.CapabilityError, match="ROADMAP"):
+        sess.train(steps=1, ckpt_dir="ckpt")
+    fsdp = port_api.load(ARCH, smoke=True, device="cpu", dp_mode="fsdp")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fsdp.train(steps=1, seq_len=8, global_batch=2)
