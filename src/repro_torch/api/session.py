@@ -51,6 +51,8 @@ _MAX_ENGINES = 4
 _CKPT_TODO = ("checkpointing and elastic resume (ckpt_dir / resume) are not "
               "ported yet — ROADMAP queue 1 item 5 (checkpoint/checkpoint.py,"
               " checkpoint/elastic.py, run_with_recovery)")
+_MOE_TRAIN_TODO = ("training the moe family (GShard capacity routing under "
+                   "autograd) is not ported yet — ROADMAP queue 1 item 6")
 
 
 class CapabilityError(ValueError):
@@ -170,11 +172,14 @@ class Session:
         current state and the next batches of the stream: ``train(N)`` then
         ``train(N)`` equals ``train(2N)``.  Masters and optimizer state are
         fp32; afterwards serving gets a compute-dtype copy of the trained
-        parameters.  ``ckpt_dir`` / ``resume`` raise (not ported yet).
+        parameters.  ``ckpt_dir`` / ``resume`` and the moe family raise
+        (not ported yet).
         """
         self._require("train")
         if ckpt_dir or resume:
             raise CapabilityError(_CKPT_TODO)
+        if self.model.moe is not None:
+            raise CapabilityError(_MOE_TRAIN_TODO)
         from repro_torch.checkpoint.failures import StragglerMonitor
         from repro_torch.core.transparent import TransparentTrainer
         from repro_torch.data.pipeline import make_input_pipeline

@@ -5,6 +5,11 @@
     pages) of the JAX package.
   * ``paged_prefill_kernel`` — K2, chunked prefill and speculative
     verify: ``csrc/paged_prefill.cu``, the port of ``paged_prefill_kernel``.
+  * ``paged_mla_kernel`` — K6, absorbed-MLA decode over latent pages:
+    ``csrc/paged_mla.cu``, the port of ``paged_mla_kernel``.
+  * ``paged_mla_prefill_kernel`` — K7, absorbed-MLA chunked prefill and
+    verify: ``csrc/paged_mla_prefill.cu``, the port of
+    ``paged_mla_prefill_kernel``.
 
 Each wrapper takes the plain PyTorch version (``ref.py``) for tensors on
 the CPU — and only there.  For CUDA tensors it checks device, dtype, shape
@@ -23,15 +28,23 @@ from repro_torch.kernels.common import KERNEL_DTYPES as _DTYPES
 from repro_torch.kernels.common import check_tensor as _check
 from repro_torch.kernels.common import lib_fn as _lib
 from repro_torch.kernels.common import raise_on as _raise_on
-from repro_torch.kernels.paged_attention.ref import (paged_attention_ref,
-                                                     paged_prefill_ref)
+from repro_torch.kernels.paged_attention.ref import (
+    paged_attention_ref, paged_mla_attention_ref, paged_mla_prefill_ref,
+    paged_prefill_ref)
 
 _HEAD_DIMS = (64, 128, 256)
 #: the largest GQA group K2 holds (MAXG in paged_prefill.cu)
 PREFILL_MAX_G = 8
 
+#: (H, R, rp) geometries K6 / K7 are instantiated for: deepseek-v2-lite at
+#: full width and the smoke config (``launch_geom`` in the CUDA sources)
+MLA_GEOMS = ((16, 512, 64), (4, 32, 8))
+#: page sizes K6 / K7 take (the shared-memory tile is ps x (R + rp) fp32)
+MLA_PAGE_SIZES = range(8, 65)
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 
 
 def _check_pages(q, k_pages, v_pages):
@@ -128,3 +141,107 @@ def paged_prefill_kernel(q, k_pages, v_pages, page_row, start: int,
 
 
 paged_prefill_kernel.launches = 0
+
+
+def _check_mla(q_lat, q_rope, ckv_pages, krope_pages):
+    """Device, dtype, shape and alignment checks shared by K6 and K7;
+    returns (H, R, rp, ps)."""
+    if q_lat.dtype not in _DTYPES:
+        raise ValueError(f"q_lat dtype {q_lat.dtype} not in "
+                         f"{sorted(map(str, _DTYPES))}")
+    _check(q_lat, "q_lat", q_lat.dtype, q_lat.device, 3)
+    _check(q_rope, "q_rope", q_lat.dtype, q_lat.device, 3)
+    _check(ckv_pages, "ckv_pages", q_lat.dtype, q_lat.device, 3)
+    _check(krope_pages, "krope_pages", q_lat.dtype, q_lat.device, 3)
+    for t, name in ((ckv_pages, "ckv_pages"), (krope_pages, "krope_pages")):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    _, H, R = q_lat.shape
+    rp = q_rope.shape[-1]
+    P, ps, r_p = ckv_pages.shape
+    if q_rope.shape[:2] != q_lat.shape[:2] or r_p != R \
+            or tuple(krope_pages.shape) != (P, ps, rp):
+        raise ValueError(
+            f"shape mismatch: q_lat {tuple(q_lat.shape)}, q_rope "
+            f"{tuple(q_rope.shape)}, ckv_pages {tuple(ckv_pages.shape)}, "
+            f"krope_pages {tuple(krope_pages.shape)}")
+    if (H, R, rp) not in MLA_GEOMS:
+        raise ValueError(f"MLA geometry (H, R, rp) = {(H, R, rp)} not in "
+                         f"the CUDA kernels' {MLA_GEOMS}")
+    if ps not in MLA_PAGE_SIZES:
+        raise ValueError(f"page size {ps} outside the MLA kernels' "
+                         f"{MLA_PAGE_SIZES.start}..{MLA_PAGE_SIZES.stop - 1}")
+    return H, R, rp, ps
+
+
+def paged_mla_kernel(q_lat, q_rope, ckv_pages, krope_pages, page_table,
+                     lengths, *, scale: float):
+    """K6.  q_lat: [slots, H, R]; q_rope: [slots, H, rp]; ckv_pages:
+    [P, ps, R]; krope_pages: [P, ps, rp]; page_table: [slots, n_table]
+    int32; lengths: [slots] int32.  ``scale`` is the qk-dimension softmax
+    scale.  Returns the latent output [slots, H, R] in q_lat.dtype (0 for a
+    slot with length 0)."""
+    if q_lat.device.type == "cpu":
+        return paged_mla_attention_ref(q_lat, q_rope, ckv_pages,
+                                       krope_pages, page_table, lengths,
+                                       scale=scale)
+    if q_lat.device.type != "cuda":
+        raise ValueError(f"no paged-MLA kernel for {q_lat.device}")
+    H, R, rp, ps = _check_mla(q_lat, q_rope, ckv_pages, krope_pages)
+    slots = q_lat.shape[0]
+    _check(page_table, "page_table", torch.int32, q_lat.device, 2)
+    _check(lengths, "lengths", torch.int32, q_lat.device, 1)
+    if page_table.shape[0] != slots or lengths.shape[0] != slots:
+        raise ValueError(f"shape mismatch: q_lat {tuple(q_lat.shape)}, "
+                         f"table {tuple(page_table.shape)}, lengths "
+                         f"{tuple(lengths.shape)}")
+    out = torch.empty_like(q_lat)
+    fn = _lib("paged_mla", "paged_mla_launch",
+              [_P] * 7 + [_I] * 6 + [_F, _I, _P])
+    err = fn(q_lat.data_ptr(), q_rope.data_ptr(), ckv_pages.data_ptr(),
+             krope_pages.data_ptr(), page_table.data_ptr(),
+             lengths.data_ptr(), out.data_ptr(), slots, H, R, rp, ps,
+             page_table.shape[1], float(scale), _DTYPES[q_lat.dtype],
+             torch.cuda.current_stream(q_lat.device).cuda_stream)
+    _raise_on(err, "paged_mla")
+    paged_mla_kernel.launches += 1
+    return out
+
+
+paged_mla_kernel.launches = 0
+
+
+def paged_mla_prefill_kernel(q_lat, q_rope, ckv_pages, krope_pages,
+                             page_row, start: int, n_valid: int, *,
+                             scale: float):
+    """K7.  q_lat: [S, H, R] — one request's bucketed chunk absorbed
+    through W_uk; q_rope: [S, H, rp]; ckv/krope_pages: the latent pool
+    AFTER the chunk's latents were written; page_row: [n] int32; start /
+    n_valid ints.  Returns the latent output [S, H, R] in q_lat.dtype; rows
+    past ``n_valid`` are padding and come back 0 from the kernel (never
+    read by callers)."""
+    if q_lat.device.type == "cpu":
+        return paged_mla_prefill_ref(q_lat, q_rope, ckv_pages, krope_pages,
+                                     page_row, start, n_valid, scale=scale)
+    if q_lat.device.type != "cuda":
+        raise ValueError(f"no paged-MLA prefill kernel for {q_lat.device}")
+    H, R, rp, ps = _check_mla(q_lat, q_rope, ckv_pages, krope_pages)
+    S = q_lat.shape[0]
+    _check(page_row, "page_row", torch.int32, q_lat.device, 1)
+    if not 0 <= n_valid <= S or start < 0:
+        raise ValueError(f"bad chunk bounds start={start} n_valid={n_valid}"
+                         f" for S={S}")
+    out = torch.empty_like(q_lat)
+    fn = _lib("paged_mla_prefill", "paged_mla_prefill_launch",
+              [_P] * 6 + [_I] * 8 + [_F, _I, _P])
+    err = fn(q_lat.data_ptr(), q_rope.data_ptr(), ckv_pages.data_ptr(),
+             krope_pages.data_ptr(), page_row.data_ptr(), out.data_ptr(), S,
+             H, R, rp, ps, page_row.shape[0], int(start), int(n_valid),
+             float(scale), _DTYPES[q_lat.dtype],
+             torch.cuda.current_stream(q_lat.device).cuda_stream)
+    _raise_on(err, "paged_mla_prefill")
+    paged_mla_prefill_kernel.launches += 1
+    return out
+
+
+paged_mla_prefill_kernel.launches = 0

@@ -9,9 +9,11 @@ plain PyTorch version (``ref.py``) on any device — the engine's
 from __future__ import annotations
 
 from repro_torch.kernels.paged_attention.kernel import (
-    paged_attention_kernel, paged_prefill_kernel)
-from repro_torch.kernels.paged_attention.ref import (paged_attention_ref,
-                                                     paged_prefill_ref)
+    paged_attention_kernel, paged_mla_kernel, paged_mla_prefill_kernel,
+    paged_prefill_kernel)
+from repro_torch.kernels.paged_attention.ref import (
+    paged_attention_ref, paged_mla_attention_ref, paged_mla_prefill_ref,
+    paged_prefill_ref)
 
 
 def paged_attention(q, k_pages, v_pages, page_table, lengths, *,
@@ -43,3 +45,26 @@ def paged_prefill(q, k_pages, v_pages, page_table, start: int, n_valid: int,
     out = paged_prefill_kernel(q.reshape(S, KV, H // KV, hd).contiguous(),
                                k_pages, v_pages, page_table, start, n_valid)
     return out.reshape(S, H, hd)
+
+
+def paged_mla_attention(q_lat, q_rope, ckv_pages, krope_pages, page_table,
+                        lengths, *, scale: float, use_kernel: bool = False):
+    """Absorbed-MLA decode over latent pages.  q_lat: [slots, H, R];
+    q_rope: [slots, H, rp]; ckv_pages [P, ps, R]; krope_pages [P, ps, rp];
+    ``scale`` the qk-dimension softmax scale.  Returns the latent output
+    [slots, H, R] in q_lat.dtype (the caller up-projects through W_uv)."""
+    fn = paged_mla_kernel if use_kernel else paged_mla_attention_ref
+    return fn(q_lat, q_rope, ckv_pages, krope_pages, page_table, lengths,
+              scale=scale)
+
+
+def paged_mla_prefill(q_lat, q_rope, ckv_pages, krope_pages, page_table,
+                      start: int, n_valid: int, *, scale: float,
+                      use_kernel: bool = False):
+    """Absorbed-MLA chunked prefill over latent pages (one request's
+    bucketed chunk; the pages already hold its latents).  Rows past
+    ``n_valid`` are padding and must not be read.  Returns [S, H, R] in
+    q_lat.dtype."""
+    fn = paged_mla_prefill_kernel if use_kernel else paged_mla_prefill_ref
+    return fn(q_lat, q_rope, ckv_pages, krope_pages, page_table, start,
+              n_valid, scale=scale)

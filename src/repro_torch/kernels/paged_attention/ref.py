@@ -4,6 +4,7 @@ Layouts (the serving pool's native shapes):
   * ``q``          [slots, H, hd]   — one query token per decode slot
   * ``k/v_pages``  [P, ps, KV, hd]  — per-head page pool (page 0 is the
                                       reserved trash page)
+  * ``ckv/krope_pages`` [P, ps, R] / [P, ps, rp] — latent page pool (MLA)
   * ``page_table`` [slots, n] int32 — per-slot page ids; entries past a
                                       slot's held pages point at page 0
   * ``lengths``    [slots] int32    — tokens cached per slot
@@ -48,6 +49,33 @@ def paged_attention_ref(q, k_pages, v_pages, page_table, lengths):
     return out.reshape(S, H, hd).to(q.dtype)
 
 
+def paged_mla_attention_ref(q_lat, q_rope, ckv_pages, krope_pages,
+                            page_table, lengths, *, scale: float):
+    """Absorbed MLA decode against latent pages (contiguous layout).
+
+    q_lat [slots, H, R] — queries absorbed through W_uk into the latent
+    space; q_rope [slots, H, rp]; ckv_pages [P, ps, R]; krope_pages
+    [P, ps, rp].  ``scale`` is the *qk-dimension* softmax scale (the latent
+    rank is not the score dimension).  Returns the latent-space output
+    [slots, H, R] in q_lat.dtype — the caller up-projects through W_uv.
+    """
+    S, H, R = q_lat.shape
+    _, ps, _ = ckv_pages.shape
+    n = page_table.shape[1]
+    table = page_table.long()
+    ckv = ckv_pages[table].reshape(S, n * ps, R)
+    kr = krope_pages[table].reshape(S, n * ps, krope_pages.shape[-1])
+    s = torch.einsum("shr,str->sht", q_lat.float(), ckv.float())
+    s = s + torch.einsum("shr,str->sht", q_rope.float(), kr.float())
+    valid = torch.arange(n * ps, device=q_lat.device)[None, :] \
+        < lengths.to(q_lat.device)[:, None]                  # [S, n*ps]
+    s = torch.where(valid[:, None, :], s * scale,
+                    torch.full((), NEG_INF, device=q_lat.device))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("sht,str->shr", p, ckv.float())
+    return out.to(q_lat.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Chunked prefill (one bucketed chunk of a single request)
 #
@@ -87,3 +115,29 @@ def paged_prefill_ref(q, k_pages, v_pages, page_table, start: int,
     out = _prefill_attend(q.reshape(S, KV, H // KV, hd), k, v, valid,
                           hd ** -0.5)
     return out.to(q.dtype)
+
+
+def paged_mla_prefill_ref(q_lat, q_rope, ckv_pages, krope_pages,
+                          page_table, start: int, n_valid: int, *,
+                          scale: float):
+    """Absorbed-MLA chunked prefill against latent pages (contiguous).
+    q_lat [S, H, R] — queries absorbed through W_uk; pages hold the
+    chunk's freshly written latents.  Returns the latent-space output
+    [S, H, R] in q_lat.dtype — the caller up-projects through W_uv."""
+    S, H, R = q_lat.shape
+    _, ps, _ = ckv_pages.shape
+    n = page_table.shape[0]
+    table = page_table.long()
+    ckv = ckv_pages[table].reshape(n * ps, R)
+    kr = krope_pages[table].reshape(n * ps, krope_pages.shape[-1])
+    s = torch.einsum("shr,tr->sht", q_lat.float(), ckv.float())
+    s = s + torch.einsum("shr,tr->sht", q_rope.float(), kr.float())
+    kidx = torch.arange(n * ps, device=q_lat.device)
+    qpos = start + torch.arange(S, device=q_lat.device)
+    valid = (kidx[None, :] < start + n_valid) \
+        & (kidx[None, :] <= qpos[:, None])
+    s = torch.where(valid[:, None, :], s * scale,
+                    torch.full((), NEG_INF, device=q_lat.device))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("sht,tr->shr", p, ckv.float())
+    return out.to(q_lat.dtype)

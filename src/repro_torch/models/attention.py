@@ -1,4 +1,5 @@
-"""Attention substrate, GQA half (full causal attention, contiguous pages).
+"""Attention substrate: GQA (full causal attention, contiguous pages) and
+DeepSeek MLA (latent pages).
 
 Layouts: activations ``[batch, seq, d_model]``; heads ``[batch, seq, heads,
 head_dim]`` — the JAX package's layouts, so the parity tests compare like
@@ -12,10 +13,18 @@ Execution paths:
   * ``paged_prefill_apply`` / ``paged_attention_apply`` — one prefill chunk
     / one batched decode step against the shared page pool, through the
     hand-written CUDA kernels (``use_kernels``) or their plain versions
-    (``repro_torch.kernels.paged_attention``).
+    (``repro_torch.kernels.paged_attention``);
+  * ``mla_apply`` — MLA for train/prefill (expanded: per-head K/V made
+    from the latents) and for one decode step against a ring cache
+    (absorbed: scores in the latent space);
+  * ``paged_mla_prefill_apply`` / ``paged_mla_attention_apply`` — MLA
+    against the latent page pool.  Decode is absorbed (kernel K6 or its
+    plain version).  Prefill is absorbed through kernel K7 with
+    ``use_kernels`` and expanded without, as the JAX package's
+    ``use_pallas`` chooses — two different computations of one function.
 
-Sliding-window (ring) and MLA (latent) attention are not ported yet; their
-entry points raise ``NotImplementedError`` naming the ROADMAP item.
+Sliding-window (ring) attention is not ported yet; its entry points raise
+``NotImplementedError`` naming the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -24,14 +33,12 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.common import NEG_INF
-from repro_torch.models.common import ParamSpec, apply_rope, dot
+from repro_torch.models.common import ParamSpec, apply_rope, dot, rms_norm
 from repro_torch.models.flash_vjp import flash_attention_vjp
 
-#: ROADMAP items that port the geometries this module does not cover yet
+#: ROADMAP item that ports the geometry this module does not cover yet
 RING_TODO = ("sliding-window (ring) attention is not ported yet — ROADMAP "
              "queue 1 item 6 (mixtral: windowed_attention, ring layout)")
-MLA_TODO = ("MLA latent attention is not ported yet — ROADMAP queue 1 "
-            "item 7 (deepseek-v2-lite: mla_apply, latent pages)")
 
 
 # ---------------------------------------------------------------------------
@@ -54,13 +61,32 @@ def attention_specs(cfg):
     return specs
 
 
+def mla_specs(cfg):
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.num_heads
+    qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
+    specs = {
+        # compressed kv + shared rope key
+        "w_dkv": ParamSpec((d, m.kv_lora_rank + m.qk_rope_head_dim), ("embed", "rank")),
+        "kv_norm": ParamSpec((m.kv_lora_rank,), ("rank",), init="zeros"),
+        "w_uk": ParamSpec((m.kv_lora_rank, h * m.qk_nope_head_dim), ("rank", "heads")),
+        "w_uv": ParamSpec((m.kv_lora_rank, h * m.v_head_dim), ("rank", "heads")),
+        "wo": ParamSpec((h * m.v_head_dim, d), ("heads", "embed2")),
+    }
+    if m.q_lora_rank:
+        specs["w_dq"] = ParamSpec((d, m.q_lora_rank), ("embed", "rank"))
+        specs["q_norm"] = ParamSpec((m.q_lora_rank,), ("rank",), init="zeros")
+        specs["w_uq"] = ParamSpec((m.q_lora_rank, h * qk_dim), ("rank", "heads"))
+    else:
+        specs["wq"] = ParamSpec((d, h * qk_dim), ("embed", "heads"))
+    return specs
+
+
 def require_full(cfg) -> None:
-    """Raise for the attention geometries not ported yet (sliding-window
-    ring, MLA latent); full causal attention passes."""
+    """Raise for the attention geometry not ported yet (the sliding-window
+    ring); full causal and MLA attention pass."""
     if cfg.attn_kind in ("swa", "local") and cfg.window:
         raise NotImplementedError(RING_TODO)
-    if cfg.attn_kind == "mla":
-        raise NotImplementedError(MLA_TODO)
 
 
 # ---------------------------------------------------------------------------
@@ -355,3 +381,236 @@ def attention_apply(cfg, p, x, positions, *, cache=None,
         out = decode_attend(q, new_cache)
     out = out.reshape(B, S, H * hd)
     return dot(out, p["wo"], cd), new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2): compressed latent cache, expanded for train/prefill,
+# absorbed projections for decode
+# ---------------------------------------------------------------------------
+
+def mla_init_cache(batch: int, cache_len: int, cfg, dtype, device):
+    """Ring cache of the latents (slots carry their position, -1 = empty)."""
+    m = cfg.mla
+    return {
+        "ckv": torch.zeros((batch, cache_len, m.kv_lora_rank), dtype=dtype,
+                           device=device),
+        "krope": torch.zeros((batch, cache_len, m.qk_rope_head_dim),
+                             dtype=dtype, device=device),
+        "pos": torch.full((cache_len,), -1, dtype=torch.int32, device=device),
+        "index": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+def mla_latents(cfg, p, x, positions):
+    """The cached latents of x [B,S,D]: the rms-normed compressed kv
+    ``ckv`` [B,S,R] and the roped shared key ``krope`` [B,S,rp] (roped with
+    its own singleton head axis)."""
+    m = cfg.mla
+    dkv = dot(x, p["w_dkv"], x.dtype)                       # [B,S,rank+rope]
+    ckv, krope = torch.split(dkv, [m.kv_lora_rank, m.qk_rope_head_dim],
+                             dim=-1)
+    ckv = rms_norm(ckv, p["kv_norm"], cfg.norm_eps)
+    krope = apply_rope(krope[:, :, None, :], positions,
+                       cfg.rope_theta)[:, :, 0, :]
+    return ckv, krope
+
+
+def _mla_q(cfg, p, x, positions, cd):
+    """(q_nope [B,S,H,nope], q_rope [B,S,H,rp] roped)."""
+    m = cfg.mla
+    H = cfg.num_heads
+    qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
+    if m.q_lora_rank:
+        cq = rms_norm(dot(x, p["w_dq"], cd), p["q_norm"], cfg.norm_eps)
+        q = dot(cq, p["w_uq"], cd)
+    else:
+        q = dot(x, p["wq"], cd)
+    q = q.reshape(*x.shape[:2], H, qk_dim)
+    q_nope, q_rope = torch.split(q, [m.qk_nope_head_dim, m.qk_rope_head_dim],
+                                 dim=-1)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    return q_nope, q_rope
+
+
+def _mla_scale(cfg) -> float:
+    """The qk-dimension softmax scale (not the latent rank's)."""
+    m = cfg.mla
+    return (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+
+
+def _absorb_q(cfg, p, q_nope, cd):
+    """Latent-space queries q' = q_nope @ W_uk^T [..., H, R]: fp32
+    products of the compute-dtype operands, cast to the compute dtype."""
+    m = cfg.mla
+    w_uk = p["w_uk"].reshape(m.kv_lora_rank, cfg.num_heads,
+                             m.qk_nope_head_dim).to(cd)
+    return torch.einsum("bshn,rhn->bshr", q_nope.float(),
+                        w_uk.float()).to(cd)
+
+
+def _up_v(cfg, p, o_lat, cd):
+    """Latent output o_lat [..., H, R] (compute dtype) through W_uv ->
+    [..., H, v_head_dim] in the compute dtype (fp32 products)."""
+    m = cfg.mla
+    w_uv = p["w_uv"].reshape(m.kv_lora_rank, cfg.num_heads,
+                             m.v_head_dim).to(cd)
+    return torch.einsum("...hr,rhv->...hv", o_lat.to(cd).float(),
+                        w_uv.float()).to(cd)
+
+
+def _mla_expanded(cfg, p, q_nope, q_rope, ckv, krope, q_pos, k_pos, *,
+                  kv_valid=None):
+    """Expanded MLA attention: per-head K/V materialized from the latents
+    ckv [B,T,R] / krope [B,T,rp], causal over q_pos / k_pos.  Returns
+    [B,S,H,v_head_dim]."""
+    m = cfg.mla
+    B, T, _ = ckv.shape
+    H = cfg.num_heads
+    cd = q_nope.dtype
+    k_nope = dot(ckv, p["w_uk"], cd).reshape(B, T, H, m.qk_nope_head_dim)
+    vv = dot(ckv, p["w_uv"], cd).reshape(B, T, H, m.v_head_dim)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, krope[:, :, None, :].expand(
+        B, T, H, m.qk_rope_head_dim).to(cd)], dim=-1)
+    return attention_core(q, k, vv, q_pos, k_pos, causal=True,
+                          q_block=cfg.attn_q_block,
+                          kv_block=cfg.attn_kv_block, kv_valid=kv_valid)
+
+
+def mla_apply(cfg, p, x, positions, *, cache=None):
+    """MLA for train/prefill (cache=None: expanded path) or one decode step
+    against a latent ring cache (absorbed path).  Returns (out [B,S,D],
+    new_cache_or_None)."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    cd = x.dtype
+    ckv, krope = mla_latents(cfg, p, x, positions)
+    q_nope, q_rope = _mla_q(cfg, p, x, positions, cd)
+
+    if cache is None:
+        out = _mla_expanded(cfg, p, q_nope, q_rope, ckv, krope, positions,
+                            positions)
+        out = out.reshape(B, S, H * m.v_head_dim)
+        return dot(out, p["wo"], cd), None
+
+    # absorbed decode: score in the latent space (cache stays compressed)
+    L = cache["ckv"].shape[1]
+    slot = int(cache["index"]) % L
+    new_cache = {k: v.clone() for k, v in cache.items()}
+    new_cache["ckv"][:, slot] = ckv[:, 0].to(new_cache["ckv"].dtype)
+    new_cache["krope"][:, slot] = krope[:, 0].to(new_cache["krope"].dtype)
+    new_cache["pos"][slot] = cache["index"]
+    new_cache["index"] = cache["index"] + 1
+    cur = new_cache["index"] - 1
+    valid = (new_cache["pos"] >= 0) & (new_cache["pos"] <= cur)
+    q_lat = _absorb_q(cfg, p, q_nope, cd)                   # [B,1,H,R]
+    s = torch.einsum("bshr,btr->bhst", q_lat.float(),
+                     new_cache["ckv"].float())
+    s = s + torch.einsum("bshn,btn->bhst", q_rope.float(),
+                         new_cache["krope"].float())
+    s = torch.where(valid[None, None, None, :], s * _mla_scale(cfg),
+                    torch.full((), NEG_INF, device=x.device))
+    pr = torch.softmax(s, dim=-1)
+    # output in the latent space, then up-projected through W_uv
+    o_lat = torch.einsum("bhst,btr->bshr", pr.to(cd).float(),
+                         new_cache["ckv"].float()).to(cd)
+    out = _up_v(cfg, p, o_lat, cd).reshape(B, 1, H * m.v_head_dim)
+    return dot(out, p["wo"], cd), new_cache
+
+
+def paged_latent_update(kv, ckv_new, krope_new, page_table, pos):
+    """Latent-layout twin of ``paged_cache_update``, in place: kv {"ckv":
+    [P, ps, R], "krope": [P, ps, rp]}; ckv_new/krope_new [slots, 1, ·]
+    (MLA decode caches the compressed latents, never materialized heads)."""
+    ps = kv["ckv"].shape[1]
+    pos = pos.long()
+    page = torch.gather(page_table.long(), 1, (pos // ps)[:, None])[:, 0]
+    off = pos % ps
+    for name, new in (("ckv", ckv_new), ("krope", krope_new)):
+        kv[name][page, off] = new[:, 0].to(kv[name].dtype)
+    return kv
+
+
+def paged_latent_prefill_write(kv, ckv_new, krope_new, page_ids,
+                               start: int, n_valid: int):
+    """Latent-layout twin of ``paged_prefill_write``, in place: ckv_new
+    [1, S, R], krope_new [1, S, rp] into {"ckv", "krope"} pages; padding
+    rows land in the trash page."""
+    ps = kv["ckv"].shape[1]
+    page, off = _chunk_targets(page_ids, start, n_valid, ckv_new.shape[1],
+                               ps)
+    for name, new in (("ckv", ckv_new), ("krope", krope_new)):
+        kv[name][page, off] = new[0].to(kv[name].dtype)
+    return kv
+
+
+def paged_mla_attention_apply(cfg, p, x, positions, kv, page_table, lengths,
+                              *, use_kernels: bool = False):
+    """One batched decode step of absorbed MLA over latent pages.
+
+    x [slots, 1, D]; kv {"ckv": [P, ps, R], "krope": [P, ps, rp]} — one
+    layer's latent pages.  The math mirrors ``mla_apply``'s decode path
+    (scores in the latent space; the cache stays compressed); the storage
+    is the shared page pool.  Attention runs through kernel K6
+    (``use_kernels``) or its plain version over ``lengths + 1`` keys (this
+    step's latents are written first).  Returns (out [slots, 1, D], kv) —
+    kv updated in place."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    cd = x.dtype
+    ckv, krope = mla_latents(cfg, p, x, positions)
+    q_nope, q_rope = _mla_q(cfg, p, x, positions, cd)
+    kv = paged_latent_update(kv, ckv, krope, page_table, lengths)
+    q_lat = _absorb_q(cfg, p, q_nope, cd)
+    o_lat = pa_ops.paged_mla_attention(
+        q_lat[:, 0].contiguous(), q_rope[:, 0].contiguous(), kv["ckv"],
+        kv["krope"], page_table, (lengths + 1).to(torch.int32),
+        scale=_mla_scale(cfg), use_kernel=use_kernels)
+    out = _up_v(cfg, p, o_lat[:, None], cd).reshape(B, S, H * m.v_head_dim)
+    return dot(out, p["wo"], cd), kv
+
+
+def paged_mla_prefill_apply(cfg, p, x, positions, kv, page_ids, start: int,
+                            n_valid: int, *, use_kernels: bool = False):
+    """Prefill-chunk MLA attention directly against latent pages.
+
+    The chunk's latents are written into the pool.  Without
+    ``use_kernels`` the chunk then attends the JAX package's default way —
+    the slotted prefill's numerics (``mla_apply``'s *expanded* path): per-
+    head K/V materialized from the gathered latents, causal over prefix +
+    chunk.  With ``use_kernels`` it runs absorbed through kernel K7
+    (``paged_mla_prefill``: queries absorbed through W_uk, pages read as
+    compressed ckv/krope, the latent output up-projected through W_uv —
+    the decode path's math), or through K7's plain version on the CPU.
+    Returns (out [1, S, D], kv) — kv updated in place."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    cd = x.dtype
+    ps = kv["ckv"].shape[1]
+    n = page_ids.shape[0]
+    ckv, krope = mla_latents(cfg, p, x, positions)
+    kv = paged_latent_prefill_write(kv, ckv, krope, page_ids, start, n_valid)
+    q_nope, q_rope = _mla_q(cfg, p, x, positions, cd)
+    if use_kernels:
+        q_lat = _absorb_q(cfg, p, q_nope, cd)
+        o_lat = pa_ops.paged_mla_prefill(
+            q_lat[0].contiguous(), q_rope[0].contiguous(), kv["ckv"],
+            kv["krope"], page_ids, start, n_valid, scale=_mla_scale(cfg),
+            use_kernel=True)
+        out = _up_v(cfg, p, o_lat, cd)[None]
+    else:
+        table = page_ids.long()
+        ckv_all = kv["ckv"][table].reshape(1, n * ps, m.kv_lora_rank).to(cd)
+        kr_all = kv["krope"][table].reshape(1, n * ps,
+                                            m.qk_rope_head_dim).to(cd)
+        k_pos = torch.arange(n * ps, device=x.device)
+        out = _mla_expanded(cfg, p, q_nope, q_rope, ckv_all, kr_all,
+                            positions, k_pos,
+                            kv_valid=(k_pos < start + n_valid)[None, :])
+    out = out.reshape(B, S, H * m.v_head_dim)
+    return dot(out, p["wo"], cd), kv

@@ -1,0 +1,167 @@
+"""Mixture-of-Experts feed-forward (token-choice top-k routing).
+
+Two modes, with the JAX package's contracts:
+
+  * GShard capacity (training, the default): tokens are dispatched in
+    groups with a per-expert capacity ``C``; choices past an expert's
+    capacity are dropped.  Dense one-hot dispatch/combine einsums, as the
+    JAX package computes them.
+  * ``per_token=True`` (every serving path): each token's full top-k runs,
+    nothing is dropped, and no token's routing depends on another's — the
+    engine's token-identity guarantee across bucket widths, chunk
+    boundaries and concurrently decoding slots.  The JAX package computes
+    this as a dense pass over all E experts with zero combine weights off
+    the top-k; here only the selected experts run: the (token, choice)
+    pairs are grouped by expert and each group is one matmul chain.  That
+    needs the group sizes on the host — one device-to-host sync per call.
+
+Numerics copied from the JAX package: router logits in fp32 from the cast
+router; softmax, then top-k (ties to the lower expert index); gates
+renormalised by ``max(sum, 1e-9)`` and cast to the compute dtype before
+they weight an expert's output; the top-k contributions summed in fp32 in
+ascending expert order and cast once; shared experts added after.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.common import ParamSpec, activation, dot
+
+
+def moe_specs(cfg):
+    m = cfg.moe
+    d, f = cfg.d_model, m.d_ff_expert
+    specs = {
+        "router": ParamSpec((d, m.num_experts), ("embed", "expert"), init="small"),
+        "w_gate": ParamSpec((m.num_experts, d, f), ("expert", "embed", "expert_mlp")),
+        "w_up": ParamSpec((m.num_experts, d, f), ("expert", "embed", "expert_mlp")),
+        "w_down": ParamSpec((m.num_experts, f, d), ("expert", "expert_mlp", "embed2")),
+    }
+    if m.num_shared_experts:
+        fs = m.d_ff_shared or f * m.num_shared_experts
+        specs["shared"] = {
+            "w_gate": ParamSpec((d, fs), ("embed", "mlp")),
+            "w_up": ParamSpec((d, fs), ("embed", "mlp")),
+            "w_down": ParamSpec((fs, d), ("mlp", "embed2")),
+        }
+    return specs
+
+
+def _choose_group_size(n_tokens: int, num_experts: int) -> int:
+    """Pick a dispatch group size keeping the [g,E,C] combine tensor modest."""
+    for g in (4096, 2048, 1024, 512, 256, 128):
+        if n_tokens % g == 0 and g * num_experts <= 4096 * 16:
+            return g
+    return n_tokens
+
+
+def _route(router, xf, K: int):
+    """xf [N, D] -> (probs [N, E] fp32, gates [N, K] fp32, experts [N, K]).
+    ``torch.sort`` with ``stable=True`` keeps the lower expert index first
+    among equal probabilities, as ``lax.top_k`` does."""
+    logits = torch.matmul(xf.float(), router.float())
+    probs = torch.softmax(logits, dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, sel = vals[:, :K], idx[:, :K]
+    gates = gates / torch.clamp(gates.sum(dim=-1, keepdim=True), min=1e-9)
+    return probs, gates, sel
+
+
+def _expert(act, w_gate, w_up, w_down, x, cd):
+    return dot(act(dot(x, w_gate, cd)) * dot(x, w_up, cd), w_down, cd)
+
+
+def _per_token(cfg, p, xf, gates, sel, keep, cd):
+    """Drop-free routing: [N, D] in the compute dtype.  Padding tokens
+    (``keep`` False) route nowhere."""
+    m = cfg.moe
+    E, K = m.num_experts, m.top_k
+    N = xf.shape[0]
+    act = activation(cfg.act)
+    flat_e = torch.where(keep[:, None], sel, E).reshape(-1)   # E = nowhere
+    order = torch.argsort(flat_e, stable=True)
+    counts = torch.bincount(flat_e, minlength=E + 1)[:E].tolist()  # sync
+    tok = (order // K)
+    gate = gates.to(cd).reshape(-1)[order]
+    acc = torch.zeros((N, xf.shape[1]), dtype=torch.float32,
+                      device=xf.device)
+    lo = 0
+    for e, c in enumerate(counts):      # ascending expert order
+        if not c:
+            continue
+        t = tok[lo:lo + c]
+        ye = _expert(act, p["w_gate"][e], p["w_up"][e], p["w_down"][e],
+                     xf[t], cd)
+        acc.index_add_(0, t, ye.float() * gate[lo:lo + c, None].float())
+        lo += c
+    return acc.to(cd)
+
+
+def _capacity(cfg, p, xf, gates, onehot, G: int, g: int, cd):
+    """GShard capacity dispatch (choice-major priority): [N, D]."""
+    m = cfg.moe
+    E, K = m.num_experts, m.top_k
+    C = min(max(int(g * K / E * m.capacity_factor), 1), g)
+    oh = onehot.reshape(G, g, K, E)
+    prio = oh.permute(0, 2, 1, 3).reshape(G, K * g, E)           # choice-major
+    pos = torch.cumsum(prio, dim=1) * prio - 1                    # position in expert
+    pos = pos.reshape(G, K, g, E).permute(0, 2, 1, 3)             # [G,g,K,E]
+    keep = (pos >= 0) & (pos < C)
+    pos = torch.where(keep, pos, 0)
+    slot = F.one_hot(pos.long(), C).to(cd) * keep[..., None].to(cd)
+    combine = torch.einsum(
+        "gtke,gtkec->gtec",
+        (gates.reshape(G, g, K)[..., None] * oh.float()).to(cd), slot)
+    dispatch = (combine > 0).to(cd)
+    act = activation(cfg.act)
+    xe = torch.einsum("gtd,gtec->gecd", xf.reshape(G, g, -1), dispatch)
+    h = act(torch.einsum("gecd,edf->gecf", xe, p["w_gate"].to(cd))) * \
+        torch.einsum("gecd,edf->gecf", xe, p["w_up"].to(cd))
+    ye = torch.einsum("gecf,efd->gecd", h, p["w_down"].to(cd))
+    return torch.einsum("gecd,gtec->gtd", ye, combine).reshape(G * g, -1)
+
+
+def moe_apply(cfg, p, x, *, n_valid: Optional[int] = None,
+              per_token: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [B,S,D] -> (y [B,S,D], aux_loss scalar fp32).
+
+    ``n_valid`` (serving prefill): positions >= n_valid along S are a
+    masked bucket tail — their routing is zeroed before capacity
+    accounting, so padding never displaces a real token (their own outputs
+    are garbage either way; the engine masks them downstream).
+    ``per_token``: drop-free per-token routing (see the module docstring).
+    The Switch load-balance aux loss is the JAX package's in both modes.
+    """
+    m = cfg.moe
+    B, S, D = x.shape
+    E, K = m.num_experts, m.top_k
+    cd = x.dtype
+    N = B * S
+    xf = x.reshape(N, D)
+    probs, gates, sel = _route(p["router"], xf, K)
+    keep = torch.ones((N,), dtype=torch.bool, device=x.device)
+    if n_valid is not None:
+        keep = (torch.arange(S, device=x.device) < n_valid).repeat(B)
+    onehot = F.one_hot(sel, E) * keep[:, None, None]              # [N,K,E]
+
+    g = 1 if per_token else _choose_group_size(N, E)
+    G = N // g
+    if per_token:
+        y = _per_token(cfg, p, xf, gates, sel, keep, cd)
+    else:
+        y = _capacity(cfg, p, xf, gates, onehot, G, g, cd)
+    y = y.reshape(B, S, D)
+
+    if m.num_shared_experts:
+        sh = p["shared"]
+        y = y + _expert(activation(cfg.act), sh["w_gate"], sh["w_up"],
+                        sh["w_down"], x, cd)
+
+    # Switch load-balance auxiliary loss, per dispatch group
+    frac = onehot.float().reshape(G, g * K, E).mean(dim=1)        # [G,E]
+    pmean = probs.reshape(G, g, E).mean(dim=1)                    # [G,E]
+    aux = E * torch.mean(torch.sum(frac * pmean, dim=-1)) / K
+    return y, aux.float()

@@ -6,9 +6,9 @@ entry points the runtime dispatches on.  Decode-path contracts are typed
 them a family declares; the serving engine and ``repro_torch.api``
 dispatch on that set, never on ``is None`` probes.
 
-This slice of the port builds the ``dense`` family.  The other families
-(moe, hybrid, ssm, encdec, vlm, cnn) raise one line naming their ROADMAP
-item.
+The port builds the ``dense`` and ``moe`` families (mixtral's sliding-
+window geometry raises through ``layout_for``).  The other families
+(hybrid, ssm, encdec, vlm, cnn) raise one line naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -141,9 +141,10 @@ def _build_lm(cfg: ModelConfig) -> ModelBundle:
         decode_fn=functools.partial(transformer.lm_decode, cfg),
         init_decode_state=lambda b, s, device="cpu":
             transformer.init_decode_caches(cfg, b, s, device=device),
+        # serving prefill routes MoE drop-free per token (moe_dropless)
         serve_prefill_fn=lambda params, tokens, *, cache_len, n_valid=None:
             transformer.lm_prefill(cfg, params, tokens, cache_len=cache_len,
-                                   n_valid=n_valid),
+                                   n_valid=n_valid, moe_dropless=True),
         paged_decode_fn=(functools.partial(transformer.lm_paged_decode, cfg)
                          if layout is not None else None),
         paged_prefill_fn=(functools.partial(transformer.lm_paged_prefill,
@@ -157,7 +158,6 @@ def _build_lm(cfg: ModelConfig) -> ModelBundle:
 
 
 _TODO = {
-    "moe": "moe (mixtral, deepseek) — ROADMAP queue 1 items 6-7",
     "hybrid": "hybrid (recurrentgemma) — ROADMAP queue 1 item 9",
     "ssm": "ssm (rwkv6) — ROADMAP queue 1 item 9",
     "encdec": "encdec (whisper) — ROADMAP queue 1 item 11",
@@ -165,7 +165,7 @@ _TODO = {
     "cnn": "cnn (alexnet) — ROADMAP queue 1 item 11",
 }
 
-_BUILDERS = {"dense": _build_lm}
+_BUILDERS = {"dense": _build_lm, "moe": _build_lm}
 
 
 def build(cfg: ModelConfig) -> ModelBundle:
@@ -177,8 +177,14 @@ def build(cfg: ModelConfig) -> ModelBundle:
 
 
 def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
-    """Analytic parameter count (total, incl. embeddings); the dense family
-    has no inactive experts, so ``active_only`` changes nothing here."""
+    """Analytic parameter count (total, incl. embeddings); ``active_only``
+    leaves out the experts a token does not run (every layer's
+    ``num_experts - top_k`` routed experts)."""
     bundle = build(cfg)
-    return sum(int(np.prod(leaf.shape))
-               for leaf in common.tree_leaves(bundle.specs))
+    total = sum(int(np.prod(leaf.shape))
+                for leaf in common.tree_leaves(bundle.specs))
+    if active_only and cfg.moe is not None:
+        m = cfg.moe
+        per_expert = 3 * cfg.d_model * m.d_ff_expert       # gate + up + down
+        total -= (m.num_experts - m.top_k) * per_expert * cfg.num_layers
+    return total

@@ -1,4 +1,7 @@
-"""Decoder-only LM assembly, dense path: embeddings + stacked layers + head.
+"""Decoder-only LM assembly: embeddings + stacked layers + head.
+
+Covers the dense (GQA) and MoE families, with full causal or MLA
+attention (``deepseek-v2-lite``: MLA + MoE).
 
 Entry points (the JAX package's, same names and contracts):
   * ``lm_loss``         — tokens -> scalar loss
@@ -10,8 +13,9 @@ Entry points (the JAX package's, same names and contracts):
 Parameters keep the JAX pytree layout: ``params["layers"]`` holds stacked
 ``[L, ...]`` leaves, and the scan over layers is a Python loop over their
 slices (views — no copy).  Page pools are ``{"k", "v"}: [L, P, ps, KV,
-hd]`` tensors written in place.  MoE, MLA and sliding-window families are
-not ported yet (``attention.py`` raises naming the ROADMAP item).
+hd]`` tensors (MLA: ``{"ckv", "krope"}: [L, P, ps, R | rp]``) written in
+place.  Sliding-window families are not ported yet (``attention.py``
+raises naming the ROADMAP item).
 
 ``use_kernels`` on ``lm_forward`` / ``lm_loss`` / ``lm_prefill`` runs every
 layer's attention through kernel K3 (the JAX package's ``use_pallas``);
@@ -26,6 +30,7 @@ from torch.utils import checkpoint as _ckpt
 
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (ParamSpec, apply_norm, cast_tree, dot,
                                        norm_specs, stack_specs, torch_dtype)
 
@@ -44,8 +49,12 @@ def head_specs(cfg):
 
 
 def decoder_layer_specs(cfg):
-    return {"ln1": norm_specs(cfg), "attn": attn.attention_specs(cfg),
-            "ln2": norm_specs(cfg), "ff": mlp_mod.mlp_specs(cfg)}
+    a = attn.mla_specs(cfg) if cfg.attn_kind == "mla" \
+        else attn.attention_specs(cfg)
+    ff = moe_mod.moe_specs(cfg) if cfg.moe is not None \
+        else mlp_mod.mlp_specs(cfg)
+    return {"ln1": norm_specs(cfg), "attn": a, "ln2": norm_specs(cfg),
+            "ff": ff}
 
 
 def lm_specs(cfg):
@@ -78,16 +87,32 @@ def _layer_pages(pages, i: int):
 # Layer apply
 # ---------------------------------------------------------------------------
 
+def ff_apply(cfg, p, h, *, n_valid=None, per_token: bool = False):
+    """The feed-forward half: (out, aux) — MoE (``moe_apply``'s routing
+    modes and aux loss) or the dense MLP (aux 0)."""
+    if cfg.moe is not None:
+        return moe_mod.moe_apply(cfg, p, h, n_valid=n_valid,
+                                 per_token=per_token)
+    return mlp_mod.mlp_apply(cfg, p, h), torch.zeros(
+        (), dtype=torch.float32, device=h.device)
+
+
 def decoder_layer_apply(cfg, p, x, positions, cache=None,
                         use_kernels=False):
-    """Returns (x, new_cache)."""
+    """Returns (x, new_cache, aux).  MLA attention ignores ``use_kernels``
+    here, as the JAX package's does ``use_pallas``: its whole-sequence
+    path is the expanded one."""
     h = apply_norm(cfg, p["ln1"], x)
-    a, new_cache = attn.attention_apply(cfg, p["attn"], h, positions,
-                                        cache=cache, use_kernels=use_kernels)
+    if cfg.attn_kind == "mla":
+        a, new_cache = attn.mla_apply(cfg, p["attn"], h, positions,
+                                      cache=cache)
+    else:
+        a, new_cache = attn.attention_apply(cfg, p["attn"], h, positions,
+                                            cache=cache,
+                                            use_kernels=use_kernels)
     x = x + a
-    h = apply_norm(cfg, p["ln2"], x)
-    x = x + mlp_mod.mlp_apply(cfg, p["ff"], h)
-    return x, new_cache
+    f, aux = ff_apply(cfg, p["ff"], apply_norm(cfg, p["ln2"], x))
+    return x + f, new_cache, aux
 
 
 #: matmuls without batch dims: what the "dots" policy keeps (the JAX
@@ -120,13 +145,6 @@ def _remat(cfg, fn):
     return wrapped
 
 
-def _check_family(cfg):
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            "MoE feed-forward is not ported yet — ROADMAP queue 1 item 6 "
-            "(models/moe.py)")
-
-
 # ---------------------------------------------------------------------------
 # Embedding / head
 # ---------------------------------------------------------------------------
@@ -148,68 +166,89 @@ def lm_head(cfg, params, x):
 # ---------------------------------------------------------------------------
 
 def lm_forward(cfg, params, tokens, *, collect_cache: bool = False,
-               cache_len: int = 0, n_valid=None, use_kernels: bool = False):
+               cache_len: int = 0, n_valid=None, use_kernels: bool = False,
+               moe_dropless: bool = False):
     """tokens [B,S] -> (final-normed hidden [B,S,d], caches_or_None, aux).
 
     ``n_valid`` (cache-collection path only) marks a masked bucket tail:
     tokens at positions >= n_valid are padding — their cache slots carry
     pos = -1 and the cache index is n_valid.  ``aux`` is the MoE auxiliary
-    loss of the JAX package, always 0 for the dense family.
+    loss summed over layers (0 for the dense family).  ``moe_dropless``
+    (cache-collection path) routes MoE per token with no capacity
+    truncation — the serving engine's routing; training keeps GShard
+    capacity semantics.
     """
-    _check_family(cfg)
     cd = torch_dtype(cfg.compute_dtype)
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
     x = embed_lookup(cfg, params, tokens, cd)
     kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
     layer_fn = _remat(cfg, lambda lp, x: decoder_layer_apply(
-        cfg, lp, x, positions, use_kernels=use_kernels)[0])
+        cfg, lp, x, positions, use_kernels=use_kernels)[::2])
     for i in range(cfg.num_layers):
         lp = layer_params(params, i)
         if not collect_cache:
-            x = layer_fn(lp, x)
+            x, a2 = layer_fn(lp, x)
+            aux = aux + a2
             continue
         h = apply_norm(cfg, lp["ln1"], x)
-        a, _ = attn.attention_apply(cfg, lp["attn"], h, positions,
-                                    use_kernels=use_kernels)
-        # project k/v once more for the cache (cheap next to attention;
-        # keeps attention_apply pure), as the JAX package does
-        k = dot(h, lp["attn"]["wk"], cd)
-        v = dot(h, lp["attn"]["wv"], cd)
-        if cfg.qkv_bias:
-            k = k + lp["attn"]["bk"].to(cd)
-            v = v + lp["attn"]["bv"].to(cd)
-        k = attn.apply_rope(k.reshape(B, S, kv, hd), positions, cfg.rope_theta)
-        v = v.reshape(B, S, kv, hd)
-        caches.append(_fill_kv_cache(k, v, positions, cache_len, n_valid))
+        if cfg.attn_kind == "mla":
+            # expanded attention; the cache keeps the latents
+            a, _ = attn.mla_apply(cfg, lp["attn"], h, positions)
+            ckv, krope = attn.mla_latents(cfg, lp["attn"], h, positions)
+            leaves = {"ckv": ckv, "krope": krope}
+        else:
+            a, _ = attn.attention_apply(cfg, lp["attn"], h, positions,
+                                        use_kernels=use_kernels)
+            # project k/v once more for the cache (cheap next to
+            # attention; keeps attention_apply pure), as the JAX package
+            # does
+            k = dot(h, lp["attn"]["wk"], cd)
+            v = dot(h, lp["attn"]["wv"], cd)
+            if cfg.qkv_bias:
+                k = k + lp["attn"]["bk"].to(cd)
+                v = v + lp["attn"]["bv"].to(cd)
+            k = attn.apply_rope(k.reshape(B, S, kv, hd), positions,
+                                cfg.rope_theta)
+            leaves = {"k": k, "v": v.reshape(B, S, kv, hd)}
+        caches.append(_fill_cache(leaves, positions, cache_len, n_valid))
         x = x + a
-        h2 = apply_norm(cfg, lp["ln2"], x)
-        x = x + mlp_mod.mlp_apply(cfg, lp["ff"], h2)
+        # bucketed serving prefill: padding must not consume expert
+        # capacity, and serving routes drop-free per token
+        f, a2 = ff_apply(cfg, lp["ff"], apply_norm(cfg, lp["ln2"], x),
+                         n_valid=n_valid, per_token=moe_dropless)
+        x = x + f
+        aux = aux + a2
     x = apply_norm(cfg, params["final_norm"], x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if not collect_cache:
         return x, None, aux
     stacked = {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
     return x, stacked, aux
 
 
-def _fill_kv_cache(k, v, positions, cache_len: int, n_valid=None):
-    """Build a ring cache from prefill k/v (keep the last cache_len tokens).
+def _fill_cache(leaves, positions, cache_len: int, n_valid=None):
+    """Build a ring cache from prefill tensors ``leaves`` (``{"k", "v"}``
+    [B,S,KV,hd] or MLA's ``{"ckv", "krope"}`` [B,S,·]), keeping the last
+    cache_len tokens.
 
     With ``n_valid`` (masked bucket tail; requires S <= cache_len) padding
     entries carry pos = -1 and ``index`` = n_valid.
     """
-    B, S, KV, hd = k.shape
-    dev = k.device
+    first = next(iter(leaves.values()))
+    B, S = first.shape[:2]
+    dev = first.device
     L = min(cache_len, S) if cache_len else S
     Lc = cache_len or S
     pos = positions[S - L:].long()
     slots = pos % Lc
-    ck = torch.zeros((B, Lc, KV, hd), dtype=k.dtype, device=dev)
-    cv = torch.zeros((B, Lc, KV, hd), dtype=v.dtype, device=dev)
-    ck[:, slots] = k[:, S - L:]
-    cv[:, slots] = v[:, S - L:]
+    out = {}
+    for name, t in leaves.items():
+        c = torch.zeros((B, Lc) + tuple(t.shape[2:]), dtype=t.dtype,
+                        device=dev)
+        c[:, slots] = t[:, S - L:]
+        out[name] = c
     cpos = torch.full((Lc,), -1, dtype=torch.int32, device=dev)
     if n_valid is None:
         cpos[slots] = pos.to(torch.int32)
@@ -217,7 +256,7 @@ def _fill_kv_cache(k, v, positions, cache_len: int, n_valid=None):
     else:
         cpos[slots] = torch.where(pos < n_valid, pos, -1).to(torch.int32)
         index = torch.tensor(int(n_valid), dtype=torch.int32, device=dev)
-    return {"k": ck, "v": cv, "pos": cpos, "index": index}
+    return {**out, "pos": cpos, "index": index}
 
 
 # ---------------------------------------------------------------------------
@@ -238,20 +277,26 @@ def cross_entropy(logits, labels, vocab: int):
 def lm_loss(cfg, params, batch, *, use_kernels: bool = False):
     """batch: {"tokens": [B,S], "labels": [B,S]} -> scalar fp32 loss."""
     params = cast_tree(params, cfg.compute_dtype)
-    x, _, _ = lm_forward(cfg, params, batch["tokens"],
-                         use_kernels=use_kernels)
+    x, _, aux = lm_forward(cfg, params, batch["tokens"],
+                           use_kernels=use_kernels)
     logits = lm_head(cfg, params, x)
-    return cross_entropy(logits, batch["labels"], cfg.vocab_size)
+    loss = cross_entropy(logits, batch["labels"], cfg.vocab_size)
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.aux_loss_weight * aux
+    return loss
 
 
 def lm_prefill(cfg, params, tokens, *, cache_len: int = 0, n_valid=None,
-               use_kernels: bool = False):
+               use_kernels: bool = False, moe_dropless: bool = False):
     """tokens [B,S] -> (last_logits [B,V], caches).  With ``n_valid``, S is
-    a padded bucket and the logits are the n_valid-th token's."""
+    a padded bucket and the logits are the n_valid-th token's.
+    ``moe_dropless`` selects the serving engine's per-token MoE routing
+    (see ``lm_forward``)."""
     params = cast_tree(params, cfg.compute_dtype)
     x, caches, _ = lm_forward(cfg, params, tokens, collect_cache=True,
                               cache_len=cache_len or tokens.shape[1],
-                              n_valid=n_valid, use_kernels=use_kernels)
+                              n_valid=n_valid, use_kernels=use_kernels,
+                              moe_dropless=moe_dropless)
     last = x[:, -1:] if n_valid is None else \
         x[:, int(n_valid) - 1:int(n_valid)]
     logits = lm_head(cfg, params, last)
@@ -270,7 +315,8 @@ def lm_paged_prefill(cfg, params, tokens, state, *, use_kernels: bool = False):
         it is masked and written to the trash page)
 
     Returns (logits [1, V] of the last valid token, pages) — pages written
-    in place.  ``use_kernels`` selects the CUDA chunked-prefill kernel.
+    in place.  ``use_kernels`` selects the CUDA chunked-prefill kernel (K2,
+    or K7 for MLA's latent pages).
     """
     x, n_valid, pages = _paged_forward(cfg, params, tokens, state,
                                        use_kernels=use_kernels)
@@ -288,8 +334,8 @@ def lm_paged_verify(cfg, params, tokens, state, *, use_kernels: bool = False):
 
 
 def _paged_forward(cfg, params, tokens, state, *, use_kernels: bool = False):
-    """Shared paged prefill/verify body -> (x [1,S,d], n_valid, pages)."""
-    _check_family(cfg)
+    """Shared paged prefill/verify body -> (x [1,S,d], n_valid, pages).
+    MoE routes per token with the bucket tail masked."""
     params = cast_tree(params, cfg.compute_dtype)
     cd = torch_dtype(cfg.compute_dtype)
     S = tokens.shape[1]
@@ -301,12 +347,15 @@ def _paged_forward(cfg, params, tokens, state, *, use_kernels: bool = False):
     for i in range(cfg.num_layers):
         lp = layer_params(params, i)
         h = apply_norm(cfg, lp["ln1"], x)
-        a, _ = attn.paged_prefill_apply(
-            cfg, lp["attn"], h, positions, _layer_pages(pages, i),
-            state["page_table"], start, n_valid, use_kernels=use_kernels)
+        apply = attn.paged_mla_prefill_apply if cfg.attn_kind == "mla" \
+            else attn.paged_prefill_apply
+        a, _ = apply(cfg, lp["attn"], h, positions, _layer_pages(pages, i),
+                     state["page_table"], start, n_valid,
+                     use_kernels=use_kernels)
         x = x + a
-        h = apply_norm(cfg, lp["ln2"], x)
-        x = x + mlp_mod.mlp_apply(cfg, lp["ff"], h)
+        f, _ = ff_apply(cfg, lp["ff"], apply_norm(cfg, lp["ln2"], x),
+                        n_valid=n_valid, per_token=True)
+        x = x + f
     x = apply_norm(cfg, params["final_norm"], x)
     return x, n_valid, pages
 
@@ -315,7 +364,6 @@ def lm_decode(cfg, params, tokens, caches):
     """One decode step. tokens [B,1]; caches stacked [L,...] ring caches.
 
     Returns (logits [B,V], new_caches)."""
-    _check_family(cfg)
     params = cast_tree(params, cfg.compute_dtype)
     cd = torch_dtype(cfg.compute_dtype)
     B = tokens.shape[0]
@@ -325,8 +373,8 @@ def lm_decode(cfg, params, tokens, caches):
     new = []
     for i in range(cfg.num_layers):
         cache = {k: v[i] for k, v in caches.items()}
-        x, c = decoder_layer_apply(cfg, layer_params(params, i), x,
-                                   positions, cache=cache)
+        x, c, _ = decoder_layer_apply(cfg, layer_params(params, i), x,
+                                      positions, cache=cache)
         new.append(c)
     x = apply_norm(cfg, params["final_norm"], x)
     logits = lm_head(cfg, params, x)
@@ -335,15 +383,21 @@ def lm_decode(cfg, params, tokens, caches):
 
 def paged_decoder_layer_apply(cfg, p, x, positions, kv, page_table, lengths,
                               use_kernels=False):
-    """Decode-step layer over a shared paged KV pool.  Returns (x, kv)."""
+    """Decode-step layer over a shared paged KV pool.  Returns (x, kv).
+
+    Dispatches on the family's page layout: per-head k/v pages
+    (``paged_attention_apply``) or MLA's latent ckv/krope pages
+    (``paged_mla_attention_apply``); MoE routes per token, so concurrently
+    decoding slots never compete for expert capacity."""
     h = apply_norm(cfg, p["ln1"], x)
-    a, kv = attn.paged_attention_apply(cfg, p["attn"], h, positions, kv,
-                                       page_table, lengths,
-                                       use_kernels=use_kernels)
+    apply = attn.paged_mla_attention_apply if cfg.attn_kind == "mla" \
+        else attn.paged_attention_apply
+    a, kv = apply(cfg, p["attn"], h, positions, kv, page_table, lengths,
+                  use_kernels=use_kernels)
     x = x + a
-    h = apply_norm(cfg, p["ln2"], x)
-    x = x + mlp_mod.mlp_apply(cfg, p["ff"], h)
-    return x, kv
+    f, _ = ff_apply(cfg, p["ff"], apply_norm(cfg, p["ln2"], x),
+                    per_token=True)
+    return x + f, kv
 
 
 def lm_paged_decode(cfg, params, tokens, state, *, use_kernels: bool = False):
@@ -356,9 +410,9 @@ def lm_paged_decode(cfg, params, tokens, state, *, use_kernels: bool = False):
         (= the position this step's token is written at)
 
     Returns (logits [slots, V], pages) — pages written in place.
-    ``use_kernels`` selects the CUDA paged decode kernel.
+    ``use_kernels`` selects the CUDA paged decode kernel (K1, or K6 for
+    MLA's latent pages).
     """
-    _check_family(cfg)
     params = cast_tree(params, cfg.compute_dtype)
     cd = torch_dtype(cfg.compute_dtype)
     lengths = state["pos"]
@@ -376,11 +430,14 @@ def lm_paged_decode(cfg, params, tokens, state, *, use_kernels: bool = False):
 
 
 def init_decode_caches(cfg, batch: int, seq_len: int, device="cpu"):
-    """Stacked [L,...] cache tree for lm_decode."""
-    _check_family(cfg)
+    """Stacked [L,...] cache tree for lm_decode (MLA: the latent leaves
+    ``ckv`` / ``krope``)."""
     attn.require_full(cfg)
-    one = attn.init_cache(batch, seq_len, cfg.num_kv_heads,
-                          cfg.resolved_head_dim,
-                          torch_dtype(cfg.compute_dtype), device)
+    cd = torch_dtype(cfg.compute_dtype)
+    if cfg.attn_kind == "mla":
+        one = attn.mla_init_cache(batch, seq_len, cfg, cd, device)
+    else:
+        one = attn.init_cache(batch, seq_len, cfg.num_kv_heads,
+                              cfg.resolved_head_dim, cd, device)
     return {k: v[None].expand((cfg.num_layers,) + v.shape).clone()
             for k, v in one.items()}

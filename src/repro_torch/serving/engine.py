@@ -45,7 +45,8 @@ Differences from the JAX engine, all forced by eager PyTorch:
 
 Not ported yet, each raising a one-line ``ValueError`` naming its ROADMAP
 item: the slotted pool and whole-prompt prefill (``kv_layout="slotted"``,
-``enable_prefix_cache=False``), int8 pages (``kv_dtype="int8"``) and mesh
+``enable_prefix_cache=False``), int8 per-head pages (``kv_dtype="int8"``;
+MLA's latent pages reject it with the JAX package's error) and mesh
 placement (``mesh_cfg``).
 """
 from __future__ import annotations
@@ -61,6 +62,7 @@ from repro_torch.models import registry
 from repro_torch.models.common import torch_dtype
 from repro_torch.obs import (INFLIGHT_COUNTER, NULL_TRACER, Tracer,
                              request_track, write_chrome_trace)
+from repro_torch.serving.layouts import layout_for
 from repro_torch.serving.metrics import ServingMetrics
 from repro_torch.serving.paged import PagedKVCachePool, upload
 from repro_torch.serving.sampling import (GREEDY, PACKED_WIDTH,
@@ -210,9 +212,9 @@ class ServingEngine:
                              f"enable_prefix_cache="
                              f"{self.cfg.enable_prefix_cache}: "
                              + _SLOTTED_TODO)
-        if self.cfg.kv_dtype != "fp32":
-            raise ValueError(f"kv_dtype={self.cfg.kv_dtype!r}: int8 KV pages "
-                             "are not ported yet — ROADMAP queue 1 item 8")
+        # int8 pages: the JAX package's error for MLA's latent pages, the
+        # ROADMAP item for per-head pages (not ported yet)
+        layout_for(model_cfg, self.cfg.kv_dtype)
         self.tracer = (Tracer(clock=clock, capacity=self.cfg.trace_capacity,
                               meta={"model": model_cfg.name,
                                     "family": model_cfg.family,

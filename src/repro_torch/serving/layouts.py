@@ -6,10 +6,10 @@ cache: which decode-state ``leaves`` the pool tiles into pages, the ring
 is the single capability authority: the registry asks it whether a family
 pages, and the engine and pool take the returned layout as an argument.
 
-This slice of the port ships the contiguous per-head ``kv`` layout in the
-family's compute dtype.  The ring-wrapped ``window`` layout (ROADMAP queue
-1 item 6), the latent MLA layout (item 7) and int8 pages (item 8) raise
-``NotImplementedError`` naming their item.
+The port ships the contiguous per-head ``kv`` layout and MLA's latent
+``ckv`` / ``krope`` layout, in the family's compute dtype.  The ring-
+wrapped ``window`` layout (ROADMAP queue 1 item 6) and int8 pages (item
+8) raise naming their item.
 
 Import discipline: this module depends only on the standard library — it
 sits below both ``repro_torch.models.registry`` and
@@ -29,15 +29,17 @@ SCALE_SUFFIX = "_scale"
 
 RING_TODO = ("ring-wrapped window pages are not ported yet — ROADMAP queue "
              "1 item 6 (sliding-window geometry)")
-LATENT_TODO = ("latent (MLA) pages are not ported yet — ROADMAP queue 1 "
-               "item 7 (MLA)")
 INT8_TODO = ("int8 KV pages are not ported yet — ROADMAP queue 1 item 8 "
              "(int8 KV pages)")
 
 
 def check_kv_dtype_layout(kv_dtype: str, layout: Optional["KVLayout"]) -> None:
     """Quantized KV needs a per-head paged layout (the JAX package's rule);
-    int8 storage itself is not ported yet."""
+    int8 storage itself is not ported yet.
+
+    MLA latent pages stay fp: the latent rank is a *contracted* dim of the
+    absorbed-decode einsums, so per-page scales would reassociate those
+    sums and break the latent == per-head equivalence."""
     if kv_dtype not in KV_DTYPES:
         raise ValueError(f"kv_dtype={kv_dtype!r} not in {KV_DTYPES}")
     if kv_dtype == "fp32":
@@ -47,6 +49,12 @@ def check_kv_dtype_layout(kv_dtype: str, layout: Optional["KVLayout"]) -> None:
             f"kv_dtype={kv_dtype!r} requires a paged KV layout, but this "
             "family serves slotted-only (no layout) — drop kv_dtype or "
             "pick a paged family")
+    if layout.name == "latent":
+        raise ValueError(
+            f"kv_dtype={kv_dtype!r} cannot quantize MLA latent pages "
+            f"(attn_kind='mla'): the latent rank is a contracted dim, so "
+            "per-page scales would reassociate the absorbed sums — use "
+            "kv_dtype='fp32' with attn_kind='mla'")
     raise ValueError(INT8_TODO)
 
 
@@ -71,7 +79,7 @@ def check_window_page_size(page_size: int, window: int) -> None:
 @dataclass(frozen=True)
 class KVLayout:
     """Physical page layout of one attention family's decode cache."""
-    name: str                    # "kv" (the only layout ported so far)
+    name: str                    # "kv" | "latent"
     leaves: Tuple[str, ...]      # decode-state leaves the pool pages
     window: int = 0              # > 0: ring-wrapped window pages
     kv_dtype: str = "fp32"       # "fp32" (native compute dtype)
@@ -133,20 +141,23 @@ class KVLayout:
                 "kv_dtype": self.kv_dtype}
 
 
-#: the contiguous per-head layout of full attention
+#: the contiguous per-head layout of full attention and MLA's contiguous
+#: latent layout
 KV_FULL = KVLayout("kv", ("k", "v"))
+KV_LATENT = KVLayout("latent", ("ckv", "krope"))
 
 
 def layout_for(cfg, kv_dtype: str = "fp32") -> Optional[KVLayout]:
     """The capability authority: which page layout (if any) serves this
     model config's decode cache.  None for families with nothing to page
-    (attn_kind "none"); the unported geometries raise naming their ROADMAP
-    item."""
+    (attn_kind "none"); the unported geometry raises naming its ROADMAP
+    item.  ``kv_dtype="int8"`` raises: rejected for MLA with the JAX
+    package's error naming both knobs, not ported for per-head pages."""
     kind = getattr(cfg, "attn_kind", "none")
     if kind == "full":
         base = KV_FULL
     elif kind == "mla":
-        raise NotImplementedError(LATENT_TODO)
+        base = KV_LATENT
     elif kind in ("swa", "local") and getattr(cfg, "window", 0) > 0:
         raise NotImplementedError(RING_TODO)
     else:

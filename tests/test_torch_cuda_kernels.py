@@ -10,7 +10,7 @@ JAX package is not installed.  Tolerances: fp32 1e-5; bf16 1e-2 (kernel
 and plain version both accumulate in fp32 and round once to bf16, so they
 may differ by one bf16 ulp); K3's row logsumexp rtol 1e-4 (the same fp32
 terms summed in another order); K3's gradients 1e-4 of their largest
-magnitude (fp32).
+magnitude (fp32); K6/K7 as K1/K2 (fp32 1e-5, bf16 1e-2).
 """
 import numpy as np
 import pytest
@@ -192,3 +192,105 @@ def test_cuda_flash_wrapper_rejects_what_the_kernel_does_not_take():
         flash_kernel.flash_attention_kernel(q, q[:3], q[:3])
     with pytest.raises(ValueError, match="dtype"):
         flash_kernel.flash_attention_kernel(q, q[:2].half(), q[:2].half())
+
+
+def _mla_pages(rng, P, ps, R, rp):
+    """Latent pages with page 0 (the trash page) full of values that would
+    swamp any score that read them."""
+    ckv = rng.normal(size=(P, ps, R)).astype(np.float32)
+    kr = rng.normal(size=(P, ps, rp)).astype(np.float32)
+    ckv[0], kr[0] = 1e4, -1e4
+    return ckv, kr
+
+
+#: (H, R, rp): deepseek-v2-lite at full width, and the smoke geometry
+MLA_GEOMS = [(16, 512, 64), (4, 32, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,R,rp", MLA_GEOMS)
+@pytest.mark.parametrize("ps", [16, 64])
+def test_cuda_mla_decode_kernel_matches_plain(dtype, H, R, rp, ps):
+    dev = _cuda()
+    rng = np.random.default_rng(8)
+    slots, n = 8, 6
+    lengths = np.asarray([1, ps, ps + 1, n * ps, 3 * ps - 5, 37 % (n * ps),
+                          2 * ps, 0], np.int32)
+    table = np.zeros((slots, n), np.int32)
+    pid = 1
+    for s in range(slots):
+        for i in range(-(-int(lengths[s]) // ps)):
+            table[s, i] = pid
+            pid += 1
+    ckv, kr = _mla_pages(rng, slots * n + 1, ps, R, rp)
+    q_lat = rng.normal(size=(slots, H, R)).astype(np.float32)
+    q_rope = rng.normal(size=(slots, H, rp)).astype(np.float32)
+    args = (_t(q_lat, dtype, dev), _t(q_rope, dtype, dev),
+            _t(ckv, dtype, dev), _t(kr, dtype, dev),
+            torch.from_numpy(table).to(dev), torch.from_numpy(lengths).to(dev))
+    scale = 192 ** -0.5
+    n0 = port_kernel.paged_mla_kernel.launches
+    out = port_ops.paged_mla_attention(*args, scale=scale, use_kernel=True)
+    want = port_ops.paged_mla_attention(*args, scale=scale, use_kernel=False)
+    assert port_kernel.paged_mla_kernel.launches == n0 + 1
+    live = torch.from_numpy(lengths > 0).to(dev)
+    torch.testing.assert_close(out[live].float(), want[live].float(), rtol=0,
+                               atol=TOL[dtype])
+    assert (out[~live] == 0).all()         # a slot of length 0 writes 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,R,rp", MLA_GEOMS)
+@pytest.mark.parametrize("S,start,n_valid", [(5, 37, 3), (5, 0, 5),
+                                             (16, 0, 11), (64, 16, 64)])
+def test_cuda_mla_prefill_kernel_matches_plain(dtype, H, R, rp, S, start,
+                                               n_valid):
+    dev = _cuda()
+    rng = np.random.default_rng(9)
+    n, ps = 8, 16
+    ckv, kr = _mla_pages(rng, n + 2, ps, R, rp)
+    table = np.arange(2, n + 2, dtype=np.int32)
+    table[-1] = 0                          # trash-padded tail entry
+    assert start + n_valid <= (n - 1) * ps
+    q_lat = rng.normal(size=(S, H, R)).astype(np.float32)
+    q_rope = rng.normal(size=(S, H, rp)).astype(np.float32)
+    args = (_t(q_lat, dtype, dev), _t(q_rope, dtype, dev),
+            _t(ckv, dtype, dev), _t(kr, dtype, dev),
+            torch.from_numpy(table).to(dev), start, n_valid)
+    scale = 192 ** -0.5
+    n0 = port_kernel.paged_mla_prefill_kernel.launches
+    out = port_ops.paged_mla_prefill(*args, scale=scale, use_kernel=True)
+    want = port_ops.paged_mla_prefill(*args, scale=scale, use_kernel=False)
+    assert port_kernel.paged_mla_prefill_kernel.launches == n0 + 1
+    torch.testing.assert_close(out[:n_valid].float(),
+                               want[:n_valid].float(), rtol=0,
+                               atol=TOL[dtype])
+    assert (out[n_valid:] == 0).all()      # padding rows come back 0
+
+
+@pytest.mark.cuda
+def test_cuda_mla_wrappers_reject_what_the_kernels_do_not_take():
+    dev = _cuda()
+    table = torch.zeros((2, 1), dtype=torch.int32, device=dev)
+    lengths = torch.ones((2,), dtype=torch.int32, device=dev)
+
+    def call(H, R, rp, ps):
+        return port_ops.paged_mla_attention(
+            torch.zeros((2, H, R), device=dev),
+            torch.zeros((2, H, rp), device=dev),
+            torch.zeros((3, ps, R), device=dev),
+            torch.zeros((3, ps, rp), device=dev), table, lengths,
+            scale=0.1, use_kernel=True)
+    with pytest.raises(ValueError, match="MLA geometry"):
+        call(8, 512, 64, 16)
+    with pytest.raises(ValueError, match="page size"):
+        call(16, 512, 64, 4)
+    with pytest.raises(ValueError, match="bad chunk bounds"):
+        port_ops.paged_mla_prefill(
+            torch.zeros((4, 4, 32), device=dev),
+            torch.zeros((4, 4, 8), device=dev),
+            torch.zeros((3, 16, 32), device=dev),
+            torch.zeros((3, 16, 8), device=dev), table[0], 0, 5, scale=0.1,
+            use_kernel=True)

@@ -8,6 +8,11 @@ the port's own counter-keyed Philox stream (not JAX's threefry bits), so
 they are held to the purity rows of ``tests/test_sampling.py``: a
 request's tokens are a pure function of (prompt, SamplingParams) whatever
 the batch, pipeline depth, cache warmth, speculation or preemption.
+deepseek-v2-lite (MLA on latent pages + per-token MoE) is held to the JAX
+engine with the kernels off (``use_kernels`` / ``use_pallas`` False: the
+expanded MLA prefill) and on (both True: the absorbed prefill, through
+K6/K7's plain versions here and the Pallas kernels in interpret mode
+there).
 """
 import functools
 
@@ -24,18 +29,19 @@ from repro_torch.serving.sampling import pack_params, philox4x32, sample_tokens
 from repro_torch.serving.spec import NGramDrafter
 
 ARCH = "qwen2.5-14b"
+MLA = "deepseek-v2-lite-16b"
 SAMPLED = SamplingParams(temperature=0.8, top_k=8, top_p=0.9, seed=13)
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_session():
-    return jax_api.load(ARCH, smoke=True, seed=3)
+def _jax_session(arch=ARCH):
+    return jax_api.load(arch, smoke=True, seed=3)
 
 
-def _port_session():
-    sess = port_api.load(ARCH, smoke=True, device="cpu")
+def _port_session(arch=ARCH):
+    sess = port_api.load(arch, smoke=True, device="cpu")
     sess.set_params(from_jax_params(jax.tree.map(np.asarray,
-                                                 _jax_session().params)))
+                                                 _jax_session(arch).params)))
     return sess
 
 
@@ -53,15 +59,16 @@ def _rep_prompt(n=12, a=7, b=3):
 # Port == JAX, greedy
 # ---------------------------------------------------------------------------
 
-def _serve_both(batches, **kw):
+def _serve_both(batches, arch=ARCH, jax_kw=(), port_kw=(), **kw):
     """Serve each batch in turn on one JAX and one port session (the
     second batch sees the first's warm prefix cache); returns the streams
-    and the last engines' metrics."""
-    js, ps = _jax_session(), _port_session()
+    and the last engines' metrics.  ``jax_kw`` / ``port_kw`` hold knobs
+    only one side takes (JAX ``use_pallas``, the port's ``use_kernels``)."""
+    js, ps = _jax_session(arch), _port_session(arch)
     out = []
     for prompts in batches:
-        j = js.serve(prompts, **kw)
-        p = ps.serve(prompts, **kw)
+        j = js.serve(prompts, **kw, **dict(jax_kw))
+        p = ps.serve(prompts, **kw, **dict(port_kw))
         out.append((j, p))
     return out, js.engine.metrics, ps.engine.metrics
 
@@ -97,6 +104,46 @@ def test_port_serve_matches_jax_greedy(case):
         assert pm.prefix_hit_tokens > 0
     if case == "spec_on":
         assert pm.drafted_tokens > 0
+    if case == "chunked_prefill":
+        assert pm.prefill_compiles == jm.prefill_compiles
+
+
+#: deepseek-v2-lite smoke: cold then warm (a page-aligned 16-token shared
+#: prefix at page 8), speculation, chunked prefill
+MLA_CASES = {
+    "cold_then_warm_prefix": dict(
+        batches=[_prompts(1, [20, 7]),
+                 [_prompts(1, [20])[0] + [1, 2, 3],
+                  _prompts(1, [20])[0][:16] + [9, 9],
+                  _prompts(2, [6])[0]]],
+        kw=dict(max_new=8, page_size=8, max_batch=4)),
+    # runs of the tokens this model's greedy decode repeats, so the
+    # n-gram drafter proposes and its drafts are accepted
+    "spec": dict(batches=[[[241] * 12, _prompts(3, [9])[0], [21] * 16]],
+                 kw=dict(max_new=12, spec_tokens=4)),
+    "chunked_prefill": dict(batches=[_prompts(4, [30, 21, 3])],
+                            kw=dict(max_new=6, prefill_chunk_tokens=8,
+                                    page_size=8)),
+}
+
+
+@pytest.mark.parametrize("kernels", [False, True], ids=["gather", "kernel"])
+@pytest.mark.parametrize("case", sorted(MLA_CASES))
+def test_port_serve_matches_jax_greedy_mla(case, kernels):
+    c = MLA_CASES[case]
+    pairs, jm, pm = _serve_both(c["batches"], arch=MLA,
+                                jax_kw={"use_pallas": kernels},
+                                port_kw={"use_kernels": kernels},
+                                **c["kw"])
+    for j, p in pairs:
+        assert p == j
+    assert pm.prefix_hit_tokens == jm.prefix_hit_tokens
+    assert pm.drafted_tokens == jm.drafted_tokens
+    assert pm.accepted_tokens == jm.accepted_tokens
+    if case == "cold_then_warm_prefix":
+        assert pm.prefix_hit_tokens > 0
+    if case == "spec":
+        assert pm.accepted_tokens > 0
     if case == "chunked_prefill":
         assert pm.prefill_compiles == jm.prefill_compiles
 
@@ -262,6 +309,11 @@ def test_unported_families_and_train_raise():
         port_api.load("mixtral-8x22b", smoke=True, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_api.load("rwkv6-1.6b", smoke=True, device="cpu")
+    # deepseek serves; training the moe family is not ported yet
+    ds = port_api.load(MLA, smoke=True, device="cpu")
+    assert {"paged_serve", "prefix_serve", "spec_serve"} <= ds.capabilities()
+    with pytest.raises(port_api.CapabilityError, match="ROADMAP"):
+        ds.train(steps=1, seq_len=8, global_batch=2)
     sess = port_api.load(ARCH, smoke=True, device="cpu")
     assert {"serve", "paged_serve", "prefix_serve",
             "spec_serve"} <= sess.capabilities()
