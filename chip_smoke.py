@@ -10,12 +10,15 @@ Phases, in order; any failure exits non-zero:
    one process per source, all started together;
 3. kernels — each hand-written kernel held against its plain PyTorch
    version on the card at its path's shapes (K1, K2: qwen serving; K3: the
-   training forward, plus a sliding-window and a ragged case, and the
-   flash autograd Function's gradients against autograd through the plain
-   version; K6, K7: deepseek serving, absorbed MLA on latent pages), with
-   its time beside the plain version's, a bytes/operations bound, and one
-   PyTorch library call computing the same function as a yardstick (timed
-   here only; the port never calls it);
+   training forward, plus a sliding-window and a ragged case, the flash
+   autograd Function's gradients against autograd through the plain
+   version, and recurrentgemma's local attention at hd 256; K6, K7:
+   deepseek serving, absorbed MLA on latent pages; K9: the RG-LRU scan at
+   recurrentgemma's width; K10: the RWKV-6 WKV recurrence at rwkv6's, with
+   s0 != 0), with its time beside the plain version's, a bytes/operations
+   bound, and, where one exists, one PyTorch library call computing the
+   same function as a yardstick (timed here only; the port never calls
+   it);
 4. serve — full-width ``qwen2.5-14b`` (random weights from a seed) served
    through ``repro_torch.api.load(...).serve`` with the kernels on: a
    shared page-aligned prefix (prefix-cache hit) and a repetitive prompt
@@ -24,7 +27,10 @@ Phases, in order; any failure exits non-zero:
    launched;
 5. comparison — the same requests with ``use_kernels=False`` (plain
    versions on the card); greedy streams must match, or part only where
-   the plain forward's top two logits are a bf16 near-tie;
+   the plain forward's top two logits are a bf16 near-tie; then the same
+   requests on the slotted pool (``kv_layout="slotted"``: bucketed
+   whole-prompt prefill through K3, batched slot decode), whose partings
+   from the paged arm are printed;
 6. train — full-width ``qwen2.5-14b`` cut to 4 layers, trained through
    ``repro_torch.api.load(...).train`` on one seeded global batch (2 x 2048
    tokens, repeated, so the loss must fall), in a one-rank NCCL process
@@ -46,7 +52,18 @@ Phases, in order; any failure exits non-zero:
 8. deepseek fp32 — the same model and requests in fp32, kernels on and
    off: teacher-forced logits of the two paths agree within 1e-3, and the
    greedy streams match or part only at fp32 near-ties;
-9. a JSON ``kernels`` line, then as the last line
+9. recurrent serve — full-width ``recurrentgemma-2b`` and ``rwkv6-1.6b``
+   (random weights from a seed) served like qwen on the slotted pool
+   (``kv_layout="auto"``), kernels on: every count zeroed just before and
+   read just after; K9 must be launched 18 times, K3 8 times (rg) and K10
+   24 times (rwkv) per prefill; the drive again with every K3 / K9 / K10
+   launch held against its plain version on that launch's inputs; the
+   ``use_kernels=False`` arm, whose partings are printed; a profile of
+   the drive;
+10. recurrent fp32 — both models in fp32, kernels on and off: the
+   teacher-forced logits of the two paths agree within 1e-3 and the
+   greedy streams match or part only at fp32 near-ties;
+11. a JSON ``kernels`` line, then as the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits with code 2 and prints no result when CUDA is unavailable.
@@ -69,9 +86,11 @@ ROOT = Path(__file__).resolve().parent
 #: (cuBLAS GEMMs are nvjet / cutlass / gemm kernels on this stack)
 GEMM_MARKS = ("nvjet", "gemm", "cutlass", "xmma")
 
-#: H100 SXM data sheet: HBM3 bandwidth and dense bf16 tensor-core peak
+#: H100 SXM data sheet: HBM3 bandwidth, dense bf16 tensor-core peak, and
+#: the fp32 peak outside the tensor cores (K9 and K10 are fp32 scalar work)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
+FP32_FLOPS_PER_S = 67e12
 #: kernel vs plain version: both accumulate in fp32 and round once to bf16,
 #: so they may differ by one bf16 ulp of the output; outputs are averages
 #: of N(0, 1) values, |x| < 4, where one ulp is at most 2**-6
@@ -101,6 +120,11 @@ TRAIN_LAYERS, TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_LR = 4, 6, 2048, 2, 1e-
 #: step-1 agreement of the two train arms (bf16 compute: the two attention
 #: paths round at other places)
 LOSS_RTOL, GNORM_RTOL = 2e-3, 1e-2
+#: K9 / K10 against their plain versions (fp32): max |err| over
+#: max(1, max |plain|).  K9 runs the plain version's recurrence in its
+#: order (expf may differ in the last ulp); K10 sums each output over the
+#: 64-long state column in another order than the plain einsum
+LRU_RTOL, WKV_RTOL = 1e-5, 1e-4
 
 
 def log(*a):
@@ -130,9 +154,9 @@ def time_ms(torch, fn, iters=20, warmup=3):
     return total / iters
 
 
-def bound(bytes_moved, flops):
+def bound(bytes_moved, flops, flops_per_s=BF16_FLOPS_PER_S):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -357,9 +381,12 @@ def k3_case(torch, F, gen, B, S, H, KV_, hd, causal, window):
 
 #: (B, S, H, KV, hd, causal, window): the training shape of qwen2.5-14b at
 #: 2 x 2048 tokens (reported), the same with a 512 sliding window, a ragged
-#: length
+#: length; recurrentgemma-2b's local-attention prefill (10 heads, one kv
+#: head, hd 256, window 2048) at the drive's longest prompt and past the
+#: window
 K3_CASES = ((2, 2048, 40, 8, 128, True, 0), (2, 2048, 40, 8, 128, True, 512),
-            (2, 1000, 40, 8, 128, True, 0))
+            (2, 1000, 40, 8, 128, True, 0), (1, 46, 10, 1, 256, True, 2048),
+            (1, 2100, 10, 1, 256, True, 2048))
 
 
 def k3_grad_check(torch):
@@ -499,6 +526,77 @@ K7_CASES = ((5, 0, 5), (5, 37, 3), (5, 70, 5), (16, 32, 14), (32, 0, 23),
 K7_REPORTED = (5, 37, 3)
 
 
+def _rel_err(out, want):
+    """(max |out - want|, that over max(1, max |want|))."""
+    err = (out.float() - want.float()).abs().max().item()
+    return err, err / max(1.0, want.float().abs().max().item())
+
+
+def k9_case(torch, gen, B, S, W):
+    """K9 at recurrentgemma-2b's prefill shape: log_a <= 0 and x [B, S, W]
+    fp32 (the gates' outputs), h_{-1} = 0."""
+    from repro_torch.kernels.rglru_scan import ops, ref
+    la = -torch.randn((B, S, W), generator=gen, device="cuda").abs()
+    x = torch.randn((B, S, W), generator=gen, device="cuda")
+
+    def kern():
+        return ops.lru_scan(la, x, use_kernel=True)
+
+    def plain():
+        return ref.lru_scan_ref(la, x)
+
+    out, want = kern(), plain()
+    torch.cuda.synchronize()
+    err, rel = _rel_err(out, want)
+    n = B * S * W
+    b_ms, b_by = bound(12 * n, 3 * n, FP32_FLOPS_PER_S)
+    return dict(case=f"B={B} S={S} W={W} fp32", max_abs_err=err,
+                rel_err=rel, rel_tol=LRU_RTOL, ms=time_ms(torch, kern),
+                plain_ms=time_ms(torch, plain), bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
+def k10_case(torch, gen, B, S, H, hd):
+    """K10 at rwkv6-1.6b's width: r, k, v [B, S, H, hd], decays w in
+    (0, 1), u [H, hd], s0 != 0 [B, H, hd, hd], fp32; outputs and the final
+    state."""
+    from repro_torch.kernels.rwkv6_wkv import ops
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    r, k, v = rnd(B, S, H, hd), rnd(B, S, H, hd), rnd(B, S, H, hd)
+    w = torch.exp(-torch.exp(rnd(B, S, H, hd)))
+    u, s0 = rnd(H, hd), rnd(B, H, hd, hd)
+
+    def kern():
+        return ops.wkv6(r, k, v, w, u, s0, use_kernel=True)
+
+    def plain():
+        return ops.wkv6(r, k, v, w, u, s0, use_kernel=False)
+
+    (out, s_last), (want, want_s) = kern(), plain()
+    torch.cuda.synchronize()
+    err_o, rel_o = _rel_err(out, want)
+    err_s, rel_s = _rel_err(s_last, want_s)
+    nbytes = 4 * (5 * B * S * H * hd + 2 * B * H * hd * hd + H * hd)
+    b_ms, b_by = bound(nbytes, 4 * B * H * S * hd * hd, FP32_FLOPS_PER_S)
+    return dict(case=f"B={B} S={S} H={H} hd={hd} fp32 s0!=0 (out and "
+                     f"s_last)", max_abs_err=max(err_o, err_s),
+                rel_err=max(rel_o, rel_s), rel_tol=WKV_RTOL,
+                ms=time_ms(torch, kern), plain_ms=time_ms(torch, plain),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+#: (B, S, W): recurrentgemma-2b's lru width at the drive's prompt lengths
+#: (17, 46; 46 reported) and past the attention window, plus a ragged W
+K9_CASES = ((1, 17, 2560), (1, 46, 2560), (1, 2049, 2560), (1, 46, 2500))
+K9_REPORTED = (1, 46, 2560)
+#: (B, S, H, hd): rwkv6-1.6b's heads at the drive's prompt lengths (46
+#: reported)
+K10_CASES = ((1, 17, 32, 64), (1, 46, 32, 64))
+K10_REPORTED = (1, 46, 32, 64)
+
+
 def kernel_phase(torch, F):
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = {"paged_attention": [k1_case(torch, F, gen)],
@@ -507,22 +605,33 @@ def kernel_phase(torch, F):
                                 for c in K3_CASES],
             "paged_mla": [k6_case(torch, F, gen)],
             "paged_mla_prefill": [k7_case(torch, F, gen, *c)
-                                  for c in K7_CASES]}
+                                  for c in K7_CASES],
+            "lru_scan": [k9_case(torch, gen, *c) for c in K9_CASES],
+            "wkv6": [k10_case(torch, gen, *c) for c in K10_CASES]}
     failed = []
     for name, cases in rows.items():
         for r in cases:
-            ok = r["max_abs_err"] <= KERNEL_ATOL
-            extra = ""
+            if "rel_tol" in r:
+                ok = r["rel_err"] <= r["rel_tol"]
+                check = (f"max_abs_err {r['max_abs_err']:.3g}, over max(1, "
+                         f"|plain|) {r['rel_err']:.3g} (tol "
+                         f"{r['rel_tol']:.3g})")
+            else:
+                ok = r["max_abs_err"] <= KERNEL_ATOL
+                check = (f"max_abs_err {r['max_abs_err']:.3g} (tol "
+                         f"{KERNEL_ATOL:.3g})")
             if "lse_rel_err" in r:
                 ok = ok and r["lse_rel_err"] <= LSE_RTOL
-                extra = (f"; L rel err {r['lse_rel_err']:.3g} "
-                         f"(tol {LSE_RTOL:.3g})")
-            log(f"kernel {name} [{r['case']}]: max_abs_err "
-                f"{r['max_abs_err']:.3g} (tol {KERNEL_ATOL:.3g}){extra} "
+                check += (f"; L rel err {r['lse_rel_err']:.3g} "
+                          f"(tol {LSE_RTOL:.3g})")
+            lib = ("library_ms none (no single PyTorch call computes it)"
+                   if r["library_ms"] is None else
+                   f"library_ms {r['library_ms']:.4f} (sdpa, err "
+                   f"{r['library_max_abs_err']:.3g})")
+            log(f"kernel {name} [{r['case']}]: {check} "
                 f"{'ok' if ok else 'FAIL'}; ms {r['ms']:.4f} plain_ms "
                 f"{r['plain_ms']:.4f} bound_ms {r['bound_ms']:.5f} "
-                f"({r['bound_by']}) library_ms {r['library_ms']:.4f} "
-                f"(sdpa, err {r['library_max_abs_err']:.3g})")
+                f"({r['bound_by']}) {lib}")
             if not ok:
                 failed.append(f"{name} [{r['case']}]")
     grads = k3_grad_check(torch)
@@ -539,6 +648,10 @@ def kernel_phase(torch, F):
               if c == K2_REPORTED)
     k7 = next(r for r, c in zip(rows["paged_mla_prefill"], K7_CASES)
               if c == K7_REPORTED)
+    k9 = next(r for r, c in zip(rows["lru_scan"], K9_CASES)
+              if c == K9_REPORTED)
+    k10 = next(r for r, c in zip(rows["wkv6"], K10_CASES)
+               if c == K10_REPORTED)
     return {"paged_attention": rows["paged_attention"][0],
             "paged_prefill": dict(k2, max_abs_err=max(
                 r["max_abs_err"] for r in rows["paged_prefill"])),
@@ -546,7 +659,11 @@ def kernel_phase(torch, F):
                 r["max_abs_err"] for r in rows["flash_attention"])),
             "paged_mla": rows["paged_mla"][0],
             "paged_mla_prefill": dict(k7, max_abs_err=max(
-                r["max_abs_err"] for r in rows["paged_mla_prefill"]))}
+                r["max_abs_err"] for r in rows["paged_mla_prefill"])),
+            "lru_scan": dict(k9, max_abs_err=max(
+                r["max_abs_err"] for r in rows["lru_scan"])),
+            "wkv6": dict(k10, max_abs_err=max(
+                r["max_abs_err"] for r in rows["wkv6"]))}
 
 
 # ---------------------------------------------------------------------------
@@ -571,44 +688,69 @@ def make_prompts(vocab, repetitive):
 #: each drive's repetitive request.  Random-weight deepseek drafts nothing
 #: on qwen's; a run of 30330, the token it repeats for seed 0 (found by
 #: serving runs of its most-emitted token until one drew a draft), does.
-#: The drives assert that drafts were verified.
+#: The paged drives assert that drafts were verified; the slotted pool of
+#: the recurrent families does not speculate.
 REPETITIVE = {"qwen2.5-14b": [11, 12, 13, 14, 15, 16] * 6,
-              "deepseek-v2-lite-16b": [30330] * 36}
+              "deepseek-v2-lite-16b": [30330] * 36,
+              "recurrentgemma-2b": [11, 12, 13, 14, 15, 16] * 6,
+              "rwkv6-1.6b": [11, 12, 13, 14, 15, 16] * 6}
 
-#: the paged-attention wrappers each serve drive counts, by family
+#: the kernels each serve drive runs, by family
 SERVE_KERNELS = {"qwen2.5-14b": ("paged_attention", "paged_prefill"),
-                 "deepseek-v2-lite-16b": ("paged_mla", "paged_mla_prefill")}
+                 "deepseek-v2-lite-16b": ("paged_mla", "paged_mla_prefill"),
+                 "recurrentgemma-2b": ("flash_attention", "lru_scan"),
+                 "rwkv6-1.6b": ("wkv6",)}
 
 
-def _wrapper(name):
+def kernel_wrappers():
+    """name -> the wrapper whose ``launches`` counts that kernel."""
+    from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.paged_attention import kernel as pk
-    return getattr(pk, f"{name}_kernel")
+    from repro_torch.kernels.rglru_scan import kernel as lk
+    from repro_torch.kernels.rwkv6_wkv import kernel as wk
+    return {"paged_attention": pk.paged_attention_kernel,
+            "paged_prefill": pk.paged_prefill_kernel,
+            "flash_attention": fk.flash_attention_kernel,
+            "paged_mla": pk.paged_mla_kernel,
+            "paged_mla_prefill": pk.paged_mla_prefill_kernel,
+            "lru_scan": lk.lru_scan_kernel, "wkv6": wk.wkv6_kernel}
+
+
+def launches_per_prefill(cfg):
+    """The recurrent families' kernel launches in one whole-prompt prefill
+    (their decode steps run no kernel): recurrentgemma-2b's 8 super-blocks
+    (2 RG-LRU blocks and one local attention each) and 2 tail RG-LRU
+    blocks — K9 18, K3 8; rwkv6-1.6b's 24 layers — K10 24."""
+    if cfg.family == "hybrid":
+        n_super, n_tail = divmod(cfg.num_layers, 3)
+        return {"flash_attention": n_super, "lru_scan": 2 * n_super + n_tail}
+    return {"wkv6": cfg.num_layers}
 
 
 def serve_once(torch, sess, prompts, **overrides):
-    """One drive of ``prompts``; every paged kernel's count is zeroed just
-    before and read just after."""
-    names = [n for ns in SERVE_KERNELS.values() for n in ns]
-    for n in names:
-        _wrapper(n).launches = 0
+    """One drive of ``prompts``; every kernel's count is zeroed just before
+    and read just after."""
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     outs = sess.serve(prompts, max_new=MAX_NEW, **overrides)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {n: _wrapper(n).launches for n in names}
+    counts = {n: w.launches for n, w in wrappers.items()}
     return outs, wall, counts, sess.engine.metrics.summary()
 
 
 def logit_gap(torch, sess, prompt, tokens, j):
-    """Top-two logit gap of the plain forward (no kernels; MoE routed per
-    token, as serving routes it) at stream index ``j`` of ``tokens``, and
-    the tie tolerance there (TIE_ULPS bf16 ulps of the top logit)."""
-    from repro_torch.models import transformer
+    """Top-two logit gap of the plain forward (the family's serving
+    prefill without kernels; MoE routed per token, as serving routes it)
+    at stream index ``j`` of ``tokens``, and the tie tolerance there
+    (TIE_ULPS bf16 ulps of the top logit)."""
     seq = torch.tensor([list(prompt) + list(tokens[:j])], device=sess.device)
     with torch.no_grad():
-        logits, _ = transformer.lm_prefill(sess.model, sess.params, seq,
-                                           moe_dropless=True)
+        logits, _ = sess.bundle.serve_prefill_fn(
+            sess.params, seq, cache_len=seq.shape[1], use_kernels=False)
     top = torch.topk(logits[0].float(), 2).values.tolist()
     ulp = 2.0 ** (math.floor(math.log2(max(abs(top[0]), 1e-30))) - 7)
     return top[0] - top[1], TIE_ULPS * ulp
@@ -635,51 +777,97 @@ def compare_streams(torch, sess, prompts, outs, plain, *, asserted):
                                if asserted else " (printed, not asserted)"))
 
 
+#: the checked drives' limits: bf16 kernels (K3, K6, K7) may differ from
+#: their plain versions by one bf16 ulp of the largest output (at least
+#: KERNEL_ATOL); fp32 K9 / K10 by LRU_RTOL / WKV_RTOL of max(1, |plain|)
+CHECK_LIMITS = {"flash_attention": "one bf16 ulp", "paged_mla": "one bf16 ulp",
+                "paged_mla_prefill": "one bf16 ulp",
+                "lru_scan": f"{LRU_RTOL:g} rel", "wkv6": f"{WKV_RTOL:g} rel"}
+
+
 @contextlib.contextmanager
-def checked_mla_launches(torch):
-    """Hold every K6 / K7 launch made inside against its plain version on
-    the very inputs that launch was given (the pages as it saw them; K7 on
-    its ``n_valid`` real rows).  Yields {name: [max |kernel - plain| of
-    each launch, as device scalars]}."""
-    from repro_torch.kernels.paged_attention import ops, ref
-    k6, k7 = ops.paged_mla_kernel, ops.paged_mla_prefill_kernel
-    errs = {"paged_mla": [], "paged_mla_prefill": []}
+def checked_launches(torch, names):
+    """Hold every launch of the kernels ``names`` made inside against its
+    plain version on the very inputs that launch was given (the pages as
+    it saw them; K7 on its ``n_valid`` real rows; K10's outputs and final
+    state).  Yields {name: [(max |kernel - plain|, that over its limit)
+    of each launch, as device scalars]}."""
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_attention import ref as pa_ref
+    from repro_torch.kernels.rglru_scan import ops as lru_ops
+    from repro_torch.kernels.rglru_scan import ref as lru_ref
+    from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
+    from repro_torch.kernels.rwkv6_wkv import ref as wkv_ref
+    from repro_torch.models import flash_vjp
 
-    def checked_k6(*args, **kw):
-        out = k6(*args, **kw)
-        want = ref.paged_mla_attention_ref(*args, **kw)
-        errs["paged_mla"].append((out.float() - want.float()).abs().max())
-        return out
+    def bf16(out, want):
+        err = (out.float() - want.float()).abs().max()
+        top = want.float().abs().max()
+        ulp = torch.exp2(torch.floor(torch.log2(torch.clamp(top, min=1e-30)))
+                         - 7)
+        return err, err / torch.clamp(ulp, min=KERNEL_ATOL)
 
-    def checked_k7(*args, **kw):
-        out = k7(*args, **kw)
-        want = ref.paged_mla_prefill_ref(*args, **kw)
-        n = args[6]
-        errs["paged_mla_prefill"].append(
-            (out[:n].float() - want[:n].float()).abs().max())
-        return out
+    def fp32(outs, wants, rtol):
+        errs = [(o - w).abs().max() for o, w in zip(outs, wants)]
+        rels = [e / torch.clamp(w.abs().max(), min=1.0)
+                for e, w in zip(errs, wants)]
+        return torch.stack(errs).max(), torch.stack(rels).max() / rtol
 
-    ops.paged_mla_kernel, ops.paged_mla_prefill_kernel = checked_k6, checked_k7
+    def k7(out, a, kw):
+        n = a[6]
+        return bf16(out[:n], pa_ref.paged_mla_prefill_ref(*a, **kw)[:n])
+
+    # name -> (module the path looks the wrapper up in, attribute, check)
+    sites = {
+        "paged_mla": (pa_ops, "paged_mla_kernel", lambda out, a, kw: bf16(
+            out, pa_ref.paged_mla_attention_ref(*a, **kw))),
+        "paged_mla_prefill": (pa_ops, "paged_mla_prefill_kernel", k7),
+        "flash_attention": (flash_vjp, "flash_attention_kernel",
+                            lambda out, a, kw: bf16(
+                                out[0], fa_ref.attention_ref(*a, **kw))),
+        "lru_scan": (lru_ops, "lru_scan_kernel", lambda out, a, kw: fp32(
+            [out], [lru_ref.lru_scan_ref(*a)], LRU_RTOL)),
+        "wkv6": (wkv_ops, "wkv6_kernel", lambda out, a, kw: fp32(
+            out, wkv_ref.wkv6_model_ref(*a), WKV_RTOL)),
+    }
+    errs = {n: [] for n in names}
+    saved = {n: getattr(sites[n][0], sites[n][1]) for n in names}
+
+    def checked(name, fn, check):
+        def run(*args, **kw):
+            out = fn(*args, **kw)
+            errs[name].append(check(out, args, kw))
+            return out
+        return run
+
+    for n in names:
+        setattr(sites[n][0], sites[n][1], checked(n, saved[n], sites[n][2]))
     try:
         yield errs
     finally:
-        ops.paged_mla_kernel, ops.paged_mla_prefill_kernel = k6, k7
+        for n in names:
+            setattr(sites[n][0], sites[n][1], saved[n])
 
 
-def checked_drive(torch, sess, prompts, outs):
-    """The drive again on a cold engine of its own, every K6 / K7 launch
-    held against its plain version (KERNEL_ATOL): the kernels checked at
-    the inputs the serving path gives them, prefill chunks, verify rows
-    and decode steps alike."""
-    with checked_mla_launches(torch) as errs:
+def checked_drive(torch, sess, prompts, outs, names):
+    """The drive again on a cold engine of its own, every launch of the
+    kernels ``names`` held against its plain version (CHECK_LIMITS): the
+    kernels checked at the inputs the serving path gives them, prefill
+    chunks, verify rows and decode steps alike."""
+    with checked_launches(torch, names) as errs:
         checked, wall, _, _ = serve_once(torch, sess, prompts,
                                          use_kernels=True)
     for name, e in errs.items():
-        worst = torch.stack(e).max().item() if e else math.inf
+        if not e:
+            raise AssertionError(f"checked drive: {name} never launched")
+        worst = torch.stack([x for x, _ in e]).max().item()
+        ratio = torch.stack([r for _, r in e]).max().item()
         log(f"checked drive ({wall:.2f} s): {name}, {len(e)} launches, each "
             f"against its plain version on its own inputs: max |err| "
-            f"{worst:.3g} (tol {KERNEL_ATOL:.3g})")
-        if worst > KERNEL_ATOL:
+            f"{worst:.3g}, worst err / limit {ratio:.3g} (limit "
+            f"{CHECK_LIMITS[name]})")
+        if ratio > 1.0:
             raise AssertionError(f"{name} disagrees with its plain version "
                                  f"on the drive's inputs: {worst}")
     log(f"checked drive: greedy streams "
@@ -692,9 +880,10 @@ def profile_phase(torch, sess, prompts, marks=()):
     wall time, the device's busy share (kernel time over wall), the share
     of device time of the GEMMs and of the kernels whose names hold one of
     ``marks``, and the kernels that take the most device time.  The drive
-    reuses the warm engine of the kernels arm, so every prompt is a full
-    prefix-cache hit and the profile is decode and verify.  Printed only;
-    nothing is asserted."""
+    reuses the warm engine of the kernels arm: on the paged pool every
+    prompt is a full prefix-cache hit and the profile is decode and
+    verify; on the slotted pool (no prefix cache) it is the whole drive,
+    prefills and decode.  Printed only; nothing is asserted."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -729,6 +918,16 @@ def profile_phase(torch, sess, prompts, marks=()):
 
 
 def _describe(cfg):
+    if cfg.family == "hybrid":
+        r = cfg.rglru
+        return (f"RG-LRU width {r.lru_width}, conv {r.conv1d_width}, local "
+                f"attention {cfg.num_heads}/{cfg.num_kv_heads} kv heads hd "
+                f"{cfg.resolved_head_dim} window {r.attention_window}, d_ff "
+                f"{cfg.d_ff}")
+    if cfg.family == "ssm":
+        return (f"{cfg.d_model // cfg.rwkv.head_size} WKV heads of "
+                f"{cfg.rwkv.head_size}, decay LoRA {cfg.rwkv.decay_lora}, "
+                f"d_ff {cfg.d_ff}")
     if cfg.attn_kind == "mla":
         m, e = cfg.mla, cfg.moe
         return (f"heads {cfg.num_heads}, MLA kv_lora_rank {m.kv_lora_rank} "
@@ -763,16 +962,19 @@ def load_for_serving(torch, arch, **overrides):
 
 
 def serve_phase(torch, arch, profile_marks=()):
-    """Serve ``arch`` at full width with the kernels, then (MLA) once more
-    with every K6 / K7 launch checked, then with ``use_kernels=False``;
-    returns the kernel arm's launch counts of the family's paged
-    kernels."""
+    """Serve ``arch`` at full width with the kernels; then (MLA and the
+    recurrent families) once more with every launch of the family's
+    kernels checked; then with ``use_kernels=False``; then a profile;
+    for qwen, last, the same requests on the slotted pool.  Returns the
+    kernel drives' launch counts of the family's kernels."""
     sess, prompts = load_for_serving(torch, arch)
     cfg = sess.model
     ours = SERVE_KERNELS[arch]
+    recurrent = sess.bundle.kv_layout is None
     outs, wall, counts, m = serve_once(torch, sess, prompts)
-    log(f"serve {cfg.name} (kernels): {len(prompts)} requests x {MAX_NEW} "
-        f"new tokens in "
+    pool = "slotted" if recurrent else "paged"
+    log(f"serve {cfg.name} (kernels, {pool} pool): {len(prompts)} requests "
+        f"x {MAX_NEW} new tokens in "
         f"{wall:.2f} s; tok/s {m['tokens_per_sec']:.2f}; ttft mean "
         f"{m['ttft_mean_s']:.3f} s p99 {m['ttft_p99_s']:.3f} s; prefix-hit "
         f"tokens {m['prefill_tokens_saved']}; drafted {m['drafted_tokens']} "
@@ -783,16 +985,30 @@ def serve_phase(torch, arch, profile_marks=()):
         if counts[name] <= 0:
             raise AssertionError(f"{name} kernel never launched on the main "
                                  "path")
-    if m["prefill_tokens_saved"] <= 0:
-        raise AssertionError("no prefix-cache hit on the main path")
-    if m["drafted_tokens"] <= 0:
-        raise AssertionError("no speculative drafts were verified")
+    if recurrent:
+        # every request prefills once, whole, at its exact length
+        if m["preemptions"] or m["compile_count"] != len(
+                {len(p) for p in prompts}):
+            raise AssertionError(f"unexpected prefills: {m}")
+        want = {n: k * len(prompts)
+                for n, k in launches_per_prefill(cfg).items()}
+        got = {n: c for n, c in counts.items() if c or n in want}
+        if got != want:
+            raise AssertionError(f"launches {got}, expected {want} "
+                                 f"({len(prompts)} prefills)")
+        log(f"launches per prefill {launches_per_prefill(cfg)} x "
+            f"{len(prompts)} prefills: as expected")
+    else:
+        if m["prefill_tokens_saved"] <= 0:
+            raise AssertionError("no prefix-cache hit on the main path")
+        if m["drafted_tokens"] <= 0:
+            raise AssertionError("no speculative drafts were verified")
     for o in outs:
         if len(o) != MAX_NEW or not all(0 <= t < cfg.vocab_size for t in o):
             raise AssertionError(f"bad stream {o}")
     mla = cfg.attn_kind == "mla"
-    if mla:
-        checked_drive(torch, sess, prompts, outs)
+    if mla or recurrent:
+        checked_drive(torch, sess, prompts, outs, ours)
 
     plain, pwall, pcounts, pm = serve_once(torch, sess, prompts,
                                            use_kernels=False)
@@ -801,12 +1017,40 @@ def serve_phase(torch, arch, profile_marks=()):
         f"launches {pcounts}")
     if any(pcounts.values()):
         raise AssertionError(f"plain arm launched kernels: {pcounts}")
-    # random-weight MoE streams part far from bf16 near-ties (see the fp32
-    # arms), so for MLA the partings are printed and the kernels are held
-    # by the checked drive and the fp32 arms instead
-    compare_streams(torch, sess, prompts, outs, plain, asserted=not mla)
+    # random-weight MoE and recurrent streams part far from bf16 near-ties
+    # (see the fp32 arms), so there the partings are printed and the
+    # kernels are held by the checked drive and the fp32 arms instead
+    compare_streams(torch, sess, prompts, outs, plain,
+                    asserted=not (mla or recurrent))
     profile_phase(torch, sess, prompts, profile_marks)
-    return {n: counts[n] for n in ours}
+    out = {n: counts[n] for n in ours}
+    if arch == "qwen2.5-14b":
+        out["flash_attention"] = slotted_arm(torch, sess, prompts, outs)
+    return out
+
+
+def slotted_arm(torch, sess, prompts, paged_outs):
+    """The same requests on the slotted pool: bucketed whole-prompt
+    prefill through K3 (hd 128), the batched decode of every slot at its
+    own position (plain PyTorch attention).  K3 must run and no paged
+    kernel; the streams' partings from the paged kernel arm (another
+    attention kernel, another order of sums) are printed.  Returns K3's
+    launches."""
+    outs, wall, counts, m = serve_once(torch, sess, prompts,
+                                       kv_layout="slotted")
+    log(f"serve {sess.model.name} (kernels, slotted pool): {wall:.2f} s; "
+        f"tok/s {m['tokens_per_sec']:.2f}; ttft mean {m['ttft_mean_s']:.3f} "
+        f"s; prefill shapes {m['compile_count']}; launches {counts}")
+    paged = [n for n in ("paged_attention", "paged_prefill") if counts[n]]
+    if counts["flash_attention"] <= 0 or paged:
+        raise AssertionError(f"slotted arm launches {counts}")
+    for o in outs:
+        if len(o) != MAX_NEW:
+            raise AssertionError(f"bad stream {o}")
+    same = sum(a == b for a, b in zip(outs, paged_outs))
+    log(f"slotted vs paged kernel arms: {same}/{len(outs)} greedy streams "
+        "identical (printed, not asserted)")
+    return counts["flash_attention"]
 
 
 # ---------------------------------------------------------------------------
@@ -960,18 +1204,33 @@ def train_phase(torch, card):
 
 #: fp32 arms: the largest |kernel path - plain path| difference of the
 #: teacher-forced logits (about 5 in size) allowed; both paths sum fp32
-#: terms in other orders through 27 layers
+#: terms in other orders through every layer (27 deepseek, 26
+#: recurrentgemma, 24 rwkv6)
 FP32_LOGIT_ATOL = 1e-3
 
 
 def teacher_forced_logits(torch, sess, seq, n_prompt, use_kernels):
-    """Logits (fp32) of the paged serving path along ``seq`` on latent
-    pages of its own: the first ``n_prompt`` tokens as one chunked prefill
-    (K7, or the expanded prefill without kernels), then one
+    """Logits (fp32) of the serving path along ``seq``.  Paged families, on
+    pages of their own: the first ``n_prompt`` tokens as one chunked
+    prefill (K7, or the expanded prefill without kernels), then one
     ``lm_paged_decode`` step per further token (K6, or its plain version).
-    Row r predicts ``seq[n_prompt + r]``."""
+    Recurrent families: the whole-prompt prefill (K3 / K9 / K10, or their
+    plain versions), then one ``decode_fn`` step per further token.  Row r
+    predicts ``seq[n_prompt + r]``."""
     from repro_torch.models import transformer
     cfg, dev, params = sess.model, sess.device, sess.params
+    b = sess.bundle
+    if b.kv_layout is None:
+        with torch.no_grad():
+            first, state = b.serve_prefill_fn(
+                params, torch.tensor([seq[:n_prompt]], device=dev),
+                cache_len=len(seq), use_kernels=use_kernels)
+            rows = [first[0]]
+            for p in range(n_prompt, len(seq) - 1):
+                logits, state = b.decode_fn(
+                    params, torch.tensor([[seq[p]]], device=dev), state)
+                rows.append(logits[0])
+        return torch.stack(rows).float()
     n = -(-len(seq) // PS)
     blank = transformer.init_decode_caches(cfg, 1, PS, device=dev)
     pages = {k: torch.zeros((cfg.num_layers, n + 1) + blank[k].shape[2:],
@@ -1036,11 +1295,14 @@ def fp32_phase(torch, arch="deepseek-v2-lite-16b"):
             f"its top (tol {2 * FP32_LOGIT_ATOL:.3g})")
         if gap > 2 * FP32_LOGIT_ATOL:
             raise AssertionError(f"fp32 request {i} diverges at {j}: {gap}")
-    log(f"fp32 comparison: {identical}/{len(outs)} greedy streams identical; "
-        f"teacher-forced logits differ by at most {worst:.3g} (tol "
-        f"{FP32_LOGIT_ATOL:.3g}); {time.perf_counter() - t0:.1f} s")
+    log(f"fp32 comparison ({arch}): {identical}/{len(outs)} greedy streams "
+        f"identical; teacher-forced logits differ by at most {worst:.3g} "
+        f"(tol {FP32_LOGIT_ATOL:.3g}); {time.perf_counter() - t0:.1f} s")
     if worst > FP32_LOGIT_ATOL:
         raise AssertionError(f"fp32 kernel and plain paths disagree: {worst}")
+    del sess
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1060,6 +1322,7 @@ def main() -> int:
                          ("paged_decode_kernel", "paged_prefill_kernel"))
     gc.collect()                        # the serve session and its engines
     torch.cuda.empty_cache()
+    qwen_k3 = counts.pop("flash_attention")           # the slotted arm's
     counts["flash_attention"] = train_phase(torch, card)["launches"]
     gc.collect()                        # the train sessions
     torch.cuda.empty_cache()
@@ -1069,6 +1332,21 @@ def main() -> int:
     gc.collect()                        # the bf16 deepseek session
     torch.cuda.empty_cache()
     fp32_phase(torch)
+    rg = serve_phase(torch, "recurrentgemma-2b",
+                     ("lru_scan_kernel", "flash_fwd_kernel"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts.update(serve_phase(torch, "rwkv6-1.6b", ("wkv6_kernel",)))
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts["lru_scan"] = rg["lru_scan"]
+    # K3 runs on three paths: the train drive, qwen's slotted prefill and
+    # recurrentgemma's local-attention prefill
+    log(f"K3 launches: train {counts['flash_attention']}, qwen slotted "
+        f"{qwen_k3}, recurrentgemma {rg['flash_attention']}")
+    counts["flash_attention"] += qwen_k3 + rg["flash_attention"]
+    for arch in ("recurrentgemma-2b", "rwkv6-1.6b"):
+        fp32_phase(torch, arch)
 
     sources = {"paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                                    "src/repro/kernels/paged_attention/kernel.py:199"),
@@ -1079,7 +1357,11 @@ def main() -> int:
                "paged_mla": ("src/repro_torch/csrc/paged_mla.cu",
                              "src/repro/kernels/paged_attention/kernel.py:290"),
                "paged_mla_prefill": ("src/repro_torch/csrc/paged_mla_prefill.cu",
-                                     "src/repro/kernels/paged_attention/kernel.py:696")}
+                                     "src/repro/kernels/paged_attention/kernel.py:696"),
+               "lru_scan": ("src/repro_torch/csrc/lru_scan.cu",
+                            "src/repro/kernels/rglru_scan/kernel.py:59"),
+               "wkv6": ("src/repro_torch/csrc/wkv6.cu",
+                        "src/repro/kernels/rwkv6_wkv/kernel.py:66")}
     kernels = []
     for name, (src, replaces) in sources.items():
         r = stats[name]

@@ -11,7 +11,9 @@ exposes
                                       default ``torch.distributed`` group);
   * ``session.serve(requests)``     — the continuous-batching engine (paged
                                       pool, prefix cache, chunked prefill,
-                                      n-gram speculation);
+                                      n-gram speculation; the slotted pool
+                                      for the recurrent families and
+                                      ``kv_layout="slotted"``);
   * ``session.generate(prompt(s))`` — one-shot generation over the same
                                       engine.
 
@@ -53,6 +55,9 @@ _CKPT_TODO = ("checkpointing and elastic resume (ckpt_dir / resume) are not "
               " checkpoint/elastic.py, run_with_recovery)")
 _MOE_TRAIN_TODO = ("training the moe family (GShard capacity routing under "
                    "autograd) is not ported yet — ROADMAP queue 1 item 6")
+_RECURRENT_TRAIN_TODO = ("training the hybrid and ssm families (RG-LRU / "
+                         "RWKV-6 backward; K9 / K10 are forward-only) is "
+                         "not ported yet — ROADMAP queue 1 item 14")
 
 
 class CapabilityError(ValueError):
@@ -172,14 +177,16 @@ class Session:
         current state and the next batches of the stream: ``train(N)`` then
         ``train(N)`` equals ``train(2N)``.  Masters and optimizer state are
         fp32; afterwards serving gets a compute-dtype copy of the trained
-        parameters.  ``ckpt_dir`` / ``resume`` and the moe family raise
-        (not ported yet).
+        parameters.  ``ckpt_dir`` / ``resume``, the moe family and the
+        recurrent (hybrid, ssm) families raise (not ported yet).
         """
         self._require("train")
         if ckpt_dir or resume:
             raise CapabilityError(_CKPT_TODO)
         if self.model.moe is not None:
             raise CapabilityError(_MOE_TRAIN_TODO)
+        if self.model.family in ("hybrid", "ssm"):
+            raise CapabilityError(_RECURRENT_TRAIN_TODO)
         from repro_torch.checkpoint.failures import StragglerMonitor
         from repro_torch.core.transparent import TransparentTrainer
         from repro_torch.data.pipeline import make_input_pipeline

@@ -27,6 +27,12 @@
 // above the diagonal or outside the window are never loaded, and the
 // heaviest (latest) query tiles are scheduled first.  Tensor-core tiles
 // (mma.sync / wgmma) and TMA are later work.
+//
+// Head dims 64, 128 and 256 (recurrentgemma's local attention).  At hd 256
+// the fp32 tiles take (64 + 64) * 257 + 64 * 256 + 64 * 65 floats = 213,760
+// bytes of shared memory, under the 232,448 a block may opt in to (the
+// launch sets cudaFuncAttributeMaxDynamicSharedMemorySize above 48 KB), and
+// a thread holds a 4 x 32 output tile.
 #include "paged_common.cuh"
 
 namespace repro_torch {
@@ -232,6 +238,9 @@ int fa_launch_hd(int hd, const void* q, const void* k, const void* v,
                               window, stream);
     case 128:
       return fa_launch<T, 128>(q, k, v, out, lse, BH, G, Sq, Sk, causal,
+                               window, stream);
+    case 256:
+      return fa_launch<T, 256>(q, k, v, out, lse, BH, G, Sq, Sk, causal,
                                window, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

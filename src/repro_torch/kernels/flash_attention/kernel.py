@@ -25,7 +25,7 @@ from repro_torch.kernels.flash_attention.ref import (attention_lse_ref,
                                                      attention_ref)
 
 #: head dims the CUDA kernel is instantiated for
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

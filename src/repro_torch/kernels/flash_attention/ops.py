@@ -11,9 +11,10 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 
 
 def to_bhsd(x):
-    """[B, S, H, hd] -> [B*H, S, hd] (contiguous)."""
+    """[B, S, H, hd] -> [B*H, S, hd] (contiguous: at B = 1 the reshape
+    alone would return a strided view)."""
     B, S, H, hd = x.shape
-    return x.transpose(1, 2).reshape(B * H, S, hd)
+    return x.transpose(1, 2).reshape(B * H, S, hd).contiguous()
 
 
 def from_bhsd(x, B: int):

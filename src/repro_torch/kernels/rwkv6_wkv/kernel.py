@@ -1,0 +1,63 @@
+"""Wrapper of the hand-written CUDA RWKV-6 WKV kernel (K10).
+
+``wkv6_kernel`` launches ``csrc/wkv6.cu``, the port of the TPU kernel
+``wkv6_padded`` / ``_wkv_kernel`` of the JAX package, in the model layout
+(the CUDA kernel reads [B, S, H, hd] rows directly).  For tensors on the
+CPU — and only there — it runs the plain version (``ref.wkv6_model_ref``).  For CUDA tensors it checks device, dtype, shape
+and contiguity, allocates the outputs with ``torch.empty``, launches the
+kernel on the current stream, raises if the launch was refused, and adds
+one to its ``launches`` counter; there is no fallback.  The library builds
+from the repo's sources on the first CUDA launch (``kernels/build.py``).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels.common import check_tensor, lib_fn, raise_on
+from repro_torch.kernels.rwkv6_wkv.ref import wkv6_model_ref
+
+#: head sizes the CUDA kernel is instantiated for (one thread per state
+#: column)
+HEAD_SIZES = (16, 32, 64)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def wkv6_kernel(r, k, v, w, u, s0):
+    """K10.  r, k, v, w: [B, S, H, hd] fp32; u: [H, hd] fp32; s0:
+    [B, H, hd, hd] fp32.  Returns (out [B, S, H, hd], s_last
+    [B, H, hd, hd]) fp32."""
+    B, S, H, hd = r.shape
+    if r.device.type == "cpu":
+        return wkv6_model_ref(r, k, v, w, u, s0)
+    if r.device.type != "cuda":
+        raise ValueError(f"no wkv6 kernel for {r.device}")
+    dev = r.device
+    for t, name in ((r, "r"), (k, "k"), (v, "v"), (w, "w")):
+        check_tensor(t, name, torch.float32, dev, 4)
+        if t.shape != r.shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{tuple(r.shape)}")
+    check_tensor(u, "u", torch.float32, dev, 2)
+    check_tensor(s0, "s0", torch.float32, dev, 4)
+    if tuple(u.shape) != (H, hd) or tuple(s0.shape) != (B, H, hd, hd):
+        raise ValueError(f"u {tuple(u.shape)} / s0 {tuple(s0.shape)} do not "
+                         f"fit r {tuple(r.shape)}")
+    if hd not in HEAD_SIZES:
+        raise ValueError(f"head size {hd} not in the CUDA kernel's "
+                         f"{HEAD_SIZES}")
+    out = torch.empty_like(r)
+    s_last = torch.empty_like(s0)
+    fn = lib_fn("wkv6", "wkv6_launch", [_P] * 8 + [_I] * 4 + [_P])
+    err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+             u.data_ptr(), s0.data_ptr(), out.data_ptr(), s_last.data_ptr(),
+             B, S, H, hd, torch.cuda.current_stream(dev).cuda_stream)
+    raise_on(err, "wkv6")
+    wkv6_kernel.launches += 1
+    return out, s_last
+
+
+wkv6_kernel.launches = 0

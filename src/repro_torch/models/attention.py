@@ -1,5 +1,5 @@
-"""Attention substrate: GQA (full causal attention, contiguous pages) and
-DeepSeek MLA (latent pages).
+"""Attention substrate: GQA (full causal and local / sliding-window
+attention; contiguous pages) and DeepSeek MLA (latent pages).
 
 Layouts: activations ``[batch, seq, d_model]``; heads ``[batch, seq, heads,
 head_dim]`` — the JAX package's layouts, so the parity tests compare like
@@ -7,9 +7,13 @@ with like.
 
 Execution paths:
   * ``attention_core``  — blocked online-softmax attention (train/prefill);
+  * ``windowed_attention`` — sliding-window train/prefill attention over a
+    per-query-block KV slice (subquadratic);
   * ``flash_vjp.flash_attention_vjp`` — train/prefill attention with O(S)
     residuals, its forward through kernel K3 (``use_kernels``);
-  * ``decode_attend``   — single-step decode against a ring-buffer cache;
+  * ``decode_attend``   — single-step decode against a ring-buffer cache
+    (windowed when the family is); the cache's position may be shared by
+    its batch rows or kept per row (the slotted pool's slots);
   * ``paged_prefill_apply`` / ``paged_attention_apply`` — one prefill chunk
     / one batched decode step against the shared page pool, through the
     hand-written CUDA kernels (``use_kernels``) or their plain versions
@@ -23,8 +27,9 @@ Execution paths:
     ``use_kernels`` and expanded without, as the JAX package's
     ``use_pallas`` chooses — two different computations of one function.
 
-Sliding-window (ring) attention is not ported yet; its entry points raise
-``NotImplementedError`` naming the ROADMAP item.
+The paged ring-window geometry is not ported yet; the paged entry points
+raise ``NotImplementedError`` for a windowed family, naming the ROADMAP
+item.
 """
 from __future__ import annotations
 
@@ -37,8 +42,8 @@ from repro_torch.models.common import ParamSpec, apply_rope, dot, rms_norm
 from repro_torch.models.flash_vjp import flash_attention_vjp
 
 #: ROADMAP item that ports the geometry this module does not cover yet
-RING_TODO = ("sliding-window (ring) attention is not ported yet — ROADMAP "
-             "queue 1 item 6 (mixtral: windowed_attention, ring layout)")
+RING_TODO = ("paged sliding-window (ring) attention is not ported yet — "
+             "ROADMAP queue 1 item 6 (mixtral: ring page layout, K4, K5)")
 
 
 # ---------------------------------------------------------------------------
@@ -83,8 +88,8 @@ def mla_specs(cfg):
 
 
 def require_full(cfg) -> None:
-    """Raise for the attention geometry not ported yet (the sliding-window
-    ring); full causal and MLA attention pass."""
+    """Raise for the paged attention geometry not ported yet (the
+    sliding-window ring); full causal and MLA attention pass."""
     if cfg.attn_kind in ("swa", "local") and cfg.window:
         raise NotImplementedError(RING_TODO)
 
@@ -186,6 +191,51 @@ def attention_core(q, k, v, q_pos, k_pos, *, causal: bool = True,
 
 
 # ---------------------------------------------------------------------------
+# Sliding-window attention: per-q-block KV slice (subquadratic)
+# ---------------------------------------------------------------------------
+
+def windowed_attention(q, k, v, q_pos, k_pos, *, window: int,
+                       q_block: int = 512):
+    """Causal sliding-window attention; each query block attends a KV slice
+    of length ``window + q_block`` ending at the block's last position.
+
+    Shapes as in attention_core.  Assumes q and k cover the same contiguous
+    positions (train/prefill self-attention).  The JAX package pads the
+    last query block (padded rows carry position -1 and are dropped); here
+    it is simply shorter, which changes no real row.
+    """
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = hd ** -0.5
+    qb = min(q_block, S)
+    span = window + qb
+    if span >= T:  # window covers everything — fall back
+        return attention_core(q, k, v, q_pos, k_pos, causal=True,
+                              window=window)
+    if q_pos.dim() == 1:
+        q_pos = q_pos[None, :].expand(B, S)
+    if k_pos.dim() == 1:
+        k_pos = k_pos[None, :].expand(B, T)
+    neg = torch.full((), NEG_INF, device=q.device)
+    outs = []
+    for q0 in range(0, S, qb):
+        q_i = q[:, q0:q0 + qb]
+        n = q_i.shape[1]
+        start = min(max(q0 + qb - span, 0), T - span)
+        k_j, v_j = k[:, start:start + span], v[:, start:start + span]
+        kp = k_pos[:, None, None, None, start:start + span]
+        qp = q_pos[:, None, None, q0:q0 + qb, None]
+        s = _gqa_scores(q_i.reshape(B, n, KV, G, hd), k_j, scale)
+        msk = (kp <= qp) & (kp > qp - window)
+        pr = torch.softmax(torch.where(msk, s, neg), dim=-1)
+        out = torch.einsum("bkgqt,btkh->bkgqh", pr.to(v_j.dtype).float(),
+                           v_j.float())
+        outs.append(out.permute(0, 3, 1, 2, 4).reshape(B, n, H, hd))
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
 # Decode: ring-buffer KV cache (one private cache per sequence)
 # ---------------------------------------------------------------------------
 
@@ -202,32 +252,68 @@ def init_cache(batch: int, cache_len: int, num_kv: int, head_dim: int, dtype,
     }
 
 
+def decode_positions(index, batch: int):
+    """Positions [batch, 1] int32 of a decode step's tokens: a ring cache's
+    next position ``index``, shared by the batch ([]) or per row
+    ([batch]).  A copy: the step advances ``index`` in place."""
+    return index.expand(batch)[:, None].to(torch.int32, copy=True)
+
+
+def ring_append(cache, new):
+    """Write one decode step into a ring cache, in place, and advance it.
+
+    ``new`` maps leaf names to this step's rows [B, ...]; each row lands at
+    ring slot ``index % L`` of its own row.  ``index`` ([] shared, or [B]
+    per row) and ``pos`` ([L] shared, or [B, L] per row) follow the
+    cache's form: per-row caches are the slotted pool's, whose slots stand
+    at different positions, written by a per-row scatter with no host
+    sync.  Returns the same dict."""
+    first = cache[next(iter(new))]
+    B, L = first.shape[:2]
+    index = cache["index"]
+    idx = index.expand(B)
+    slot = (idx % L).long()
+    rows = torch.arange(B, device=first.device)
+    for name, t in new.items():
+        cache[name][rows, slot] = t.to(cache[name].dtype)
+    pos = cache["pos"]
+    if pos.dim() == 1:
+        pos[slot[:1]] = idx[:1].to(pos.dtype)
+    else:
+        pos[rows, slot] = idx.to(pos.dtype)
+    index += 1
+    return cache
+
+
+def ring_valid(cache, window: int = 0):
+    """[B or 1, L] bool: the cache slots a query at the newest position may
+    attend (written, not in the future, inside the window)."""
+    cur = (cache["index"] - 1).reshape(-1, 1)     # newest token's position
+    kpos = cache["pos"]
+    if kpos.dim() == 1:
+        kpos = kpos[None]
+    valid = (kpos >= 0) & (kpos <= cur)
+    if window:
+        valid &= kpos > cur - window
+    return valid
+
+
 def cache_update(cache, k_new, v_new):
-    """Append one step (k_new/v_new: [B,1,KV,hd]) at ring slot index % len.
-    Returns a new cache dict (the caller's cache is not mutated)."""
-    L = cache["k"].shape[1]
-    slot = int(cache["index"]) % L
-    k = cache["k"].clone()
-    v = cache["v"].clone()
-    pos = cache["pos"].clone()
-    k[:, slot] = k_new[:, 0].to(k.dtype)
-    v[:, slot] = v_new[:, 0].to(v.dtype)
-    pos[slot] = cache["index"]
-    return {"k": k, "v": v, "pos": pos, "index": cache["index"] + 1}
+    """Append one step (k_new/v_new: [B,1,KV,hd]) at ring slot index % len,
+    in place (``ring_append``)."""
+    return ring_append(cache, {"k": k_new[:, 0], "v": v_new[:, 0]})
 
 
-def decode_attend(q, cache):
+def decode_attend(q, cache, *, window: int = 0):
     """q: [B,1,H,hd] against the cache. Returns [B,1,H,hd]."""
     B, _, H, hd = q.shape
     KV = cache["k"].shape[2]
     G = H // KV
     scale = hd ** -0.5
-    cur = cache["index"] - 1                      # position of the newest token
-    kpos = cache["pos"]                           # [L]
-    valid = (kpos >= 0) & (kpos <= cur)
+    valid = ring_valid(cache, window)             # [B or 1, L]
     q_ = q.reshape(B, 1, KV, G, hd)
     s = _gqa_scores(q_, cache["k"], scale)        # [B,KV,G,1,L]
-    s = torch.where(valid[None, None, None, None, :], s,
+    s = torch.where(valid[:, None, None, None, :], s,
                     torch.full((), NEG_INF, device=q.device))
     pr = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqt,btkh->bkgqh",
@@ -350,15 +436,16 @@ def paged_attention_apply(cfg, p, x, positions, kv, page_table, lengths, *,
 def attention_apply(cfg, p, x, positions, *, cache=None,
                     use_kernels: bool = False):
     """Self-attention for train/prefill (cache=None) or one decode step
-    against a ring cache.  Returns (out [B,S,D], new_cache_or_None).
+    against a ring cache (written in place).  Returns (out [B,S,D],
+    cache_or_None).
 
     The train/prefill core is chosen as the JAX package chooses it: the
     flash-attention autograd Function with kernel K3 in its forward
     (``use_kernels``; on a CPU tensor its forward is the plain ``_fwd``),
     else the O(S)-residual ``flash_attention_vjp`` (``cfg.attn_remat``),
-    else the blocked ``attention_core``.
+    else ``windowed_attention`` for a windowed family longer than twice its
+    window, else the blocked ``attention_core``.
     """
-    require_full(cfg)
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     H = cfg.num_heads
@@ -371,6 +458,9 @@ def attention_apply(cfg, p, x, positions, *, cache=None,
                 q, k, v, causal=True, window=window,
                 q_block=cfg.attn_q_block, kv_block=cfg.attn_kv_block,
                 use_kernel=use_kernels)
+        elif window and S > 2 * window:
+            out = windowed_attention(q, k, v, positions, positions,
+                                     window=window, q_block=cfg.attn_q_block)
         else:
             out = attention_core(q, k, v, positions, positions, causal=True,
                                  window=window, q_block=cfg.attn_q_block,
@@ -378,7 +468,7 @@ def attention_apply(cfg, p, x, positions, *, cache=None,
         new_cache = None
     else:
         new_cache = cache_update(cache, k, v)
-        out = decode_attend(q, new_cache)
+        out = decode_attend(q, new_cache, window=window)
     out = out.reshape(B, S, H * hd)
     return dot(out, p["wo"], cd), new_cache
 
@@ -479,8 +569,8 @@ def _mla_expanded(cfg, p, q_nope, q_rope, ckv, krope, q_pos, k_pos, *,
 
 def mla_apply(cfg, p, x, positions, *, cache=None):
     """MLA for train/prefill (cache=None: expanded path) or one decode step
-    against a latent ring cache (absorbed path).  Returns (out [B,S,D],
-    new_cache_or_None)."""
+    against a latent ring cache (absorbed path; the cache is written in
+    place).  Returns (out [B,S,D], cache_or_None)."""
     m = cfg.mla
     B, S, _ = x.shape
     H = cfg.num_heads
@@ -495,21 +585,14 @@ def mla_apply(cfg, p, x, positions, *, cache=None):
         return dot(out, p["wo"], cd), None
 
     # absorbed decode: score in the latent space (cache stays compressed)
-    L = cache["ckv"].shape[1]
-    slot = int(cache["index"]) % L
-    new_cache = {k: v.clone() for k, v in cache.items()}
-    new_cache["ckv"][:, slot] = ckv[:, 0].to(new_cache["ckv"].dtype)
-    new_cache["krope"][:, slot] = krope[:, 0].to(new_cache["krope"].dtype)
-    new_cache["pos"][slot] = cache["index"]
-    new_cache["index"] = cache["index"] + 1
-    cur = new_cache["index"] - 1
-    valid = (new_cache["pos"] >= 0) & (new_cache["pos"] <= cur)
+    new_cache = ring_append(cache, {"ckv": ckv[:, 0], "krope": krope[:, 0]})
+    valid = ring_valid(new_cache)                           # [B or 1, L]
     q_lat = _absorb_q(cfg, p, q_nope, cd)                   # [B,1,H,R]
     s = torch.einsum("bshr,btr->bhst", q_lat.float(),
                      new_cache["ckv"].float())
     s = s + torch.einsum("bshn,btn->bhst", q_rope.float(),
                          new_cache["krope"].float())
-    s = torch.where(valid[None, None, None, :], s * _mla_scale(cfg),
+    s = torch.where(valid[:, None, None, :], s * _mla_scale(cfg),
                     torch.full((), NEG_INF, device=x.device))
     pr = torch.softmax(s, dim=-1)
     # output in the latent space, then up-projected through W_uv

@@ -84,6 +84,36 @@ def tree_unflatten(leaves, like):
     return build(like)
 
 
+def stack_slice(tree, i: int):
+    """Slice ``i`` of a tree of stacked ``[n, ...]`` leaves (views)."""
+    return tree_map(lambda t: t[i], tree)
+
+
+def stack_trees(trees):
+    """Stack a list of equally shaped trees along a new leading axis."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: stack_trees([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
+def stack_len(tree) -> int:
+    """Leading (stacked-layer) length of a tree of ``[n, ...]`` leaves."""
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree.shape[0]
+
+
+def write_tree_(dst, src):
+    """Copy ``src``'s leaves into ``dst``'s, in place (leaves that already
+    are the same tensor — a ring cache written in place — are skipped)."""
+    if isinstance(dst, dict):
+        for k in dst:
+            write_tree_(dst[k], src[k])
+    elif dst is not src:
+        dst.copy_(src)
+
+
 def stack_specs(tree, n: int):
     """Prepend a stacked-layer dimension (logical axis "layers")."""
     def one(s: ParamSpec):

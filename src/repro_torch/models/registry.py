@@ -7,8 +7,10 @@ them a family declares; the serving engine and ``repro_torch.api``
 dispatch on that set, never on ``is None`` probes.
 
 The port builds the ``dense`` and ``moe`` families (mixtral's sliding-
-window geometry raises through ``layout_for``).  The other families
-(hybrid, ssm, encdec, vlm, cnn) raise one line naming their ROADMAP item.
+window page geometry raises through ``layout_for``) and the recurrent
+``hybrid`` (recurrentgemma) and ``ssm`` (rwkv6) families, which have no
+``KVLayout`` and serve on the slotted pool only.  The other families
+(encdec, vlm, cnn) raise one line naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import common, transformer
+from repro_torch.models import common, rglru, rwkv6, transformer
 from repro_torch.serving.layouts import KVLayout, layout_for
 
 
@@ -41,11 +43,14 @@ class TrainStepContract(Protocol):
 
 @runtime_checkable
 class ServeContract(Protocol):
-    """Whole-prompt prefill: ``(params, tokens, *, cache_len[, n_valid]) ->
-    (last_logits, state)`` with ``state`` shaped like ``init_decode_state``;
-    paired with ``decode_fn``."""
+    """Whole-prompt prefill: ``(params, tokens, *, cache_len[, n_valid],
+    use_kernels=False) -> (last_logits, state)`` with ``state`` shaped like
+    ``init_decode_state(1, cache_len)``; paired with ``decode_fn``.
+    ``use_kernels`` is the port's ``use_pallas``: K3 for attention, K9 /
+    K10 for the recurrences."""
 
-    def __call__(self, params, tokens, *, cache_len: int) -> Tuple[Any, Any]: ...
+    def __call__(self, params, tokens, *, cache_len: int,
+                 use_kernels: bool = False) -> Tuple[Any, Any]: ...
 
 
 @runtime_checkable
@@ -98,7 +103,10 @@ class ModelBundle:
     paged_prefill_fn: Optional[PagedPrefillContract] = None
     paged_verify_fn: Optional[PagedVerifyContract] = None
     kv_layout: Optional[KVLayout] = None
-    # True when serve_prefill_fn accepts ``n_valid`` (masked bucket tail)
+    # True when serve_prefill_fn accepts ``n_valid`` (masked bucket tail).
+    # Recurrent families advance their state token by token, so tail
+    # padding would corrupt it; ring-caching families would wrap padding
+    # onto valid slots — both keep exact-length slotted prefills
     masked_prefill: bool = False
 
     def capabilities(self) -> FrozenSet[str]:
@@ -142,9 +150,10 @@ def _build_lm(cfg: ModelConfig) -> ModelBundle:
         init_decode_state=lambda b, s, device="cpu":
             transformer.init_decode_caches(cfg, b, s, device=device),
         # serving prefill routes MoE drop-free per token (moe_dropless)
-        serve_prefill_fn=lambda params, tokens, *, cache_len, n_valid=None:
-            transformer.lm_prefill(cfg, params, tokens, cache_len=cache_len,
-                                   n_valid=n_valid, moe_dropless=True),
+        serve_prefill_fn=lambda params, tokens, *, cache_len, n_valid=None,
+        use_kernels=False: transformer.lm_prefill(
+            cfg, params, tokens, cache_len=cache_len, n_valid=n_valid,
+            use_kernels=use_kernels, moe_dropless=True),
         paged_decode_fn=(functools.partial(transformer.lm_paged_decode, cfg)
                          if layout is not None else None),
         paged_prefill_fn=(functools.partial(transformer.lm_paged_prefill,
@@ -157,15 +166,48 @@ def _build_lm(cfg: ModelConfig) -> ModelBundle:
     )
 
 
+def _build_rg(cfg: ModelConfig) -> ModelBundle:
+    return ModelBundle(
+        cfg=cfg,
+        specs=rglru.rg_specs(cfg),
+        loss_fn=functools.partial(rglru.rg_loss, cfg),
+        prefill_fn=lambda params, tokens: rglru.rg_prefill(cfg, params,
+                                                           tokens),
+        decode_fn=functools.partial(rglru.rg_decode, cfg),
+        init_decode_state=lambda b, s, device="cpu":
+            rglru.rg_init_states(cfg, b, s, device=device),
+        serve_prefill_fn=lambda params, tokens, *, cache_len,
+        use_kernels=False: rglru.rg_prefill(
+            cfg, params, tokens, cache_len=cache_len,
+            use_kernels=use_kernels),
+    )
+
+
+def _build_rwkv(cfg: ModelConfig) -> ModelBundle:
+    return ModelBundle(
+        cfg=cfg,
+        specs=rwkv6.rwkv_specs(cfg),
+        loss_fn=functools.partial(rwkv6.rwkv_loss, cfg),
+        prefill_fn=lambda params, tokens: rwkv6.rwkv_prefill(cfg, params,
+                                                             tokens),
+        decode_fn=functools.partial(rwkv6.rwkv_decode, cfg),
+        init_decode_state=lambda b, s, device="cpu":
+            rwkv6.rwkv_init_states(cfg, b, device=device),
+        # recurrent state is O(1) in sequence length: capacity is a no-op
+        serve_prefill_fn=lambda params, tokens, *, cache_len,
+        use_kernels=False: rwkv6.rwkv_prefill(cfg, params, tokens,
+                                              use_kernels=use_kernels),
+    )
+
+
 _TODO = {
-    "hybrid": "hybrid (recurrentgemma) — ROADMAP queue 1 item 9",
-    "ssm": "ssm (rwkv6) — ROADMAP queue 1 item 9",
     "encdec": "encdec (whisper) — ROADMAP queue 1 item 11",
     "vlm": "vlm (pixtral) — ROADMAP queue 1 item 11",
     "cnn": "cnn (alexnet) — ROADMAP queue 1 item 11",
 }
 
-_BUILDERS = {"dense": _build_lm, "moe": _build_lm}
+_BUILDERS = {"dense": _build_lm, "moe": _build_lm, "hybrid": _build_rg,
+             "ssm": _build_rwkv}
 
 
 def build(cfg: ModelConfig) -> ModelBundle:

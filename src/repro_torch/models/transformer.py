@@ -5,8 +5,10 @@ attention (``deepseek-v2-lite``: MLA + MoE).
 
 Entry points (the JAX package's, same names and contracts):
   * ``lm_loss``         — tokens -> scalar loss
-  * ``lm_prefill``      — tokens -> last-token logits + ring caches
-  * ``lm_decode``       — 1 token + ring caches -> logits
+  * ``lm_prefill``      — tokens -> last-token logits + ring caches (the
+    slotted pool's whole-prompt prefill)
+  * ``lm_decode``       — 1 token + ring caches -> logits (the slotted
+    pool's decode, slots at their own positions)
   * ``lm_paged_prefill`` / ``lm_paged_verify`` / ``lm_paged_decode`` — the
     serving engine's paged paths against the shared page pool
 
@@ -14,8 +16,8 @@ Parameters keep the JAX pytree layout: ``params["layers"]`` holds stacked
 ``[L, ...]`` leaves, and the scan over layers is a Python loop over their
 slices (views — no copy).  Page pools are ``{"k", "v"}: [L, P, ps, KV,
 hd]`` tensors (MLA: ``{"ckv", "krope"}: [L, P, ps, R | rp]``) written in
-place.  Sliding-window families are not ported yet (``attention.py``
-raises naming the ROADMAP item).
+place, as are ring caches.  The paged sliding-window geometry is not
+ported yet (``serving/layouts.py`` raises naming the ROADMAP item).
 
 ``use_kernels`` on ``lm_forward`` / ``lm_loss`` / ``lm_prefill`` runs every
 layer's attention through kernel K3 (the JAX package's ``use_pallas``);
@@ -361,24 +363,25 @@ def _paged_forward(cfg, params, tokens, state, *, use_kernels: bool = False):
 
 
 def lm_decode(cfg, params, tokens, caches):
-    """One decode step. tokens [B,1]; caches stacked [L,...] ring caches.
+    """One decode step. tokens [B,1]; caches stacked [L,...] ring caches,
+    written in place.  Their position is shared by the batch (``pos [L,
+    Lc]``, ``index [L]``: what ``lm_prefill`` returns) or kept per row
+    (``pos [L, B, Lc]``, ``index [L, B]``: the slotted pool's slots, each
+    at its own position — the JAX engine's ``vmap`` over slots written
+    out as a batch axis).
 
-    Returns (logits [B,V], new_caches)."""
+    Returns (logits [B,V], caches)."""
     params = cast_tree(params, cfg.compute_dtype)
     cd = torch_dtype(cfg.compute_dtype)
-    B = tokens.shape[0]
-    positions = torch.zeros((B, 1), dtype=torch.int32,
-                            device=tokens.device) + caches["index"][0]
+    positions = attn.decode_positions(caches["index"][0], tokens.shape[0])
     x = embed_lookup(cfg, params, tokens, cd)
-    new = []
     for i in range(cfg.num_layers):
         cache = {k: v[i] for k, v in caches.items()}
-        x, c, _ = decoder_layer_apply(cfg, layer_params(params, i), x,
+        x, _, _ = decoder_layer_apply(cfg, layer_params(params, i), x,
                                       positions, cache=cache)
-        new.append(c)
     x = apply_norm(cfg, params["final_norm"], x)
     logits = lm_head(cfg, params, x)
-    return logits[:, 0], {k: torch.stack([c[k] for c in new]) for k in new[0]}
+    return logits[:, 0], caches
 
 
 def paged_decoder_layer_apply(cfg, p, x, positions, kv, page_table, lengths,
@@ -432,7 +435,6 @@ def lm_paged_decode(cfg, params, tokens, state, *, use_kernels: bool = False):
 def init_decode_caches(cfg, batch: int, seq_len: int, device="cpu"):
     """Stacked [L,...] cache tree for lm_decode (MLA: the latent leaves
     ``ckv`` / ``krope``)."""
-    attn.require_full(cfg)
     cd = torch_dtype(cfg.compute_dtype)
     if cfg.attn_kind == "mla":
         one = attn.mla_init_cache(batch, seq_len, cfg, cd, device)

@@ -1,13 +1,21 @@
 """Continuous-batching serving engine with a pipelined submit/retire cycle.
 
-The PyTorch port of the JAX package's engine, on its main path: the paged
-pool with prefix caching, chunked prefill and n-gram speculation.  The user
-supplies a model config (whose registry bundle declares the
-``PagedServeContract`` / ``PagedPrefillContract`` / ``PagedVerifyContract``
-decode paths — the engine dispatches on ``bundle.capabilities()``); the
-engine owns request admission, page-granular KV management, prefix-cache
-page sharing, prefill/decode interleaving and speculative decoding.  User
-scripts reach it through ``repro_torch.api``'s ``Session.serve`` /
+The PyTorch port of the JAX package's engine.  The user supplies a model
+config (whose registry bundle declares its decode-path contracts — the
+engine dispatches on ``bundle.capabilities()``); the engine owns request
+admission, KV management, prefill/decode interleaving and speculative
+decoding.  Two pools, chosen as the JAX engine chooses them:
+
+  * paged (a family with a ``KVLayout``, ``kv_layout`` "auto" or "paged"):
+    page-granular KV, prefix-cache page sharing (``enable_prefix_cache``),
+    chunked prefill and n-gram speculation;
+  * slotted (``serving/kvcache.py``; the recurrent families, whose O(1)
+    state has no layout, and ``kv_layout="slotted"``): one decode state per
+    slot, whole-prompt prefill (bucketed to powers of two where the family
+    takes masked tails; exact length for recurrent and ring families), a
+    batched decode of every slot at its own position.
+
+User scripts reach it through ``repro_torch.api``'s ``Session.serve`` /
 ``Session.generate``.
 
 Pipelined event loop (one ``step()`` = one cycle, three phases):
@@ -34,9 +42,11 @@ Differences from the JAX engine, all forced by eager PyTorch:
 
   * ``jax.lax.scan`` over decode steps and over verify rows becomes a
     Python loop; ``jax.jit`` has no counterpart.  ``prefill_compiles``
-    keeps its meaning as the count of distinct prefill bucket shapes
-    (what bucketing bounds).
-  * Page pools are written in place where the JAX engine donated buffers.
+    keeps its meaning as the count of distinct prefill shapes (what
+    bucketing bounds).
+  * The JAX engine ``vmap``s the slotted decode over slots; here the slots
+    are the batch axis of one decode call, each at its own position.
+  * Pools are written in place where the JAX engine donated buffers.
   * Traced mode fences device work with ``torch.cuda.synchronize()``
     (``jax.block_until_ready`` there); untraced, nothing syncs before
     retire.
@@ -44,10 +54,9 @@ Differences from the JAX engine, all forced by eager PyTorch:
     (``serving/sampling.py``), not JAX's threefry.
 
 Not ported yet, each raising a one-line ``ValueError`` naming its ROADMAP
-item: the slotted pool and whole-prompt prefill (``kv_layout="slotted"``,
-``enable_prefix_cache=False``), int8 per-head pages (``kv_dtype="int8"``;
-MLA's latent pages reject it with the JAX package's error) and mesh
-placement (``mesh_cfg``).
+item: int8 per-head pages (``kv_dtype="int8"``; MLA's latent pages and the
+slotted pool reject it with the JAX package's errors) and mesh placement
+(``mesh_cfg``).
 """
 from __future__ import annotations
 
@@ -62,7 +71,7 @@ from repro_torch.models import registry
 from repro_torch.models.common import torch_dtype
 from repro_torch.obs import (INFLIGHT_COUNTER, NULL_TRACER, Tracer,
                              request_track, write_chrome_trace)
-from repro_torch.serving.layouts import layout_for
+from repro_torch.serving.kvcache import SlotKVCachePool
 from repro_torch.serving.metrics import ServingMetrics
 from repro_torch.serving.paged import PagedKVCachePool, upload
 from repro_torch.serving.sampling import (GREEDY, PACKED_WIDTH,
@@ -76,12 +85,6 @@ StreamFn = Callable[[int, int, bool], None]
 
 #: smallest prefill bucket — below this the pad overhead beats the reuse
 _MIN_BUCKET = 16
-
-#: ROADMAP items of the engine paths this slice does not port
-_SLOTTED_TODO = ("the slotted pool and whole-prompt prefill are not ported "
-                 "yet — ROADMAP queue 1 item 4 (serving/kvcache.py, "
-                 "lm_prefill admission)")
-
 
 def resolve_device(device) -> torch.device:
     """The engine's device: ``"cuda"`` by default, and no CPU fallback —
@@ -115,15 +118,16 @@ class _PrefillJob:
 
 
 class _AdmitPlan:
-    """A planned full-hit admission: every prompt block is mapped from the
-    prefix cache AND the pool remembered the greedy next token
-    (``cached_tok``), so submit launches nothing for it — it just seeds
-    the device token chain and the slot decodes this same cycle."""
+    """A planned whole-prompt admission: the slotted pool's prefill, or —
+    paged, with ``cached_tok`` set — a full hit, where every prompt block
+    is mapped from the prefix cache AND the pool remembered the greedy
+    next token, so submit launches nothing for it: it just seeds the
+    device token chain and the slot decodes this same cycle."""
 
     __slots__ = ("req", "slot", "prompt", "cached_tok")
 
     def __init__(self, req: Request, slot: int, prompt: Tuple[int, ...],
-                 cached_tok):
+                 cached_tok=None):
         self.req = req
         self.slot = slot
         self.prompt = prompt
@@ -207,14 +211,6 @@ class ServingEngine:
         if mesh_cfg is not None:
             raise ValueError("mesh placement is not ported yet — ROADMAP "
                              "queue 1 item 10 (mesh transparency)")
-        if self.cfg.kv_layout == "slotted" or not self.cfg.enable_prefix_cache:
-            raise ValueError(f"kv_layout={self.cfg.kv_layout!r}, "
-                             f"enable_prefix_cache="
-                             f"{self.cfg.enable_prefix_cache}: "
-                             + _SLOTTED_TODO)
-        # int8 pages: the JAX package's error for MLA's latent pages, the
-        # ROADMAP item for per-head pages (not ported yet)
-        layout_for(model_cfg, self.cfg.kv_dtype)
         self.tracer = (Tracer(clock=clock, capacity=self.cfg.trace_capacity,
                               meta={"model": model_cfg.name,
                                     "family": model_cfg.family,
@@ -227,12 +223,9 @@ class ServingEngine:
                        else (lambda: None))
         self.bundle = registry.build(model_cfg)
         caps = self.bundle.capabilities()
-        missing = {"paged_serve", "prefix_serve"} - caps
-        if missing:
-            raise ValueError(
-                f"{model_cfg.name} ({model_cfg.family}) lacks {sorted(missing)}"
-                ": the port serves paged prefix-cache families only — "
-                + _SLOTTED_TODO)
+        if "serve" not in caps:
+            raise ValueError(f"{model_cfg.name} ({model_cfg.family}) "
+                             "declares no serve contract")
         cd = torch_dtype(model_cfg.compute_dtype)
         if params is None:
             # ``seed`` initialises parameters ONLY; sampling randomness is
@@ -246,18 +239,54 @@ class ServingEngine:
         # per-call casts in the model entry points become no-ops
         self.params = _to(params, self.device, cd)
 
+        # -- pool: page-granular when the family has a KVLayout (every
+        # paged family of the port declares the prefix contract too);
+        # recurrent families' O(1) state has no layout and stays
+        # slot-granular, as does kv_layout="slotted"
         self.layout = self.bundle.kv_layout
-        self._spec_path = "spec_serve" in caps and self.cfg.enable_spec
-        self.cfg.check_window(self.layout.window)
-        self.pool = PagedKVCachePool(
-            self.cfg.max_batch, self.cfg.page_size, self.cfg.max_seq_len,
-            lambda: self.bundle.init_decode_state(1, self.cfg.page_size,
-                                                  device="meta"),
-            num_pages=self.cfg.num_pages, layout=self.layout,
-            enable_prefix_cache=True, tracer=self.tracer,
-            device=self.device)
-        self._chunk_cap = self.layout.max_chunk_tokens(self.pool.padded_len)
-        self._span_cap = self.layout.max_decode_span(self.cfg.decode_steps)
+        self.paged = ("prefix_serve" in caps
+                      and self.cfg.kv_layout != "slotted")
+        if self.cfg.kv_layout == "paged" and not self.paged:
+            raise ValueError(
+                f"{model_cfg.name} ({model_cfg.family}/{model_cfg.attn_kind})"
+                " has no paged decode path (PagedServeContract / KVLayout); "
+                "recurrent families' O(1) state uses the slotted pool "
+                "(kv_layout='auto')")
+        self._spec_path = ("spec_serve" in caps and self.paged
+                           and self.cfg.enable_spec)
+        # masked-tail power-of-two bucketing of whole-prompt prefills
+        self._bucket_slotted = (self.cfg.prefill_bucket
+                                and "bucketed_prefill" in caps)
+        if self.paged:
+            self.cfg.check_window(self.layout.window)
+            # int8 pages: the JAX package's error for MLA's latent pages,
+            # the ROADMAP item for per-head pages (not ported yet)
+            self.cfg.check_kv_dtype(self.layout)
+            self.pool = PagedKVCachePool(
+                self.cfg.max_batch, self.cfg.page_size, self.cfg.max_seq_len,
+                lambda: self.bundle.init_decode_state(1, self.cfg.page_size,
+                                                      device="meta"),
+                num_pages=self.cfg.num_pages, layout=self.layout,
+                enable_prefix_cache=self.cfg.enable_prefix_cache,
+                tracer=self.tracer, device=self.device)
+            self._chunk_cap = self.layout.max_chunk_tokens(
+                self.pool.padded_len)
+            self._span_cap = self.layout.max_decode_span(
+                self.cfg.decode_steps)
+        else:
+            # auto-resolved slotted (no KVLayout): the error the explicit
+            # kv_layout='slotted' combination gets in validate()
+            self.cfg.check_kv_dtype(None)
+            self.pool = SlotKVCachePool(
+                self.cfg.max_batch,
+                lambda: self.bundle.init_decode_state(
+                    1, self.cfg.max_seq_len, device=self.device))
+            self._cache_len = self.cfg.max_seq_len
+            self._span_cap = self.cfg.decode_steps
+            # host mirror of each slot's next sampling index (= prompt +
+            # tokens length): the sampled slotted decode's operand (the
+            # paged pool keeps pos itself)
+            self._slot_pos = np.zeros((self.cfg.max_batch,), np.int64)
 
         self.scheduler = Scheduler(self.cfg, tracer=self.tracer)
         self.metrics = ServingMetrics(clock, tracer=self.tracer)
@@ -279,8 +308,9 @@ class ServingEngine:
         self._spec_wait: set = set()
 
         # kernels on CUDA, plain versions on the CPU, unless the caller
-        # chose (ServeConfig.use_kernels) — one switch for every paged
-        # launch: decode steps, prefill chunks and spec-verify rows
+        # chose (ServeConfig.use_kernels) — one switch for every launch:
+        # paged decode steps, prefill chunks and spec-verify rows, and the
+        # slotted pool's whole-prompt prefills
         if self.cfg.use_kernels is None:
             self.use_kernels = self.device.type == "cuda"
         else:
@@ -320,14 +350,65 @@ class ServingEngine:
         last = torch.where(limits >= 1, stack[-1], toks0)
         return stack, last
 
-    def _prefill_chunk(self, toks, table, start: int, n_valid: int):
-        """One request's suffix chunk straight into the page pool."""
+    def _count_prefill_shape(self, toks) -> None:
+        """Count a distinct prefill token shape (the JAX engine's compile
+        count, which bucketing bounds)."""
         shape = tuple(toks.shape)
         if shape not in self._prefill_shapes:
             self._prefill_shapes.add(shape)
             self.prefill_compiles += 1
             self.metrics.record_prefill_compile()
             self.tracer.instant("prefill.compile", shape=list(shape))
+
+    def _decode_slotted(self, toks0, limits, samp=None, pos0=None):
+        """``decode_steps`` decode steps of every slot of the slotted pool
+        (slots at their own positions; the pool's state written in place).
+        No freeze is needed for state: a slot past its budget only ever
+        completes (and is blanked on eviction) or is free (and is
+        overwritten by the next insert) — the slots the synchronous engine
+        also decoded junk into.  ``samp`` / ``pos0`` are a sampled cycle's
+        packed rows and next sampling indices."""
+        state = self.pool.batched()
+        toks, pos = toks0, pos0
+        rows = []
+        for k in range(self.cfg.decode_steps):
+            logits, _ = self.bundle.decode_fn(self.params, toks[:, None],
+                                              state)
+            nxt = (sample_tokens(logits, samp, pos) if samp is not None
+                   else torch.argmax(logits, dim=-1).to(torch.int32))
+            rows.append(nxt)
+            adv = (k + 1) < limits
+            toks = torch.where(adv, nxt, toks)
+            if samp is not None:
+                pos = torch.where(adv, pos + 1, pos)
+        stack = torch.stack(rows)
+        last = torch.where(limits >= 1, stack[-1], toks0)
+        return stack, last
+
+    def _bucketed_prompt(self, prompt, cap: int):
+        """(tokens [1, S], n_valid_or_None): pad to a power-of-two bucket
+        when the family supports masked tails, else the exact length
+        (recurrent state and ring caches must not see padding)."""
+        n = len(prompt)
+        if not self._bucket_slotted:
+            return upload(np.asarray(prompt, np.int32)[None, :],
+                          self.device), None
+        toks = np.zeros((1, bucket_len(n, cap)), np.int32)
+        toks[0, :n] = prompt
+        return upload(toks, self.device), n
+
+    def _prefill(self, toks, n_valid):
+        """Whole-prompt prefill into a single-sequence state sized for one
+        slot of ``_cache_len`` tokens."""
+        self._count_prefill_shape(toks)
+        kw = {} if n_valid is None else {"n_valid": n_valid}
+        return self.bundle.serve_prefill_fn(
+            self.params, toks, cache_len=self._cache_len,
+            use_kernels=self.use_kernels, **kw)
+
+    def _prefill_chunk(self, toks, table, start: int, n_valid: int):
+        """One request's suffix chunk straight into the page pool."""
+        self._count_prefill_shape(toks)
         logits, _ = self.bundle.paged_prefill_fn(
             self.params, toks,
             {"pages": self.pool.pages, "page_table": table, "start": start,
@@ -476,6 +557,14 @@ class ServingEngine:
         cannot take it right now (the caller re-queues it)."""
         prompt = req.resume_prompt()
         rt = request_track(req.rid)
+        if not self.paged:
+            slot = self.pool.alloc(req.rid)
+            if slot is None:
+                return False
+            self.tracer.end("queued", track=rt)
+            self.tracer.begin("prefill", track=rt, prompt_tokens=len(prompt))
+            admits.append(_AdmitPlan(req, slot, prompt))
+            return True
         # map cached prefix pages read-only; the suffix prefills in chunks
         # (the first chunk is planned this same cycle).  The greedy
         # next-token memo only holds for greedy requests
@@ -532,8 +621,9 @@ class ServingEngine:
                 head = self.scheduler.peek()
                 blocked = (head.rid not in skip_rids
                            and (self.pool.free_slots == 0
-                                or not self.pool.can_admit_prompt(
-                                    head.resume_prompt())))
+                                or (self.paged
+                                    and not self.pool.can_admit_prompt(
+                                        head.resume_prompt()))))
                 if blocked:
                     running = {s: self.requests[r]
                                for s, r in self.pool.owner.items()
@@ -575,9 +665,9 @@ class ServingEngine:
                       - (1 if slot in override_slots else 0))
             limits[slot] = max(min(budget, cfg.decode_steps,
                                    self._span_cap), 0)
-        # 4. page growth for the whole span; on starvation preempt until
-        # the rest fit
-        while True:
+        # 4. page growth for the whole span (paged); on starvation preempt
+        # until the rest fit
+        while self.paged:
             starved = self.pool.ensure_decode_capacity(
                 skip=self._prefilling.keys(), steps=limits)
             if not starved:
@@ -672,12 +762,27 @@ class ServingEngine:
         cfg, tr = self.cfg, self.tracer
         overrides: List[Tuple[int, int, torch.Tensor]] = []
         for a in plan.admits:
-            # full-hit fast path: pages mapped read-only at plan, next token
-            # remembered from an earlier identical prefill — nothing to
-            # launch beyond seeding the token chain
             rt = request_track(a.req.rid)
-            self._set_tok(a.slot, a.cached_tok)
-            overrides.append((a.req.rid, a.slot, a.cached_tok))
+            if a.cached_tok is not None:
+                # full-hit fast path: pages mapped read-only at plan, next
+                # token remembered from an earlier identical prefill —
+                # nothing to launch beyond seeding the token chain
+                tok = a.cached_tok
+            else:
+                # slotted: whole-prompt prefill, its state copied into the
+                # slot
+                toks, n_valid = self._bucketed_prompt(a.prompt,
+                                                      self._cache_len)
+                with tr.span("prefill.device", tokens=len(a.prompt),
+                             bucket=int(toks.shape[1])):
+                    logits, state = self._prefill(toks, n_valid)
+                    self.pool.insert_at(a.slot, state)
+                    self._fence()
+                self.metrics.record_prefill(len(a.prompt))
+                tok = self._first_token(a.req, logits, len(a.prompt))
+                self._slot_pos[a.slot] = len(a.prompt) + 1
+            self._set_tok(a.slot, tok)
+            overrides.append((a.req.rid, a.slot, tok))
             tr.end("prefill", track=rt)
             tr.begin("decode", track=rt)
         for c in plan.chunks:
@@ -726,14 +831,27 @@ class ServingEngine:
                      for s in range(cfg.max_batch)]), self.device)
             with tr.span("decode.device", steps=cfg.decode_steps,
                          rows=len(plan.rows), sampled=sampled):
-                packed = self.pool.decode_operands(plan.limits,
-                                                   mask_slots=plan.mask)
-                stack, self._last_toks = self._decode_loop(
-                    self._last_toks, packed, samp)
+                if self.paged:
+                    packed = self.pool.decode_operands(plan.limits,
+                                                       mask_slots=plan.mask)
+                    stack, self._last_toks = self._decode_loop(
+                        self._last_toks, packed, samp)
+                else:
+                    limits = upload(np.asarray(
+                        [plan.limits.get(s, 0) for s in range(cfg.max_batch)],
+                        np.int32), self.device)
+                    pos0 = (upload(self._slot_pos.astype(np.int32),
+                                   self.device) if sampled else None)
+                    stack, self._last_toks = self._decode_slotted(
+                        self._last_toks, limits, samp, pos0)
                 self._fence()
             # host positions are deterministic once planned — advance now
             # so the next plan overlaps the in-flight device step
-            self.pool.advance(steps=plan.limits)
+            if self.paged:
+                self.pool.advance(steps=plan.limits)
+            else:
+                for slot, _ in plan.rows:
+                    self._slot_pos[slot] += plan.limits[slot]
         specs = None
         if plan.specs:
             width = cfg.spec_tokens + 1
@@ -857,8 +975,8 @@ class ServingEngine:
 
     def _relieve_pressure(self, prefer_not: Optional[int] = None) -> bool:
         """Preempt the lowest-priority, youngest running request to free
-        pages (slots with a verify in flight are never victims); False when
-        no candidate is left."""
+        pages (paged pool only; slots with a verify in flight are never
+        victims); False when no candidate is left."""
         candidates = [s for s in self.pool.active_slots
                       if s != prefer_not and s not in self._spec_wait]
         if not candidates:

@@ -10,7 +10,10 @@ JAX package is not installed.  Tolerances: fp32 1e-5; bf16 1e-2 (kernel
 and plain version both accumulate in fp32 and round once to bf16, so they
 may differ by one bf16 ulp); K3's row logsumexp rtol 1e-4 (the same fp32
 terms summed in another order); K3's gradients 1e-4 of their largest
-magnitude (fp32); K6/K7 as K1/K2 (fp32 1e-5, bf16 1e-2).
+magnitude (fp32); K6/K7 as K1/K2 (fp32 1e-5, bf16 1e-2); K9 (fp32) 1e-5
+of the largest |h| (the same sequential recurrence; expf may differ in the
+last ulp); K10 (fp32) 1e-4 of the largest |out| / |s_last| (the reference
+sums each output over the state column in another order).
 """
 import numpy as np
 import pytest
@@ -21,6 +24,11 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.kernels.paged_attention import kernel as port_kernel
 from repro_torch.kernels.paged_attention import ops as port_ops
+from repro_torch.kernels.rglru_scan import kernel as lru_kernel
+from repro_torch.kernels.rglru_scan import ops as lru_ops
+from repro_torch.kernels.rglru_scan.ref import lru_scan_ref
+from repro_torch.kernels.rwkv6_wkv import kernel as wkv_kernel
+from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
 from repro_torch.models.flash_vjp import flash_attention_vjp
 
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}
@@ -135,7 +143,10 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
 @pytest.mark.parametrize("Sq,Sk,H,KV,hd,causal,window", [
     (256, 256, 40, 8, 128, True, 0), (200, 200, 8, 2, 64, True, 48),
     (100, 160, 4, 4, 128, False, 0), (1000, 1000, 10, 2, 128, True, 0),
-    (130, 130, 6, 1, 64, False, 40)])
+    (130, 130, 6, 1, 64, False, 40),
+    # recurrentgemma's local attention: hd 256, one kv head, window 2048
+    (46, 46, 10, 1, 256, True, 2048), (2100, 2100, 10, 1, 256, True, 2048),
+    (300, 300, 10, 1, 256, True, 100)])
 def test_cuda_flash_kernel_matches_plain(dtype, Sq, Sk, H, KV, hd, causal,
                                          window):
     dev = _cuda()
@@ -179,6 +190,22 @@ def test_cuda_flash_function_grads_match_plain(S, window):
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0,
                                    atol=1e-4 * float(w.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,KV,hd", [(10, 1, 256), (40, 8, 128)])
+def test_cuda_flash_model_layout_batch_one(H, KV, hd):
+    """The model-layout entry point at batch 1 (the serving prefill's),
+    where [B, S, H, hd] -> [B*H, S, hd] must still hand the kernel
+    contiguous rows."""
+    dev = _cuda()
+    rng = np.random.default_rng(8)
+    q, k, v = (_t(rng.normal(size=(1, 46, n, hd)).astype(np.float32),
+                  "bfloat16", dev) for n in (H, KV, KV))
+    out = flash_ops.flash_attention(q, k, v, window=2048, use_kernel=True)
+    want = flash_ops.flash_attention(q, k, v, window=2048, use_kernel=False)
+    torch.testing.assert_close(out.float(), want.float(), rtol=0,
+                               atol=TOL["bfloat16"])
 
 
 @pytest.mark.cuda
@@ -294,3 +321,76 @@ def test_cuda_mla_wrappers_reject_what_the_kernels_do_not_take():
             torch.zeros((3, 16, 32), device=dev),
             torch.zeros((3, 16, 8), device=dev), table[0], 0, 5, scale=0.1,
             use_kernel=True)
+
+
+def _rel_close(got, want, rtol):
+    """max |got - want| within ``rtol`` of the largest |want| (at least 1)."""
+    err = float((got - want).abs().max())
+    scale = max(1.0, float(want.abs().max()))
+    assert err <= rtol * scale, (err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,W", [(1, 17, 2560), (1, 2049, 2560),
+                                   (2, 100, 129), (3, 1, 1000)])
+def test_cuda_lru_scan_kernel_matches_plain(B, S, W):
+    """K9 at recurrentgemma's width (W 2560, B 1) and ragged shapes."""
+    dev = _cuda()
+    rng = np.random.default_rng(S + W)
+    la = torch.from_numpy(-np.abs(rng.normal(size=(B, S, W))).astype(
+        np.float32)).to(dev)
+    x = torch.from_numpy(rng.normal(size=(B, S, W)).astype(np.float32)).to(dev)
+    n0 = lru_kernel.lru_scan_kernel.launches
+    got = lru_ops.lru_scan(la, x, use_kernel=True)
+    assert lru_kernel.lru_scan_kernel.launches == n0 + 1
+    _rel_close(got, lru_scan_ref(la, x), 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,hd", [(1, 17, 32, 64), (1, 46, 32, 64),
+                                      (2, 33, 4, 16), (1, 20, 3, 32)])
+def test_cuda_wkv6_kernel_matches_plain(B, S, H, hd):
+    """K10 at rwkv6-1.6b's width (H 32, hd 64, B 1) and the smoke shapes,
+    s0 != 0: outputs and the final state."""
+    dev = _cuda()
+    rng = np.random.default_rng(S * hd)
+
+    def t(*shape, decay=False):
+        a = rng.normal(size=shape)
+        return torch.from_numpy((np.exp(-np.exp(a)) if decay else a).astype(
+            np.float32)).to(dev)
+    r, k, v = (t(B, S, H, hd) for _ in range(3))
+    w = t(B, S, H, hd, decay=True)
+    u, s0 = t(H, hd), t(B, H, hd, hd)
+    n0 = wkv_kernel.wkv6_kernel.launches
+    out, s_last = wkv_ops.wkv6(r, k, v, w, u, s0, use_kernel=True)
+    assert wkv_kernel.wkv6_kernel.launches == n0 + 1
+    want_out, want_s = wkv_ops.wkv6(r, k, v, w, u, s0, use_kernel=False)
+    _rel_close(out, want_out, 1e-4)
+    _rel_close(s_last, want_s, 1e-4)
+    # state threading: two launches equal one
+    h = S // 2
+    o1, s1 = wkv_ops.wkv6(*(x[:, :h] for x in (r, k, v, w)), u, s0,
+                          use_kernel=True)
+    o2, s2 = wkv_ops.wkv6(*(x[:, h:] for x in (r, k, v, w)), u, s1,
+                          use_kernel=True)
+    _rel_close(torch.cat([o1, o2], 1), out, 1e-4)
+    _rel_close(s2, s_last, 1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_recurrence_wrappers_reject_what_the_kernels_do_not_take():
+    dev = _cuda()
+    x = torch.zeros((1, 4, 8), device=dev)
+    with pytest.raises(ValueError, match="dtype"):
+        lru_kernel.lru_scan_kernel(x.bfloat16(), x.bfloat16())
+    with pytest.raises(ValueError, match="shape mismatch"):
+        lru_kernel.lru_scan_kernel(x, x[:, :2].contiguous())
+    r = torch.zeros((1, 4, 2, 128), device=dev)
+    with pytest.raises(ValueError, match="head size"):
+        wkv_kernel.wkv6_kernel(r, r, r, r, torch.zeros((2, 128), device=dev),
+                               torch.zeros((1, 2, 128, 128), device=dev))
+    r = torch.zeros((1, 4, 2, 64), device=dev)
+    with pytest.raises(ValueError, match="do not fit"):
+        wkv_kernel.wkv6_kernel(r, r, r, r, torch.zeros((3, 64), device=dev),
+                               torch.zeros((1, 2, 64, 64), device=dev))

@@ -295,10 +295,14 @@ def test_sampled_preemption_resume_exact():
 # What this slice does not port fails loudly, naming the ROADMAP item
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("knobs", [dict(kv_layout="slotted"),
-                                   dict(enable_prefix_cache=False),
-                                   dict(kv_dtype="int8")])
+@pytest.mark.parametrize("knobs", [dict(kv_dtype="int8"),
+                                   dict(kv_dtype="int8",
+                                        enable_prefix_cache=False),
+                                   dict(kv_dtype="int8", kv_layout="paged")])
 def test_unported_engine_paths_raise(knobs):
+    """int8 per-head pages are not ported on any paged engine path (the
+    slotted pool and ``enable_prefix_cache=False`` are: see
+    ``tests/test_torch_slotted.py``)."""
     sess = port_api.load(ARCH, smoke=True, device="cpu")
     with pytest.raises(ValueError, match="ROADMAP"):
         sess.serve([[1, 2, 3]], max_new=2, **knobs)
@@ -308,7 +312,13 @@ def test_unported_families_and_train_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_api.load("mixtral-8x22b", smoke=True, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_api.load("rwkv6-1.6b", smoke=True, device="cpu")
+        port_api.load("whisper-tiny", smoke=True, device="cpu")
+    # the recurrent families serve (slotted); training them is not ported
+    for arch in ("rwkv6-1.6b", "recurrentgemma-2b"):
+        rec = port_api.load(arch, smoke=True, device="cpu")
+        assert rec.capabilities() == {"train", "serve"}
+        with pytest.raises(port_api.CapabilityError, match="ROADMAP"):
+            rec.train(steps=1, seq_len=8, global_batch=2)
     # deepseek serves; training the moe family is not ported yet
     ds = port_api.load(MLA, smoke=True, device="cpu")
     assert {"paged_serve", "prefix_serve", "spec_serve"} <= ds.capabilities()
@@ -324,3 +334,25 @@ def test_unported_families_and_train_raise():
     fsdp = port_api.load(ARCH, smoke=True, device="cpu", dp_mode="fsdp")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fsdp.train(steps=1, seq_len=8, global_batch=2)
+
+
+# ---------------------------------------------------------------------------
+# The recurrent families through the Session (slotted pool)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kernels", [False, True], ids=["plain", "kernel"])
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "recurrentgemma-2b"])
+def test_port_serve_matches_jax_greedy_recurrent(arch, kernels):
+    """``Session.serve`` of a recurrent family (``kv_layout="auto"``
+    resolves to the slotted pool) equals the JAX Session's streams; with
+    ``use_kernels`` the port's prefill takes K9 / K10 / K3's plain
+    versions."""
+    prompts = _prompts(13, [9, 17, 5, 12])
+    pairs, jm, pm = _serve_both([prompts], arch=arch,
+                                port_kw={"use_kernels": kernels},
+                                max_new=10)
+    for j, p in pairs:
+        assert p == j
+    assert pm.prefill_compiles == jm.prefill_compiles == len(prompts)
+    assert _port_session(arch).generate(prompts[0], max_new=6) \
+        == _jax_session(arch).generate(prompts[0], max_new=6)
