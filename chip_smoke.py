@@ -15,7 +15,11 @@ Phases, in order; any failure exits non-zero:
    version, and recurrentgemma's local attention at hd 256; K6, K7:
    deepseek serving, absorbed MLA on latent pages; K9: the RG-LRU scan at
    recurrentgemma's width; K10: the RWKV-6 WKV recurrence at rwkv6's, with
-   s0 != 0), with its time beside the plain version's, a bytes/operations
+   s0 != 0; K4 / K5: mixtral's ring decode, lengths on both sides of its
+   4096-token window, and ring chunked prefill, a 1024-query chunk that
+   wraps the ring; K8: int8 pages in K1, K2 at qwen's shapes and K4, K5 at
+   mixtral's; in bf16, and checked in fp32), with its time beside the
+   plain version's, a bytes/operations
    bound, and, where one exists, one PyTorch library call computing the
    same function as a yardstick (timed here only; the port never calls
    it);
@@ -63,7 +67,20 @@ Phases, in order; any failure exits non-zero:
 10. recurrent fp32 — both models in fp32, kernels on and off: the
    teacher-forced logits of the two paths agree within 1e-3 and the
    greedy streams match or part only at fp32 near-ties;
-11. a JSON ``kernels`` line, then as the last line
+11. mixtral serve — full-width ``mixtral-8x22b`` cut to 4 of its 56 layers
+   (sliding window 4096, 8 experts top-2) on ring pages: the six requests
+   and a 4,200-token one in 1024-token chunks, whose fifth chunk and
+   decode wrap the ring.  K4 must launch 4 x decode steps and K5 4 x
+   (prefill chunks + verifies), and the pool must rotate ring cells; then
+   the checked drive, the ``use_kernels=False`` arm (partings printed), a
+   profile of the warm engine (the long prompt a ring prefix hit); then
+   the int8 arm as for qwen; then in fp32, kernels on and off,
+   teacher-forced logits within 1e-3.  qwen's serve phase (4-5) ends the
+   same way with an int8 arm: ``kv_dtype="int8"``, K8 in K1 and K2 must
+   launch, page bytes against a bf16 page and the partings from the bf16-
+   page streams printed, every K8 launch of a checked drive held against
+   its plain version;
+12. a JSON ``kernels`` line, then as the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits with code 2 and prints no result when CUDA is unavailable.
@@ -195,13 +212,6 @@ def build_phase():
 SLOTS, KV, G, HD, PS = 8, 8, 5, 128, 16
 
 
-def _pages(torch, gen, n_pages):
-    shape = (n_pages, PS, KV, HD)
-    k = torch.randn(shape, generator=gen, device="cuda").bfloat16()
-    v = torch.randn(shape, generator=gen, device="cuda").bfloat16()
-    return k, v
-
-
 def _table_rows(torch, lengths, n_table, n_pages, seed):
     """Distinct random pages per row for its held blocks, trash page 0
     after them."""
@@ -214,31 +224,43 @@ def _table_rows(torch, lengths, n_table, n_pages, seed):
     return rows.cuda()
 
 
-def k1_case(torch, F, gen):
+def k1_case(torch, F, gen, dtype=None, int8=False, timed=True):
+    """K1 at qwen's decode shape; ``int8``: its K8 branch."""
     from repro_torch.kernels.paged_attention import ops, ref
+    dtype = dtype or torch.bfloat16
     n_table = 16
     n_pages = SLOTS * n_table + 1
     lengths = [1, PS, PS + 1, n_table * PS, 100, 37, 200, 64]
-    k, v = _pages(torch, gen, n_pages)
+    k, v, kw = _page_pair(torch, gen, (n_pages, PS, KV, HD), dtype, int8)
     q = torch.randn((SLOTS, KV * G, HD), generator=gen,
-                    device="cuda").bfloat16()
+                    device="cuda").to(dtype)
     table = _table_rows(torch, lengths, n_table, n_pages, SEED + 1)
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
 
     def kern():
-        return ops.paged_attention(q, k, v, table, lens, use_kernel=True)
+        return ops.paged_attention(q, k, v, table, lens, use_kernel=True,
+                                   **kw)
 
     def plain():
-        return ref.paged_attention_ref(q, k, v, table, lens)
+        return ref.paged_attention_ref(q, k, v, table, lens, **kw)
 
     out, want = kern(), plain()
     torch.cuda.synchronize()
     err = (out.float() - want.float()).abs().max().item()
+    case = dict(case=f"{'int8' if int8 else 'fp'} {str(dtype)[6:]} slots="
+                     f"{SLOTS} KV={KV} G={G} hd={HD} ps={PS} lengths="
+                     f"{lengths}", max_abs_err=err)
+    if not timed:
+        return case
 
-    # library yardstick: SDPA over the pre-gathered [slots, KV, T, hd] K/V
+    # library yardstick: SDPA over the pre-gathered (dequantized) [slots,
+    # KV, T, hd] K/V
     T = n_table * PS
-    kg = k[table.long()].reshape(SLOTS, T, KV, HD).transpose(1, 2).contiguous()
-    vg = v[table.long()].reshape(SLOTS, T, KV, HD).transpose(1, 2).contiguous()
+    idx = table.long()
+    kg = _gather(torch, k, kw, "k", idx, dtype).reshape(
+        SLOTS, T, KV, HD).transpose(1, 2).contiguous()
+    vg = _gather(torch, v, kw, "v", idx, dtype).reshape(
+        SLOTS, T, KV, HD).transpose(1, 2).contiguous()
     mask = (torch.arange(T, device="cuda")[None, :] < lens[:, None])
     mask = mask[:, None, None, :]
     qs = q[:, :, None, :]
@@ -249,42 +271,50 @@ def k1_case(torch, F, gen):
 
     lib_err = (lib()[:, :, 0].float() - want.float()).abs().max().item()
     tokens = sum(lengths)
-    nbytes = (q.numel() * 2 * 2                         # q in, out
-              + tokens * KV * HD * 2 * 2                # K and V needed
+    nbytes = (q.numel() * q.element_size() * 2          # q in, out
+              + _page_bytes(tokens * KV, dtype, int8)   # K and V needed
               + table.numel() * 4 + lens.numel() * 4)
     flops = 4 * HD * G * KV * tokens
     b_ms, b_by = bound(nbytes, flops)
-    row = dict(case=f"slots={SLOTS} KV={KV} G={G} hd={HD} ps={PS} "
-                    f"lengths={lengths}",
-               max_abs_err=err, ms=time_ms(torch, kern),
-               plain_ms=time_ms(torch, plain), bound_ms=b_ms, bound_by=b_by,
-               library_ms=time_ms(torch, lib), library_max_abs_err=lib_err)
-    return row
+    return dict(case, ms=time_ms(torch, kern),
+                plain_ms=time_ms(torch, plain), bound_ms=b_ms, bound_by=b_by,
+                library_ms=time_ms(torch, lib), library_max_abs_err=lib_err)
 
 
-def k2_case(torch, F, gen, S, start, n_valid):
+def k2_case(torch, F, gen, S, start, n_valid, dtype=None, int8=False,
+            timed=True):
+    """K2 at qwen's prefill / verify shapes; ``int8``: its K8 branch."""
     from repro_torch.kernels.paged_attention import ops, ref
+    dtype = dtype or torch.bfloat16
     n_table = 32
     n_pages = n_table + 8
-    k, v = _pages(torch, gen, n_pages)
-    q = torch.randn((S, KV * G, HD), generator=gen, device="cuda").bfloat16()
+    k, v, kw = _page_pair(torch, gen, (n_pages, PS, KV, HD), dtype, int8)
+    q = torch.randn((S, KV * G, HD), generator=gen, device="cuda").to(dtype)
     row = _table_rows(torch, [start + n_valid], n_table, n_pages,
                       SEED + S + start)[0]
 
     def kern():
         return ops.paged_prefill(q, k, v, row, start, n_valid,
-                                 use_kernel=True)
+                                 use_kernel=True, **kw)
 
     def plain():
-        return ref.paged_prefill_ref(q, k, v, row, start, n_valid)
+        return ref.paged_prefill_ref(q, k, v, row, start, n_valid, **kw)
 
     out, want = kern(), plain()
     torch.cuda.synchronize()
     err = (out[:n_valid].float() - want[:n_valid].float()).abs().max().item()
+    case = dict(case=f"{'int8' if int8 else 'fp'} {str(dtype)[6:]} S={S} "
+                     f"start={start} n_valid={n_valid} KV={KV} G={G} hd={HD} "
+                     f"ps={PS}", max_abs_err=err)
+    if not timed:
+        return case
 
     T = n_table * PS
-    kg = k[row.long()].reshape(T, KV, HD).transpose(0, 1)[None].contiguous()
-    vg = v[row.long()].reshape(T, KV, HD).transpose(0, 1)[None].contiguous()
+    idx = row.long()
+    kg = _gather(torch, k, kw, "k", idx, dtype).reshape(
+        T, KV, HD).transpose(0, 1)[None].contiguous()
+    vg = _gather(torch, v, kw, "v", idx, dtype).reshape(
+        T, KV, HD).transpose(0, 1)[None].contiguous()
     kidx = torch.arange(T, device="cuda")
     qpos = start + torch.arange(S, device="cuda")
     mask = (kidx[None, :] < start + n_valid) & (kidx[None, :] <= qpos[:, None])
@@ -299,12 +329,11 @@ def k2_case(torch, F, gen, S, start, n_valid):
     lib_err = (lib_out[:n_valid].float()
                - want[:n_valid].float()).abs().max().item()
     keys = start + n_valid
-    nbytes = (q.numel() * 2 * 2 + keys * KV * HD * 2 * 2 + row.numel() * 4)
+    nbytes = (q.numel() * q.element_size() * 2
+              + _page_bytes(keys * KV, dtype, int8) + row.numel() * 4)
     flops = 4 * HD * G * KV * sum(start + i + 1 for i in range(n_valid))
     b_ms, b_by = bound(nbytes, flops)
-    return dict(case=f"S={S} start={start} n_valid={n_valid} KV={KV} G={G} "
-                     f"hd={HD} ps={PS}",
-                max_abs_err=err, ms=time_ms(torch, kern),
+    return dict(case, ms=time_ms(torch, kern),
                 plain_ms=time_ms(torch, plain), bound_ms=b_ms, bound_by=b_by,
                 library_ms=time_ms(torch, lib), library_max_abs_err=lib_err)
 
@@ -317,6 +346,181 @@ K2_CASES = ((5, 0, 5), (5, 37, 3), (16, 0, 11), (16, 32, 16), (64, 0, 40),
 #: the K2 case the kernels line reports: a verify row mid-sequence, the
 #: call the serving path makes most often
 K2_REPORTED = (5, 37, 3)
+
+
+#: mixtral-8x22b serving geometry: KV 8, G 6 (48 heads), hd 128, page 16,
+#: a 4096-token window = a ring of 256 cells; the decode case's lengths
+#: lie on both sides of the window and straddle pages
+MX_KV, MX_G, MX_WINDOW = 8, 6, 4096
+MX_CELLS = MX_WINDOW // PS
+MX_LENGTHS = [1, 17, 4095, 4096, 4097, 4200, 333, 8191]
+
+
+def _page_pair(torch, gen, shape, dtype, int8):
+    """Random K and V pages: in ``dtype``, or int8 with bf16 scales made
+    by the pool's quantizer.  Returns (k, v, scale kwargs)."""
+    from repro_torch.serving.layouts import quantize_kv
+    k = torch.randn(shape, generator=gen, device="cuda")
+    v = torch.randn(shape, generator=gen, device="cuda")
+    if not int8:
+        return k.to(dtype), v.to(dtype), {}
+    (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+    return k, v, {"k_scale": ks, "v_scale": vs}
+
+
+def _gather(torch, pages, kw, name, idx, dtype):
+    """Pages gathered by ``idx`` (dequantized for int8) in ``dtype``: the
+    library yardstick's K or V."""
+    g = pages[idx].float()
+    if kw:
+        g = g * kw[name + "_scale"][idx].float()[..., None]
+    return g.to(dtype)
+
+
+def _page_bytes(rows, dtype, int8):
+    """Bytes of ``rows`` K and V rows of HD elements (int8 rows with their
+    bf16 scales)."""
+    return rows * 2 * (HD + 2 if int8 else HD * dtype.itemsize)
+
+
+def k4_case(torch, F, gen, dtype, int8, timed=True):
+    """K4 (ring decode) at mixtral's decode shape; ``int8``: its K8
+    branch."""
+    from repro_torch.kernels.paged_attention import ops, ref
+    n_pages = SLOTS * MX_CELLS + 1
+    k, v, kw = _page_pair(torch, gen, (n_pages, PS, MX_KV, HD), dtype, int8)
+    q = torch.randn((SLOTS, MX_KV * MX_G, HD), generator=gen,
+                    device="cuda").to(dtype)
+    live = [min(n, MX_WINDOW) for n in MX_LENGTHS]
+    table = _table_rows(torch, live, MX_CELLS, n_pages, SEED + 4)
+    lens = torch.tensor(MX_LENGTHS, dtype=torch.int32, device="cuda")
+
+    def kern():
+        return ops.paged_attention(q, k, v, table, lens, window=MX_WINDOW,
+                                   use_kernel=True, **kw)
+
+    def plain():
+        return ref.paged_attention_ref(q, k, v, table, lens,
+                                       window=MX_WINDOW, **kw)
+
+    out, want = kern(), plain()
+    torch.cuda.synchronize()
+    err = (out.float() - want.float()).abs().max().item()
+    row = dict(case=f"{'int8' if int8 else 'fp'} {str(dtype)[6:]} slots="
+                    f"{SLOTS} KV={MX_KV} G={MX_G} hd={HD} ps={PS} window="
+                    f"{MX_WINDOW} lengths={MX_LENGTHS}", max_abs_err=err)
+    if not timed:
+        return row
+    T = MX_CELLS * PS
+    idx = table.long()
+    kg = _gather(torch, k, kw, "k", idx, dtype).reshape(
+        SLOTS, T, MX_KV, HD).transpose(1, 2).contiguous()
+    vg = _gather(torch, v, kw, "v", idx, dtype).reshape(
+        SLOTS, T, MX_KV, HD).transpose(1, 2).contiguous()
+    _, ok = ref.ring_positions(lens, T, MX_WINDOW)
+    mask = ok[:, None, None, :]
+    qs = q[:, :, None, :]
+
+    def lib():
+        return F.scaled_dot_product_attention(qs, kg, vg, attn_mask=mask,
+                                              enable_gqa=True)
+
+    lib_err = (lib()[:, :, 0].float() - want.float()).abs().max().item()
+    tokens = sum(live)
+    nbytes = (q.numel() * q.element_size() * 2 + _page_bytes(
+        tokens * MX_KV, dtype, int8) + table.numel() * 4 + lens.numel() * 4)
+    flops = 4 * HD * MX_G * MX_KV * tokens
+    b_ms, b_by = bound(nbytes, flops)
+    return dict(row, ms=time_ms(torch, kern), plain_ms=time_ms(torch, plain),
+                bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(torch, lib),
+                library_max_abs_err=lib_err)
+
+
+def _ring_pairs(S, start, n_valid, window):
+    """(query, key) pairs the ring prefill's masks keep: the snapshot's
+    live positions in each query's window, then the chunk's causal keys in
+    it."""
+    total = 0
+    for i in range(n_valid):
+        qpos = start + i
+        lo = max(0, start - window, qpos - window + 1)
+        total += max(0, start - lo) + min(i + 1, window)
+    return total
+
+
+def k5_case(torch, F, gen, dtype, int8, S, start, n_valid, timed=True):
+    """K5 (ring chunked prefill, snapshot-before-write) at mixtral's shape
+    on one request's ring of 256 cells; ``int8``: its K8 branch (int8
+    snapshot pages, fp chunk operands)."""
+    from repro_torch.kernels.paged_attention import ops, ref
+    n_pages = MX_CELLS + 8
+    k, v, kw = _page_pair(torch, gen, (n_pages, PS, MX_KV, HD), dtype, int8)
+    q = torch.randn((S, MX_KV * MX_G, HD), generator=gen,
+                    device="cuda").to(dtype)
+    ck = torch.randn((S, MX_KV, HD), generator=gen, device="cuda").to(dtype)
+    cv = torch.randn((S, MX_KV, HD), generator=gen, device="cuda").to(dtype)
+    row = _table_rows(torch, [MX_WINDOW], MX_CELLS, n_pages, SEED + 5)[0]
+
+    def kern():
+        return ops.paged_ring_prefill(q, k, v, ck, cv, row, start, n_valid,
+                                      window=MX_WINDOW, use_kernel=True,
+                                      **kw)
+
+    def plain():
+        return ref.paged_ring_prefill_ref(q, k, v, ck, cv, row, start,
+                                          n_valid, window=MX_WINDOW, **kw)
+
+    out, want = kern(), plain()
+    torch.cuda.synchronize()
+    err = (out[:n_valid].float() - want[:n_valid].float()).abs().max().item()
+    case = dict(case=f"{'int8' if int8 else 'fp'} {str(dtype)[6:]} S={S} "
+                     f"start={start} n_valid={n_valid} KV={MX_KV} G={MX_G} "
+                     f"hd={HD} ps={PS} window={MX_WINDOW}", max_abs_err=err)
+    if not timed:
+        return case
+    T = MX_CELLS * PS
+    idx = row.long()
+    ring_pos, ring_ok = ref.ring_positions(
+        torch.tensor([start], device="cuda"), T, MX_WINDOW)
+    j = torch.arange(S, device="cuda")
+    kpos = torch.cat([ring_pos[0], start + j])
+    kok = torch.cat([ring_ok[0], j < n_valid])
+    qpos = start + j
+    mask = kok[None, :] & (kpos[None, :] <= qpos[:, None]) \
+        & (kpos[None, :] > qpos[:, None] - MX_WINDOW)
+    kk = torch.cat([_gather(torch, k, kw, "k", idx, dtype).reshape(
+        T, MX_KV, HD), ck]).transpose(0, 1)[None].contiguous()
+    vv = torch.cat([_gather(torch, v, kw, "v", idx, dtype).reshape(
+        T, MX_KV, HD), cv]).transpose(0, 1)[None].contiguous()
+    qs = q.transpose(0, 1)[None].contiguous()
+
+    def lib():
+        return F.scaled_dot_product_attention(qs, kk, vv,
+                                              attn_mask=mask[None, None],
+                                              enable_gqa=True)
+
+    lib_out = lib()[0].transpose(0, 1)
+    lib_err = (lib_out[:n_valid].float()
+               - want[:n_valid].float()).abs().max().item()
+    snap = min(start, MX_WINDOW)
+    nbytes = (q.numel() * q.element_size() * 2
+              + _page_bytes(snap * MX_KV, dtype, int8)
+              + ck.numel() * ck.element_size() * 2 + row.numel() * 4)
+    flops = 4 * HD * MX_G * MX_KV * _ring_pairs(S, start, n_valid,
+                                                MX_WINDOW)
+    b_ms, b_by = bound(nbytes, flops)
+    return dict(case, ms=time_ms(torch, kern),
+                plain_ms=time_ms(torch, plain), bound_ms=b_ms, bound_by=b_by,
+                library_ms=time_ms(torch, lib), library_max_abs_err=lib_err)
+
+
+#: K5 cases (S, start, n_valid): the drive's 1024-token chunk that wraps
+#: the ring (reported), the ragged fifth chunk of its 4,200-token prompt
+#: (bucket 128), a cold chunk, and a verify row (S = spec_tokens + 1,
+#: one draft on a ring) past the window
+K5_CASES = ((1024, 3584, 1024), (128, 4096, 104), (1024, 0, 1024),
+            (5, 4210, 2))
+K5_REPORTED = (1024, 3584, 1024)
 
 
 def _valid_pairs(Sq, Sk, causal, window):
@@ -599,8 +803,34 @@ K10_REPORTED = (1, 46, 32, 64)
 
 def kernel_phase(torch, F):
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    bf16, fp32 = torch.bfloat16, torch.float32
     rows = {"paged_attention": [k1_case(torch, F, gen)],
             "paged_prefill": [k2_case(torch, F, gen, *c) for c in K2_CASES],
+            # K4, K5 and K8 (int8 in K1, K2, K4, K5): the timed bf16 case
+            # first, then the checked-only fp32 ones
+            "paged_ring_decode": [k4_case(torch, F, gen, bf16, False),
+                                  k4_case(torch, F, gen, fp32, False,
+                                          timed=False)],
+            "paged_ring_prefill": [k5_case(torch, F, gen, bf16, False, *c)
+                                   for c in K5_CASES] + [
+                k5_case(torch, F, gen, fp32, False, *c, timed=False)
+                for c in K5_CASES],
+            "paged_attention_int8": [
+                k1_case(torch, F, gen, bf16, True),
+                k1_case(torch, F, gen, fp32, True, timed=False)],
+            "paged_prefill_int8": [
+                k2_case(torch, F, gen, *K2_REPORTED, bf16, True),
+                k2_case(torch, F, gen, 64, 0, 40, bf16, True, timed=False),
+                k2_case(torch, F, gen, *K2_REPORTED, fp32, True,
+                        timed=False)],
+            "paged_ring_decode_int8": [
+                k4_case(torch, F, gen, bf16, True),
+                k4_case(torch, F, gen, fp32, True, timed=False)],
+            "paged_ring_prefill_int8": [
+                k5_case(torch, F, gen, bf16, True, *K5_REPORTED),
+                k5_case(torch, F, gen, bf16, True, 5, 4210, 2, timed=False),
+                k5_case(torch, F, gen, fp32, True, *K5_REPORTED,
+                        timed=False)],
             "flash_attention": [k3_case(torch, F, gen, *c)
                                 for c in K3_CASES],
             "paged_mla": [k6_case(torch, F, gen)],
@@ -624,6 +854,12 @@ def kernel_phase(torch, F):
                 ok = ok and r["lse_rel_err"] <= LSE_RTOL
                 check += (f"; L rel err {r['lse_rel_err']:.3g} "
                           f"(tol {LSE_RTOL:.3g})")
+            if "ms" not in r:                 # checked, not timed
+                log(f"kernel {name} [{r['case']}]: {check} "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    failed.append(f"{name} [{r['case']}]")
+                continue
             lib = ("library_ms none (no single PyTorch call computes it)"
                    if r["library_ms"] is None else
                    f"library_ms {r['library_ms']:.4f} (sdpa, err "
@@ -652,7 +888,18 @@ def kernel_phase(torch, F):
               if c == K9_REPORTED)
     k10 = next(r for r, c in zip(rows["wkv6"], K10_CASES)
                if c == K10_REPORTED)
+    k5 = next(r for r, c in zip(rows["paged_ring_prefill"], K5_CASES)
+              if c == K5_REPORTED)
+
+    def worst(name, reported):
+        return dict(reported, max_abs_err=max(r["max_abs_err"]
+                                              for r in rows[name]))
+
     return {"paged_attention": rows["paged_attention"][0],
+            "paged_ring_decode": worst("paged_ring_decode",
+                                       rows["paged_ring_decode"][0]),
+            "paged_ring_prefill": worst("paged_ring_prefill", k5),
+            **{n: worst(n, rows[n][0]) for n in INT8_KERNELS},
             "paged_prefill": dict(k2, max_abs_err=max(
                 r["max_abs_err"] for r in rows["paged_prefill"])),
             "flash_attention": dict(rows["flash_attention"][0], max_abs_err=max(
@@ -670,10 +917,11 @@ def kernel_phase(torch, F):
 # phases 4-5 and 7: serve at full width, the checked drive, the plain arm
 # ---------------------------------------------------------------------------
 
-def make_prompts(vocab, repetitive):
+def make_prompts(vocab, repetitive, long=0):
     """Six requests: 0 and 3 share a 32-token (two-page) prefix — 3 is
     admitted a cycle after 0 committed its pages, so it hits the prefix
-    cache; 4 is ``repetitive``, so the n-gram drafter proposes."""
+    cache; 4 is ``repetitive``, so the n-gram drafter proposes; with
+    ``long``, a seventh request of that many tokens."""
     import numpy as np
     rng = np.random.default_rng(SEED)
 
@@ -681,35 +929,84 @@ def make_prompts(vocab, repetitive):
         return [int(t) for t in rng.integers(0, vocab, n)]
 
     shared = rand(32)
-    return [shared + rand(9), rand(23), rand(40), shared + rand(14),
-            list(repetitive), rand(17)]
+    prompts = [shared + rand(9), rand(23), rand(40), shared + rand(14),
+               list(repetitive), rand(17)]
+    return prompts + [rand(long)] if long else prompts
 
 
 #: each drive's repetitive request.  Random-weight deepseek drafts nothing
 #: on qwen's; a run of 30330, the token it repeats for seed 0 (found by
-#: serving runs of its most-emitted token until one drew a draft), does.
+#: serving runs of its most-emitted token until one drew a draft), does;
+#: mixtral (4 layers, seed 0) drafts on a run of 12898, found the same way.
 #: The paged drives assert that drafts were verified; the slotted pool of
 #: the recurrent families does not speculate.
 REPETITIVE = {"qwen2.5-14b": [11, 12, 13, 14, 15, 16] * 6,
+              "mixtral-8x22b": [12898] * 36,
               "deepseek-v2-lite-16b": [30330] * 36,
               "recurrentgemma-2b": [11, 12, 13, 14, 15, 16] * 6,
               "rwkv6-1.6b": [11, 12, 13, 14, 15, 16] * 6}
 
+#: mixtral-8x22b at full width cut to 4 of its 56 layers (10.4 B
+#: parameters, 19.4 GiB in bf16); its seventh request, 4,200 tokens in
+#: 1024-token chunks, wraps the 4096-token ring in its fifth chunk and in
+#: decode, so K4 and K5 run ring arithmetic and the pool rotates cells
+LOAD_KW = {"mixtral-8x22b": {"num_layers": 4}}
+DRIVE_KW = {"mixtral-8x22b": {"prefill_chunk_tokens": 1024}}
+LONG_PROMPT = {"mixtral-8x22b": 4200}
+
 #: the kernels each serve drive runs, by family
 SERVE_KERNELS = {"qwen2.5-14b": ("paged_attention", "paged_prefill"),
+                 "mixtral-8x22b": ("paged_ring_decode", "paged_ring_prefill"),
                  "deepseek-v2-lite-16b": ("paged_mla", "paged_mla_prefill"),
                  "recurrentgemma-2b": ("flash_attention", "lru_scan"),
                  "rwkv6-1.6b": ("wkv6",)}
 
 
+#: the int8 (K8) branches of K1, K2, K4 and K5, each counted apart from
+#: its fp launches (``launches_by`` of the K1 / K4, K2 and K5 wrappers)
+INT8_KERNELS = ("paged_attention_int8", "paged_prefill_int8",
+                "paged_ring_decode_int8", "paged_ring_prefill_int8")
+#: the int8 drives' kernels, by the layout of their pages
+INT8_SERVE_KERNELS = {
+    "qwen2.5-14b": ("paged_attention_int8", "paged_prefill_int8"),
+    "mixtral-8x22b": ("paged_ring_decode_int8", "paged_ring_prefill_int8")}
+#: kernels-line name -> (wrapper name, ``launches_by`` key) for the
+#: wrappers that launch more than one kernel of the table
+BY_PAGES = {"paged_attention": ("paged_attention", "fp"),
+            "paged_ring_decode": ("paged_attention", "ring_fp"),
+            "paged_attention_int8": ("paged_attention", "int8"),
+            "paged_ring_decode_int8": ("paged_attention", "ring_int8"),
+            "paged_prefill": ("paged_prefill", "fp"),
+            "paged_prefill_int8": ("paged_prefill", "int8"),
+            "paged_ring_prefill": ("paged_ring_prefill", "fp"),
+            "paged_ring_prefill_int8": ("paged_ring_prefill", "int8")}
+#: calls of the paged model entry points in a drive (decode steps, prefill
+#: chunks, verifies), counted by ``count_model_calls``
+MODEL_CALLS = {}
+
+
+def count_model_calls():
+    """Wrap the paged model entry points so a drive can count its decode
+    steps, prefill chunks and verifies — installed before any session is
+    loaded, since a bundle binds them when it is built."""
+    from repro_torch.models import transformer
+    for name in ("lm_paged_decode", "lm_paged_prefill", "lm_paged_verify"):
+        def counted(*a, _fn=getattr(transformer, name), _name=name, **kw):
+            MODEL_CALLS[_name] = MODEL_CALLS.get(_name, 0) + 1
+            return _fn(*a, **kw)
+        setattr(transformer, name, counted)
+
+
 def kernel_wrappers():
-    """name -> the wrapper whose ``launches`` counts that kernel."""
+    """wrapper name -> the wrapper whose ``launches`` (and, for the paged
+    per-head kernels, ``launches_by``) count its launches."""
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.paged_attention import kernel as pk
     from repro_torch.kernels.rglru_scan import kernel as lk
     from repro_torch.kernels.rwkv6_wkv import kernel as wk
     return {"paged_attention": pk.paged_attention_kernel,
             "paged_prefill": pk.paged_prefill_kernel,
+            "paged_ring_prefill": pk.paged_ring_prefill_kernel,
             "flash_attention": fk.flash_attention_kernel,
             "paged_mla": pk.paged_mla_kernel,
             "paged_mla_prefill": pk.paged_mla_prefill_kernel,
@@ -727,19 +1024,35 @@ def launches_per_prefill(cfg):
     return {"wkv6": cfg.num_layers}
 
 
-def serve_once(torch, sess, prompts, **overrides):
-    """One drive of ``prompts``; every kernel's count is zeroed just before
-    and read just after."""
-    wrappers = kernel_wrappers()
-    for w in wrappers.values():
+def reset_counts():
+    for w in kernel_wrappers().values():
         w.launches = 0
+        if hasattr(w, "launches_by"):
+            w.launches_by = {}
+    MODEL_CALLS.clear()
+
+
+def read_counts():
+    """Kernels-line name -> launches since ``reset_counts``."""
+    wrappers = kernel_wrappers()
+    counts = {n: w.launches for n, w in wrappers.items()
+              if not hasattr(w, "launches_by")}
+    for name, (w, kind) in BY_PAGES.items():
+        counts[name] = wrappers[w].launches_by.get(kind, 0)
+    return counts
+
+
+def serve_once(torch, sess, prompts, **overrides):
+    """One drive of ``prompts`` (with the arch's ``DRIVE_KW``); every
+    kernel's count is zeroed just before and read just after."""
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    outs = sess.serve(prompts, max_new=MAX_NEW, **overrides)
+    outs = sess.serve(prompts, max_new=MAX_NEW,
+                      **{**DRIVE_KW.get(sess.model.name, {}), **overrides})
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {n: w.launches for n, w in wrappers.items()}
-    return outs, wall, counts, sess.engine.metrics.summary()
+    return outs, wall, read_counts(), sess.engine.metrics.summary()
 
 
 def logit_gap(torch, sess, prompt, tokens, j):
@@ -782,6 +1095,9 @@ def compare_streams(torch, sess, prompts, outs, plain, *, asserted):
 #: KERNEL_ATOL); fp32 K9 / K10 by LRU_RTOL / WKV_RTOL of max(1, |plain|)
 CHECK_LIMITS = {"flash_attention": "one bf16 ulp", "paged_mla": "one bf16 ulp",
                 "paged_mla_prefill": "one bf16 ulp",
+                **{n: "one bf16 ulp" for n in (
+                    "paged_attention", "paged_prefill", "paged_ring_decode",
+                    "paged_ring_prefill") + INT8_KERNELS},
                 "lru_scan": f"{LRU_RTOL:g} rel", "wkv6": f"{WKV_RTOL:g} rel"}
 
 
@@ -818,8 +1134,31 @@ def checked_launches(torch, names):
         n = a[6]
         return bf16(out[:n], pa_ref.paged_mla_prefill_ref(*a, **kw)[:n])
 
+    def heads(q):                 # [rows, KV, G, hd] -> [rows, H, hd]
+        return q.reshape(q.shape[0], -1, q.shape[-1])
+
+    def decode(out, a, kw):       # K1 / K4 and their int8 branches
+        return bf16(out, pa_ref.paged_attention_ref(
+            heads(a[0]), *a[1:], **kw).reshape(out.shape))
+
+    def prefill(n_at, ref_fn):    # K2 / K5: the real rows only
+        def check(out, a, kw):
+            n = a[n_at]
+            want = ref_fn(heads(a[0]), *a[1:], **kw).reshape(out.shape)
+            return bf16(out[:n], want[:n])
+        return check
+
+    k2 = (pa_ops, "paged_prefill_kernel", prefill(5, pa_ref.paged_prefill_ref))
+    k5 = (pa_ops, "paged_ring_prefill_kernel",
+          prefill(7, pa_ref.paged_ring_prefill_ref))
+    k14 = (pa_ops, "paged_attention_kernel", decode)
+
     # name -> (module the path looks the wrapper up in, attribute, check)
     sites = {
+        "paged_attention": k14, "paged_ring_decode": k14,
+        "paged_attention_int8": k14, "paged_ring_decode_int8": k14,
+        "paged_prefill": k2, "paged_prefill_int8": k2,
+        "paged_ring_prefill": k5, "paged_ring_prefill_int8": k5,
         "paged_mla": (pa_ops, "paged_mla_kernel", lambda out, a, kw: bf16(
             out, pa_ref.paged_mla_attention_ref(*a, **kw))),
         "paged_mla_prefill": (pa_ops, "paged_mla_prefill_kernel", k7),
@@ -850,14 +1189,14 @@ def checked_launches(torch, names):
             setattr(sites[n][0], sites[n][1], saved[n])
 
 
-def checked_drive(torch, sess, prompts, outs, names):
+def checked_drive(torch, sess, prompts, outs, names, **overrides):
     """The drive again on a cold engine of its own, every launch of the
     kernels ``names`` held against its plain version (CHECK_LIMITS): the
     kernels checked at the inputs the serving path gives them, prefill
     chunks, verify rows and decode steps alike."""
     with checked_launches(torch, names) as errs:
         checked, wall, _, _ = serve_once(torch, sess, prompts,
-                                         use_kernels=True)
+                                         use_kernels=True, **overrides)
     for name, e in errs.items():
         if not e:
             raise AssertionError(f"checked drive: {name} never launched")
@@ -888,9 +1227,11 @@ def profile_phase(torch, sess, prompts, marks=()):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sess.serve(prompts, max_new=MAX_NEW)
+        sess.serve(prompts, max_new=MAX_NEW,
+                   **DRIVE_KW.get(sess.model.name, {}))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    m = sess.engine.metrics.summary()
     cuda = torch.autograd.DeviceType.CUDA
     kernels = []
     for e in prof.key_averages():
@@ -908,7 +1249,8 @@ def profile_phase(torch, sess, prompts, marks=()):
     gemm = sum(k[0] for k in kernels
                if any(m in k[2].lower() for m in GEMM_MARKS)) / 1e6
     ours = sum(k[0] for k in kernels if any(m in k[2] for m in marks)) / 1e6
-    log(f"profile (warm engine): wall {wall:.2f} s, device busy {busy:.3f} s "
+    log(f"profile (warm engine): wall {wall:.2f} s, prefix-hit tokens "
+        f"{m['prefill_tokens_saved']}, device busy {busy:.3f} s "
         f"({100 * busy / wall:.1f}% of wall), {sum(k[1] for k in kernels)} "
         f"kernel launches; GEMMs {100 * gemm / busy:.1f}% of device time, "
         f"{'+'.join(marks) or 'marked kernels'} {100 * ours / busy:.1f}%")
@@ -928,6 +1270,12 @@ def _describe(cfg):
         return (f"{cfg.d_model // cfg.rwkv.head_size} WKV heads of "
                 f"{cfg.rwkv.head_size}, decay LoRA {cfg.rwkv.decay_lora}, "
                 f"d_ff {cfg.d_ff}")
+    if cfg.attn_kind == "swa":
+        e = cfg.moe
+        return (f"heads {cfg.num_heads}/{cfg.num_kv_heads} kv, hd "
+                f"{cfg.resolved_head_dim}, window {cfg.window}, "
+                f"{e.num_experts} experts top-{e.top_k} (d_ff "
+                f"{e.d_ff_expert})")
     if cfg.attn_kind == "mla":
         m, e = cfg.mla, cfg.moe
         return (f"heads {cfg.num_heads}, MLA kv_lora_rank {m.kv_lora_rank} "
@@ -946,31 +1294,53 @@ def load_for_serving(torch, arch, **overrides):
     so the timed drives after it are steady."""
     from repro_torch import api
     t0 = time.perf_counter()
-    sess = api.load(arch, device="cuda", seed=SEED, **overrides)
+    sess = api.load(arch, device="cuda", seed=SEED,
+                    **{**LOAD_KW.get(arch, {}), **overrides})
     cfg = sess.model
+    cut = (f"depth cut to {cfg.num_layers} layers" if arch in LOAD_KW
+           else "no depth cut")
     log(f"model {cfg.name} ({cfg.compute_dtype}): {cfg.num_layers} layers, "
         f"d_model {cfg.d_model}, {_describe(cfg)}, vocab {cfg.vocab_size}, "
-        f"{cfg.param_count() / 1e9:.2f} B params (no depth cut)")
+        f"{cfg.param_count() / 1e9:.2f} B params ({cut})")
     torch.cuda.reset_peak_memory_stats()
     _ = sess.params                          # init on the card, timed apart
     torch.cuda.synchronize()
     log(f"weights: init {time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB peak")
-    prompts = make_prompts(cfg.vocab_size, REPETITIVE[arch])
+    prompts = make_prompts(cfg.vocab_size, REPETITIVE[arch],
+                           LONG_PROMPT.get(arch, 0))
     sess.serve([prompts[1][:8]], max_new=2)
     return sess, prompts
 
 
+def check_ring_launches(cfg, counts, names, pool):
+    """On ring pages every layer of every decode step launches K4 (or its
+    int8 branch) once, and of every prefill chunk and verify K5 once; the
+    pool must have rotated a ring cell."""
+    L = cfg.num_layers
+    want = {names[0]: L * MODEL_CALLS.get("lm_paged_decode", 0),
+            names[1]: L * (MODEL_CALLS.get("lm_paged_prefill", 0)
+                           + MODEL_CALLS.get("lm_paged_verify", 0))}
+    got = {n: counts[n] for n in names}
+    log(f"ring launches {got}: {L} layers x model calls {MODEL_CALLS}; "
+        f"ring cells rotated {pool.ring_rotations}")
+    if got != want or pool.ring_rotations <= 0:
+        raise AssertionError(f"ring launches {got}, expected {want}; "
+                             f"rotations {pool.ring_rotations}")
+
+
 def serve_phase(torch, arch, profile_marks=()):
-    """Serve ``arch`` at full width with the kernels; then (MLA and the
-    recurrent families) once more with every launch of the family's
-    kernels checked; then with ``use_kernels=False``; then a profile;
-    for qwen, last, the same requests on the slotted pool.  Returns the
-    kernel drives' launch counts of the family's kernels."""
+    """Serve ``arch`` at full width with the kernels; then (MLA, MoE ring
+    and the recurrent families) once more with every launch of the
+    family's kernels checked; then with ``use_kernels=False``; then a
+    profile; then (per-head pages) the int8 arm; for qwen, last, the same
+    requests on the slotted pool.  Returns the kernel drives' launch
+    counts of the family's kernels."""
     sess, prompts = load_for_serving(torch, arch)
     cfg = sess.model
     ours = SERVE_KERNELS[arch]
     recurrent = sess.bundle.kv_layout is None
+    ring = cfg.attn_kind == "swa"
     outs, wall, counts, m = serve_once(torch, sess, prompts)
     pool = "slotted" if recurrent else "paged"
     log(f"serve {cfg.name} (kernels, {pool} pool): {len(prompts)} requests "
@@ -1003,11 +1373,13 @@ def serve_phase(torch, arch, profile_marks=()):
             raise AssertionError("no prefix-cache hit on the main path")
         if m["drafted_tokens"] <= 0:
             raise AssertionError("no speculative drafts were verified")
+    if ring:
+        check_ring_launches(cfg, counts, ours, sess.engine.pool)
     for o in outs:
         if len(o) != MAX_NEW or not all(0 <= t < cfg.vocab_size for t in o):
             raise AssertionError(f"bad stream {o}")
-    mla = cfg.attn_kind == "mla"
-    if mla or recurrent:
+    moe = cfg.moe is not None
+    if moe or recurrent:
         checked_drive(torch, sess, prompts, outs, ours)
 
     plain, pwall, pcounts, pm = serve_once(torch, sess, prompts,
@@ -1021,12 +1393,48 @@ def serve_phase(torch, arch, profile_marks=()):
     # (see the fp32 arms), so there the partings are printed and the
     # kernels are held by the checked drive and the fp32 arms instead
     compare_streams(torch, sess, prompts, outs, plain,
-                    asserted=not (mla or recurrent))
+                    asserted=not (moe or recurrent))
     profile_phase(torch, sess, prompts, profile_marks)
     out = {n: counts[n] for n in ours}
+    if arch in INT8_SERVE_KERNELS:
+        out.update(int8_arm(torch, sess, prompts, outs))
     if arch == "qwen2.5-14b":
         out["flash_attention"] = slotted_arm(torch, sess, prompts, outs)
     return out
+
+
+def int8_arm(torch, sess, prompts, outs):
+    """The same requests on int8 pages (``kv_dtype="int8"``), kernels on:
+    the K8 branches of the family's kernels must launch, and no fp page
+    kernel; the page bytes against a bf16 page and the streams' partings
+    from the bf16-page streams are printed (int8 pages are another
+    function); then the checked drive on int8 pages holds every K8 launch
+    against its plain version (the int8 kernel and plain arms share the
+    fused dequant).  Returns the K8 launches."""
+    cfg = sess.model
+    names = INT8_SERVE_KERNELS[cfg.name]
+    q8, wall, counts, m = serve_once(torch, sess, prompts, kv_dtype="int8")
+    pool = sess.engine.pool
+    bf16_page = pool.page_bytes_fp32 // 2          # bf16 data leaves
+    log(f"serve {cfg.name} (kernels, int8 pages): {wall:.2f} s; tok/s "
+        f"{m['tokens_per_sec']:.2f}; ttft mean {m['ttft_mean_s']:.3f} s; "
+        f"prefix-hit tokens {m['prefill_tokens_saved']}; drafted "
+        f"{m['drafted_tokens']}; launches {counts}; page bytes "
+        f"{pool.page_bytes} vs {bf16_page} bf16 = "
+        f"{pool.page_bytes / bf16_page:.4f}; kv bytes peak "
+        f"{m['kv_bytes_peak']}")
+    fp = [n for n in BY_PAGES if n not in INT8_KERNELS and counts[n]]
+    if any(counts[n] <= 0 for n in names) or fp:
+        raise AssertionError(f"int8 drive launches {counts}")
+    if cfg.attn_kind == "swa":
+        check_ring_launches(cfg, counts, names, pool)
+    parted = [next(k for k in range(len(a)) if a[k] != b[k])
+              for a, b in zip(q8, outs) if a != b]
+    log(f"int8 vs bf16 pages: {len(outs) - len(parted)}/{len(outs)} greedy "
+        f"streams identical, the rest part at indices {parted} (printed, "
+        "not asserted)")
+    checked_drive(torch, sess, prompts, q8, names, kv_dtype="int8")
+    return {n: counts[n] for n in names}
 
 
 def slotted_arm(torch, sess, prompts, paged_outs):
@@ -1211,9 +1619,10 @@ FP32_LOGIT_ATOL = 1e-3
 
 def teacher_forced_logits(torch, sess, seq, n_prompt, use_kernels):
     """Logits (fp32) of the serving path along ``seq``.  Paged families, on
-    pages of their own: the first ``n_prompt`` tokens as one chunked
-    prefill (K7, or the expanded prefill without kernels), then one
-    ``lm_paged_decode`` step per further token (K6, or its plain version).
+    pages of their own: the first ``n_prompt`` tokens as chunked prefill
+    (the drive's chunks; K7 / K5, or their plain paths without kernels),
+    then one ``lm_paged_decode`` step per further token (K6 / K4, or their
+    plain versions).
     Recurrent families: the whole-prompt prefill (K3 / K9 / K10, or their
     plain versions), then one ``decode_fn`` step per further token.  Row r
     predicts ``seq[n_prompt + r]``."""
@@ -1231,18 +1640,23 @@ def teacher_forced_logits(torch, sess, seq, n_prompt, use_kernels):
                     params, torch.tensor([[seq[p]]], device=dev), state)
                 rows.append(logits[0])
         return torch.stack(rows).float()
-    n = -(-len(seq) // PS)
+    layout = sess.bundle.kv_layout
+    n = layout.table_width(-(-len(seq) // PS), PS)   # a ring: its cells
     blank = transformer.init_decode_caches(cfg, 1, PS, device=dev)
     pages = {k: torch.zeros((cfg.num_layers, n + 1) + blank[k].shape[2:],
                             dtype=blank[k].dtype, device=dev)
-             for k in sess.bundle.kv_layout.leaves}
+             for k in layout.leaves}
     table = torch.arange(1, n + 1, dtype=torch.int32, device=dev)
-    state = {"pages": pages, "page_table": table, "start": 0,
-             "n_valid": n_prompt}
+    # the prompt in the drive's chunks (a ring's chunk fits its window)
+    step = DRIVE_KW.get(cfg.name, {}).get("prefill_chunk_tokens") or n_prompt
     with torch.no_grad():
-        first, _ = transformer.lm_paged_prefill(
-            cfg, params, torch.tensor([seq[:n_prompt]], device=dev), state,
-            use_kernels=use_kernels)
+        for start in range(0, n_prompt, step):
+            chunk = seq[start:min(start + step, n_prompt)]
+            state = {"pages": pages, "page_table": table, "start": start,
+                     "n_valid": len(chunk)}
+            first, _ = transformer.lm_paged_prefill(
+                cfg, params, torch.tensor([chunk], device=dev), state,
+                use_kernels=use_kernels)
         rows = [first[0]]
         for p in range(n_prompt, len(seq) - 1):
             state = {"pages": pages, "page_table": table[None],
@@ -1316,6 +1730,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     card = env_phase(torch)
+    count_model_calls()
     build_phase()
     stats = kernel_phase(torch, F)
     counts = serve_phase(torch, "qwen2.5-14b",
@@ -1347,6 +1762,12 @@ def main() -> int:
     counts["flash_attention"] += qwen_k3 + rg["flash_attention"]
     for arch in ("recurrentgemma-2b", "rwkv6-1.6b"):
         fp32_phase(torch, arch)
+    counts.update(serve_phase(torch, "mixtral-8x22b",
+                              ("paged_decode_kernel",
+                               "paged_ring_prefill_kernel")))
+    gc.collect()                        # the bf16 mixtral session
+    torch.cuda.empty_cache()
+    fp32_phase(torch, "mixtral-8x22b")
 
     sources = {"paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                                    "src/repro/kernels/paged_attention/kernel.py:199"),
@@ -1361,7 +1782,25 @@ def main() -> int:
                "lru_scan": ("src/repro_torch/csrc/lru_scan.cu",
                             "src/repro/kernels/rglru_scan/kernel.py:59"),
                "wkv6": ("src/repro_torch/csrc/wkv6.cu",
-                        "src/repro/kernels/rwkv6_wkv/kernel.py:66")}
+                        "src/repro/kernels/rwkv6_wkv/kernel.py:66"),
+               "paged_ring_decode": (
+                   "src/repro_torch/csrc/paged_attention.cu",
+                   "src/repro/kernels/paged_attention/kernel.py:199"),
+               "paged_ring_prefill": (
+                   "src/repro_torch/csrc/paged_ring_prefill.cu",
+                   "src/repro/kernels/paged_attention/kernel.py:598"),
+               "paged_attention_int8": (
+                   "src/repro_torch/csrc/paged_attention.cu",
+                   "src/repro/kernels/paged_attention/kernel.py:113"),
+               "paged_prefill_int8": (
+                   "src/repro_torch/csrc/paged_prefill.cu",
+                   "src/repro/kernels/paged_attention/kernel.py:365"),
+               "paged_ring_decode_int8": (
+                   "src/repro_torch/csrc/paged_attention.cu",
+                   "src/repro/kernels/paged_attention/kernel.py:113"),
+               "paged_ring_prefill_int8": (
+                   "src/repro_torch/csrc/paged_ring_prefill.cu",
+                   "src/repro/kernels/paged_attention/kernel.py:490")}
     kernels = []
     for name, (src, replaces) in sources.items():
         r = stats[name]

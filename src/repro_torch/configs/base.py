@@ -326,8 +326,8 @@ class ServeConfig:
     kv_layout: str = "auto"       # "auto" | "paged" | "slotted"
     # KV page storage dtype: "fp32" keeps the family's native compute dtype;
     # "int8" stores k/v pages quantized (symmetric per-(page, offset,
-    # kv-head) fp32 scales as extra pool leaves, dequant fused into the
-    # paged-attention kernels).  Paged per-head layouts only — rejected for
+    # kv-head) bf16 scales as extra pool leaves, widened to fp32 on read,
+    # dequant fused into the paged-attention kernels).  Paged per-head layouts only — rejected for
     # MLA (latent rank is contracted) and slotted-only families by
     # check_kv_dtype once the engine knows the layout.
     kv_dtype: str = "fp32"        # "fp32" | "int8" (paged k/v pages only)

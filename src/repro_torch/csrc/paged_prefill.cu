@@ -1,7 +1,8 @@
-// Paged chunked-prefill attention for Hopper (sm_90a), contiguous fp pages.
+// Paged chunked-prefill attention for Hopper (sm_90a), contiguous pages, fp
+// (K2) or int8 (K8).
 //
 // Replaces the TPU kernel src/repro/kernels/paged_attention/kernel.py
-// `paged_prefill_kernel` / `_paged_prefill_kernel` (fp pages): one
+// `paged_prefill_kernel` / `_paged_prefill_kernel`: one
 // request's bucketed chunk of S queries (query i at absolute position
 // start + i) attends that request's pages after the chunk's own K/V were
 // written.  Key kidx is valid for query i when kidx < start + n_valid (the
@@ -9,7 +10,11 @@
 // only bucket padding (q0 >= n_valid) emit 0 without touching a page, and a
 // block stops at its causal horizon min(start + n_valid, start + q0 + QB).
 // This kernel also writes 0 to every padding row (i >= n_valid) of a
-// partially valid block; callers never read those rows.
+// partially valid block; callers never read those rows.  int8 pages (the
+// `quantized=True` branch, K8) carry one bf16 scale per (page, offset,
+// kv-head) row: raw scores times the key scale before the mask,
+// probabilities times the value scale before the PV product, the
+// denominator unscaled.
 //
 // What bounds it on an H100: bytes at the serving shapes (S = 5 verify
 // rows, S = 16..256 prefill buckets): each block reads the request's pages
@@ -29,19 +34,24 @@ namespace repro_torch {
 constexpr int QB = 8;          // queries per block = warps per block
 constexpr int MAXG = 8;        // largest GQA group the kernel holds
 
-template <typename T, int HD>
+template <typename T, typename PT, int HD>
 __global__ void paged_prefill_kernel(const T* __restrict__ q,
-                                     const T* __restrict__ k_pages,
-                                     const T* __restrict__ v_pages,
+                                     const PT* __restrict__ k_pages,
+                                     const PT* __restrict__ v_pages,
+                                     const __nv_bfloat16* __restrict__ k_scale,
+                                     const __nv_bfloat16* __restrict__ v_scale,
                                      const int* __restrict__ page_row,
                                      T* __restrict__ out, int S, int KV,
                                      int G, int ps, int n_table, int start,
                                      int n_valid, float scale) {
   constexpr int E = HD / 32;
+  constexpr bool QUANT = sizeof(PT) == 1;
   extern __shared__ float smem[];
   float* k_tile = smem;                     // [ps, HD]
   float* v_tile = k_tile + ps * HD;         // [ps, HD]
   float* scores = v_tile + ps * HD;         // [QB, MAXG, ps]
+  float* ks = scores + QB * MAXG * ps;      // [ps] (int8 pages)
+  float* vs = ks + ps;                      // [ps] (int8 pages)
 
   const int h = blockIdx.x;
   const int q0 = blockIdx.y * QB;
@@ -86,8 +96,12 @@ __global__ void paged_prefill_kernel(const T* __restrict__ q,
   for (int p = 0; p < n_pages; ++p) {
     const int page = page_row[p];
     __syncthreads();                        // previous tile fully consumed
-    load_tile<T, HD>(k_tile, k_pages, page, ps, KV, h);
-    load_tile<T, HD>(v_tile, v_pages, page, ps, KV, h);
+    load_tile<PT, HD>(k_tile, k_pages, page, ps, KV, h);
+    load_tile<PT, HD>(v_tile, v_pages, page, ps, KV, h);
+    if (QUANT) {
+      load_scales(ks, k_scale, page, ps, KV, h);
+      load_scales(vs, v_scale, page, ps, KV, h);
+    }
     __syncthreads();
     if (!active) continue;                  // padding query: loads only
     const int base = p * ps;
@@ -95,7 +109,8 @@ __global__ void paged_prefill_kernel(const T* __restrict__ q,
     for (int g = 0; g < MAXG; ++g) {
       if (g >= G) break;
       for (int t = 0; t < ps; ++t) {
-        const float s = score<HD>(qv[g], k_tile, t, lane) * scale;
+        float s = score<HD>(qv[g], k_tile, t, lane) * scale;
+        if (QUANT) s *= ks[t];
         if (lane == 0) sc[g * ps + t] = (base + t < qlimit) ? s : NEG_INF;
       }
     }
@@ -103,7 +118,8 @@ __global__ void paged_prefill_kernel(const T* __restrict__ q,
 #pragma unroll
     for (int g = 0; g < MAXG; ++g) {
       if (g >= G) break;
-      online_update<HD>(m[g], l[g], acc[g], sc + g * ps, v_tile, ps, lane);
+      online_update<HD>(m[g], l[g], acc[g], sc + g * ps, v_tile,
+                        QUANT ? vs : nullptr, ps, lane);
     }
     __syncwarp();                           // sc reused by the next page
   }
@@ -119,13 +135,15 @@ __global__ void paged_prefill_kernel(const T* __restrict__ q,
   }
 }
 
-template <typename T, int HD>
+template <typename T, typename PT, int HD>
 int launch(const void* q, const void* k_pages, const void* v_pages,
-           const void* page_row, void* out, int S, int KV, int G, int ps,
-           int n_table, int start, int n_valid, cudaStream_t stream) {
+           const void* k_scale, const void* v_scale, const void* page_row,
+           void* out, int S, int KV, int G, int ps, int n_table, int start,
+           int n_valid, cudaStream_t stream) {
   const size_t smem = (2 * static_cast<size_t>(ps) * HD +
-                       static_cast<size_t>(QB) * MAXG * ps) * sizeof(float);
-  auto kernel = paged_prefill_kernel<T, HD>;
+                       static_cast<size_t>(QB) * MAXG * ps + 2 * ps) *
+                      sizeof(float);
+  auto kernel = paged_prefill_kernel<T, PT, HD>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -134,53 +152,72 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
   }
   dim3 grid(KV, (S + QB - 1) / QB);
   kernel<<<grid, QB * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pages),
-      static_cast<const T*>(v_pages), static_cast<const int*>(page_row),
-      static_cast<T*>(out), S, KV, G, ps, n_table, start, n_valid,
-      1.f / sqrtf(static_cast<float>(HD)));
+      static_cast<const T*>(q), static_cast<const PT*>(k_pages),
+      static_cast<const PT*>(v_pages),
+      static_cast<const __nv_bfloat16*>(k_scale),
+      static_cast<const __nv_bfloat16*>(v_scale),
+      static_cast<const int*>(page_row), static_cast<T*>(out), S, KV, G, ps,
+      n_table, start, n_valid, 1.f / sqrtf(static_cast<float>(HD)));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, typename PT>
 int launch_hd(int hd, const void* q, const void* k, const void* v,
-              const void* row, void* out, int S, int KV, int G, int ps,
-              int n_table, int start, int n_valid, cudaStream_t stream) {
+              const void* ks, const void* vs, const void* row, void* out,
+              int S, int KV, int G, int ps, int n_table, int start,
+              int n_valid, cudaStream_t stream) {
   switch (hd) {
     case 64:
-      return launch<T, 64>(q, k, v, row, out, S, KV, G, ps, n_table, start,
-                           n_valid, stream);
+      return launch<T, PT, 64>(q, k, v, ks, vs, row, out, S, KV, G, ps,
+                               n_table, start, n_valid, stream);
     case 128:
-      return launch<T, 128>(q, k, v, row, out, S, KV, G, ps, n_table,
-                            start, n_valid, stream);
+      return launch<T, PT, 128>(q, k, v, ks, vs, row, out, S, KV, G, ps,
+                                n_table, start, n_valid, stream);
     case 256:
-      return launch<T, 256>(q, k, v, row, out, S, KV, G, ps, n_table,
-                            start, n_valid, stream);
+      return launch<T, PT, 256>(q, k, v, ks, vs, row, out, S, KV, G, ps,
+                                n_table, start, n_valid, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+template <typename T>
+int launch_pages(int quantized, int hd, const void* q, const void* k,
+                 const void* v, const void* ks, const void* vs,
+                 const void* row, void* out, int S, int KV, int G, int ps,
+                 int n_table, int start, int n_valid, cudaStream_t stream) {
+  if (quantized)
+    return launch_hd<T, int8_t>(hd, q, k, v, ks, vs, row, out, S, KV, G, ps,
+                                n_table, start, n_valid, stream);
+  return launch_hd<T, T>(hd, q, k, v, ks, vs, row, out, S, KV, G, ps,
+                         n_table, start, n_valid, stream);
+}
+
 }  // namespace repro_torch
 
-// q [S, KV, G, hd]; k/v_pages [P, ps, KV, hd]; page_row [n_table] int32;
-// out [S, KV, G, hd]; start / n_valid as in the header note.  Returns the
-// cudaError_t of the launch (0 = queued).
+// q [S, KV, G, hd]; k/v_pages [P, ps, KV, hd] in q's dtype, or int8 with
+// k/v_scale [P, ps, KV] bf16 (quantized = 1; null pointers otherwise);
+// page_row [n_table] int32; out [S, KV, G, hd]; start / n_valid as in the
+// header note.  Returns the cudaError_t of the launch (0 = queued).
 extern "C" int paged_prefill_launch(const void* q, const void* k_pages,
-                                    const void* v_pages,
+                                    const void* v_pages, const void* k_scale,
+                                    const void* v_scale,
                                     const void* page_row, void* out, int S,
                                     int KV, int G, int hd, int ps,
                                     int n_table, int start, int n_valid,
-                                    int dtype, void* stream) {
+                                    int dtype, int quantized, void* stream) {
   using namespace repro_torch;
-  if (G < 1 || G > MAXG || n_valid > S || S < 1)
+  if (G < 1 || G > MAXG || n_valid > S || S < 1 ||
+      (quantized && (k_scale == nullptr || v_scale == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == DTYPE_BF16)
-    return launch_hd<__nv_bfloat16>(hd, q, k_pages, v_pages, page_row, out,
-                                    S, KV, G, ps, n_table, start, n_valid,
-                                    s);
+    return launch_pages<__nv_bfloat16>(quantized, hd, q, k_pages, v_pages,
+                                       k_scale, v_scale, page_row, out, S,
+                                       KV, G, ps, n_table, start, n_valid, s);
   if (dtype == DTYPE_F32)
-    return launch_hd<float>(hd, q, k_pages, v_pages, page_row, out, S, KV,
-                            G, ps, n_table, start, n_valid, s);
+    return launch_pages<float>(quantized, hd, q, k_pages, v_pages, k_scale,
+                               v_scale, page_row, out, S, KV, G, ps, n_table,
+                               start, n_valid, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

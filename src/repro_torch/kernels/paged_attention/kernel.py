@@ -1,15 +1,24 @@
 """Wrappers of the hand-written CUDA paged-attention kernels.
 
-  * ``paged_attention_kernel`` — K1, decode: ``csrc/paged_attention.cu``,
-    the port of the TPU kernel ``paged_attention_kernel`` (window=0, fp
-    pages) of the JAX package.
+  * ``paged_attention_kernel`` — K1 / K4, decode: ``csrc/paged_attention.cu``,
+    the port of the TPU kernel ``paged_attention_kernel`` of the JAX
+    package, contiguous pages (K1) and ring-wrapped window pages
+    (``window > 0``, K4).
   * ``paged_prefill_kernel`` — K2, chunked prefill and speculative
-    verify: ``csrc/paged_prefill.cu``, the port of ``paged_prefill_kernel``.
+    verify on contiguous pages: ``csrc/paged_prefill.cu``, the port of
+    ``paged_prefill_kernel``.
+  * ``paged_ring_prefill_kernel`` — K5, chunked prefill and verify on
+    ring pages, snapshot-before-write: ``csrc/paged_ring_prefill.cu``, the
+    port of ``paged_ring_prefill_kernel``.
   * ``paged_mla_kernel`` — K6, absorbed-MLA decode over latent pages:
     ``csrc/paged_mla.cu``, the port of ``paged_mla_kernel``.
   * ``paged_mla_prefill_kernel`` — K7, absorbed-MLA chunked prefill and
     verify: ``csrc/paged_mla_prefill.cu``, the port of
     ``paged_mla_prefill_kernel``.
+
+K8 — int8 pages — is the ``k_scale`` / ``v_scale`` operands of K1, K2, K4
+and K5: int8 k/v pages with one bf16 scale per (page, offset, kv-head)
+row, dequantized inside the kernel (fp pages are never materialized).
 
 Each wrapper takes the plain PyTorch version (``ref.py``) for tensors on
 the CPU — and only there.  For CUDA tensors it checks device, dtype, shape
@@ -30,9 +39,11 @@ from repro_torch.kernels.common import lib_fn as _lib
 from repro_torch.kernels.common import raise_on as _raise_on
 from repro_torch.kernels.paged_attention.ref import (
     paged_attention_ref, paged_mla_attention_ref, paged_mla_prefill_ref,
-    paged_prefill_ref)
+    paged_prefill_ref, paged_ring_prefill_ref)
 
 _HEAD_DIMS = (64, 128, 256)
+#: head dims K5 is instantiated for (the ring families': mixtral 128)
+RING_PREFILL_HEAD_DIMS = (64, 128)
 #: the largest GQA group K2 holds (MAXG in paged_prefill.cu)
 PREFILL_MAX_G = 8
 
@@ -47,35 +58,70 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 
-def _check_pages(q, k_pages, v_pages):
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _count(wrapper, kind: str) -> None:
+    """One launch: the wrapper's ``launches`` and its ``launches_by`` page
+    kind ("fp" / "int8", "ring" / "ring_int8" for K4 and its K8 branch),
+    which tell K1 from K4 and either from its int8 branch (K8)."""
+    wrapper.launches += 1
+    wrapper.launches_by[kind] = wrapper.launches_by.get(kind, 0) + 1
+
+
+def _check_pages(q, k_pages, v_pages, k_scale=None, v_scale=None,
+                 head_dims=_HEAD_DIMS):
+    """Device, dtype, shape and alignment checks of per-head pages: in
+    q's dtype, or int8 with bf16 ``k_scale`` / ``v_scale`` [P, ps, KV].
+    Returns whether the pages are int8."""
     if q.dtype not in _DTYPES:
         raise ValueError(f"q dtype {q.dtype} not in {sorted(map(str, _DTYPES))}")
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale come together (int8 pages)")
+    quantized = k_scale is not None
+    page_dtype = torch.int8 if quantized else q.dtype
     for t, name in ((k_pages, "k_pages"), (v_pages, "v_pages")):
-        _check(t, name, q.dtype, q.device, 4)
+        _check(t, name, page_dtype, q.device, 4)
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     if k_pages.shape != v_pages.shape:
         raise ValueError(f"k/v page shapes differ: {tuple(k_pages.shape)} "
                          f"vs {tuple(v_pages.shape)}")
     hd = k_pages.shape[-1]
-    if hd not in _HEAD_DIMS:
+    if hd not in head_dims:
         raise ValueError(f"head_dim {hd} not in the CUDA kernels' "
-                         f"{_HEAD_DIMS}")
+                         f"{head_dims}")
+    if quantized:
+        # int8 rows load as 16-byte vectors of 16 values
+        if hd % 16:
+            raise ValueError(f"int8 pages need head_dim % 16 == 0, got {hd}")
+        for t, name in ((k_scale, "k_scale"), (v_scale, "v_scale")):
+            _check(t, name, torch.bfloat16, q.device, 3)
+            if t.shape != k_pages.shape[:-1]:
+                raise ValueError(f"{name} {tuple(t.shape)} does not match "
+                                 f"pages {tuple(k_pages.shape)}")
+    return quantized
 
 
-def paged_attention_kernel(q, k_pages, v_pages, page_table, lengths):
-    """K1.  q: [slots, KV, G, hd]; k/v_pages: [P, ps, KV, hd]; page_table:
-    [slots, n_table] int32; lengths: [slots] int32.  Returns
-    [slots, KV, G, hd] in q.dtype (0 for a slot with length 0)."""
+def paged_attention_kernel(q, k_pages, v_pages, page_table, lengths, *,
+                           window: int = 0, k_scale=None, v_scale=None):
+    """K1 (``window == 0``) / K4 (``window > 0``, ring pages); int8 pages
+    with ``k_scale`` / ``v_scale`` (K8).  q: [slots, KV, G, hd]; k/v_pages:
+    [P, ps, KV, hd]; page_table: [slots, n_table] int32; lengths: [slots]
+    int32.  Returns [slots, KV, G, hd] in q.dtype (0 for a slot with
+    length 0)."""
     slots, KV, G, hd = q.shape
     if q.device.type == "cpu":
         out = paged_attention_ref(q.reshape(slots, KV * G, hd), k_pages,
-                                  v_pages, page_table, lengths)
+                                  v_pages, page_table, lengths,
+                                  window=window, k_scale=k_scale,
+                                  v_scale=v_scale)
         return out.reshape(slots, KV, G, hd)
     if q.device.type != "cuda":
         raise ValueError(f"no paged-attention kernel for {q.device}")
     _check(q, "q", q.dtype, q.device, 4)
-    _check_pages(q, k_pages, v_pages)
+    quantized = _check_pages(q, k_pages, v_pages, k_scale, v_scale)
     _check(page_table, "page_table", torch.int32, q.device, 2)
     _check(lengths, "lengths", torch.int32, q.device, 1)
     P, ps, kv_p, hd_p = k_pages.shape
@@ -86,61 +132,127 @@ def paged_attention_kernel(q, k_pages, v_pages, page_table, lengths):
             f" table {tuple(page_table.shape)}, lengths {tuple(lengths.shape)}")
     if not 1 <= G <= 32:
         raise ValueError(f"GQA group {G} outside the kernel's 1..32")
+    if window < 0:
+        raise ValueError(f"window {window} < 0")
     out = torch.empty_like(q)
     fn = _lib("paged_attention", "paged_attention_launch",
-              [_P] * 6 + [_I] * 7 + [_P])
+              [_P] * 8 + [_I] * 9 + [_P])
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-             page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-             slots, KV, G, hd, ps, page_table.shape[1], _DTYPES[q.dtype],
-             torch.cuda.current_stream(q.device).cuda_stream)
+             _ptr(k_scale), _ptr(v_scale), page_table.data_ptr(),
+             lengths.data_ptr(), out.data_ptr(), slots, KV, G, hd, ps,
+             page_table.shape[1], int(window), _DTYPES[q.dtype],
+             int(quantized), torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "paged_attention")
-    paged_attention_kernel.launches += 1
+    _count(paged_attention_kernel, ("ring_" if window else "")
+           + ("int8" if quantized else "fp"))
     return out
 
 
 paged_attention_kernel.launches = 0
+paged_attention_kernel.launches_by = {}
 
 
-def paged_prefill_kernel(q, k_pages, v_pages, page_row, start: int,
-                         n_valid: int):
-    """K2.  q: [S, KV, G, hd] — one request's bucketed chunk (post-rope);
-    k/v_pages: [P, ps, KV, hd] — the pool AFTER the chunk's K/V were
-    written; page_row: [n] int32; start / n_valid ints.  Returns
-    [S, KV, G, hd] in q.dtype; rows past ``n_valid`` are padding and come
-    back 0 from the kernel (never read by callers)."""
+def _check_chunk(q, page_row, start: int, n_valid: int):
     S, KV, G, hd = q.shape
-    if q.device.type == "cpu":
-        out = paged_prefill_ref(q.reshape(S, KV * G, hd), k_pages, v_pages,
-                                page_row, start, n_valid)
-        return out.reshape(S, KV, G, hd)
-    if q.device.type != "cuda":
-        raise ValueError(f"no paged-prefill kernel for {q.device}")
     _check(q, "q", q.dtype, q.device, 4)
-    _check_pages(q, k_pages, v_pages)
     _check(page_row, "page_row", torch.int32, q.device, 1)
-    P, ps, kv_p, hd_p = k_pages.shape
-    if (kv_p, hd_p) != (KV, hd):
-        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, pages "
-                         f"{tuple(k_pages.shape)}")
     if not 1 <= G <= PREFILL_MAX_G:
         raise ValueError(f"GQA group {G} outside the kernel's "
                          f"1..{PREFILL_MAX_G}")
     if not 0 <= n_valid <= S or start < 0:
         raise ValueError(f"bad chunk bounds start={start} n_valid={n_valid}"
                          f" for S={S}")
+
+
+def paged_prefill_kernel(q, k_pages, v_pages, page_row, start: int,
+                         n_valid: int, *, k_scale=None, v_scale=None):
+    """K2; int8 pages with ``k_scale`` / ``v_scale`` (K8).  q: [S, KV, G,
+    hd] — one request's bucketed chunk (post-rope); k/v_pages: [P, ps, KV,
+    hd] — the pool AFTER the chunk's K/V were written; page_row: [n]
+    int32; start / n_valid ints.  Returns [S, KV, G, hd] in q.dtype; rows
+    past ``n_valid`` are padding and come back 0 from the kernel (never
+    read by callers)."""
+    S, KV, G, hd = q.shape
+    if q.device.type == "cpu":
+        out = paged_prefill_ref(q.reshape(S, KV * G, hd), k_pages, v_pages,
+                                page_row, start, n_valid, k_scale=k_scale,
+                                v_scale=v_scale)
+        return out.reshape(S, KV, G, hd)
+    if q.device.type != "cuda":
+        raise ValueError(f"no paged-prefill kernel for {q.device}")
+    _check_chunk(q, page_row, start, n_valid)
+    quantized = _check_pages(q, k_pages, v_pages, k_scale, v_scale)
+    P, ps, kv_p, hd_p = k_pages.shape
+    if (kv_p, hd_p) != (KV, hd):
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, pages "
+                         f"{tuple(k_pages.shape)}")
     out = torch.empty_like(q)
     fn = _lib("paged_prefill", "paged_prefill_launch",
-              [_P] * 5 + [_I] * 9 + [_P])
+              [_P] * 7 + [_I] * 10 + [_P])
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-             page_row.data_ptr(), out.data_ptr(), S, KV, G, hd, ps,
-             page_row.shape[0], int(start), int(n_valid), _DTYPES[q.dtype],
+             _ptr(k_scale), _ptr(v_scale), page_row.data_ptr(),
+             out.data_ptr(), S, KV, G, hd, ps, page_row.shape[0], int(start),
+             int(n_valid), _DTYPES[q.dtype], int(quantized),
              torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "paged_prefill")
-    paged_prefill_kernel.launches += 1
+    _count(paged_prefill_kernel, "int8" if quantized else "fp")
     return out
 
 
 paged_prefill_kernel.launches = 0
+paged_prefill_kernel.launches_by = {}
+
+
+def paged_ring_prefill_kernel(q, k_pages, v_pages, chunk_k, chunk_v,
+                              page_row, start: int, n_valid: int, *,
+                              window: int, k_scale=None, v_scale=None):
+    """K5; int8 snapshot pages with ``k_scale`` / ``v_scale`` (K8).  q:
+    [S, KV, G, hd] — one request's bucketed chunk (post-rope); k/v_pages:
+    [P, ps, KV, hd] — the ring BEFORE the chunk's writes; chunk_k/chunk_v:
+    [S, KV, hd] — the chunk's own keys / values in q's dtype; page_row:
+    [n] int32 — the request's ring of cells.  Returns [S, KV, G, hd] in
+    q.dtype; rows past ``n_valid`` come back 0 (never read by callers)."""
+    S, KV, G, hd = q.shape
+    if q.device.type == "cpu":
+        out = paged_ring_prefill_ref(q.reshape(S, KV * G, hd), k_pages,
+                                     v_pages, chunk_k, chunk_v, page_row,
+                                     start, n_valid, window=window,
+                                     k_scale=k_scale, v_scale=v_scale)
+        return out.reshape(S, KV, G, hd)
+    if q.device.type != "cuda":
+        raise ValueError(f"no paged ring-prefill kernel for {q.device}")
+    _check_chunk(q, page_row, start, n_valid)
+    quantized = _check_pages(q, k_pages, v_pages, k_scale, v_scale,
+                             RING_PREFILL_HEAD_DIMS)
+    for t, name in ((chunk_k, "chunk_k"), (chunk_v, "chunk_v")):
+        _check(t, name, q.dtype, q.device, 3)
+        if tuple(t.shape) != (S, KV, hd):
+            raise ValueError(f"{name} {tuple(t.shape)} is not {(S, KV, hd)}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    P, ps, kv_p, hd_p = k_pages.shape
+    if (kv_p, hd_p) != (KV, hd):
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, pages "
+                         f"{tuple(k_pages.shape)}")
+    if window <= 0 or page_row.shape[0] * ps > window:
+        raise ValueError(f"ring of {page_row.shape[0]} cells x {ps} does not "
+                         f"fit window {window}")
+    out = torch.empty_like(q)
+    fn = _lib("paged_ring_prefill", "paged_ring_prefill_launch",
+              [_P] * 9 + [_I] * 11 + [_P])
+    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+             _ptr(k_scale), _ptr(v_scale), chunk_k.data_ptr(),
+             chunk_v.data_ptr(), page_row.data_ptr(), out.data_ptr(), S, KV,
+             G, hd, ps, page_row.shape[0], int(start), int(n_valid),
+             int(window), _DTYPES[q.dtype], int(quantized),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(err, "paged_ring_prefill")
+    _count(paged_ring_prefill_kernel, "int8" if quantized else "fp")
+    return out
+
+
+paged_ring_prefill_kernel.launches = 0
+paged_ring_prefill_kernel.launches_by = {}
 
 
 def _check_mla(q_lat, q_rope, ckv_pages, krope_pages):

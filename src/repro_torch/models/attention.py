@@ -15,9 +15,11 @@ Execution paths:
     (windowed when the family is); the cache's position may be shared by
     its batch rows or kept per row (the slotted pool's slots);
   * ``paged_prefill_apply`` / ``paged_attention_apply`` — one prefill chunk
-    / one batched decode step against the shared page pool, through the
-    hand-written CUDA kernels (``use_kernels``) or their plain versions
-    (``repro_torch.kernels.paged_attention``);
+    / one batched decode step against the shared page pool — contiguous
+    pages, or the ring-wrapped window pages of sliding-window families;
+    fp or int8 (quantized on write, dequantized inside the attention) —
+    through the hand-written CUDA kernels (``use_kernels``) or their plain
+    versions (``repro_torch.kernels.paged_attention``);
   * ``mla_apply`` — MLA for train/prefill (expanded: per-head K/V made
     from the latents) and for one decode step against a ring cache
     (absorbed: scores in the latent space);
@@ -26,10 +28,6 @@ Execution paths:
     plain version).  Prefill is absorbed through kernel K7 with
     ``use_kernels`` and expanded without, as the JAX package's
     ``use_pallas`` chooses — two different computations of one function.
-
-The paged ring-window geometry is not ported yet; the paged entry points
-raise ``NotImplementedError`` for a windowed family, naming the ROADMAP
-item.
 """
 from __future__ import annotations
 
@@ -40,10 +38,6 @@ import torch
 from repro_torch.kernels.common import NEG_INF
 from repro_torch.models.common import ParamSpec, apply_rope, dot, rms_norm
 from repro_torch.models.flash_vjp import flash_attention_vjp
-
-#: ROADMAP item that ports the geometry this module does not cover yet
-RING_TODO = ("paged sliding-window (ring) attention is not ported yet — "
-             "ROADMAP queue 1 item 6 (mixtral: ring page layout, K4, K5)")
 
 
 # ---------------------------------------------------------------------------
@@ -85,13 +79,6 @@ def mla_specs(cfg):
     else:
         specs["wq"] = ParamSpec((d, h * qk_dim), ("embed", "heads"))
     return specs
-
-
-def require_full(cfg) -> None:
-    """Raise for the paged attention geometry not ported yet (the
-    sliding-window ring); full causal and MLA attention pass."""
-    if cfg.attn_kind in ("swa", "local") and cfg.window:
-        raise NotImplementedError(RING_TODO)
 
 
 # ---------------------------------------------------------------------------
@@ -329,49 +316,76 @@ def decode_attend(q, cache, *, window: int = 0):
 # and the same dict is returned.
 # ---------------------------------------------------------------------------
 
-def paged_cache_update(kv, k_new, v_new, page_table, pos):
+def _paged_window(cfg) -> int:
+    """Ring-layout window of a GQA family (0 = contiguous pages)."""
+    return cfg.window if cfg.attn_kind in ("swa", "local") else 0
+
+
+def _write_rows(kv, name: str, page, off, rows) -> None:
+    """Scatter K/V rows into one leaf's pages, in place; int8 pools (a
+    ``*_scale`` leaf beside the data leaf) quantize the rows once here
+    and scatter the int8 rows and their per-head scales alike."""
+    # imported here: repro_torch.serving sits above the models
+    from repro_torch.serving.layouts import SCALE_SUFFIX, quantize_kv
+    if name + SCALE_SUFFIX in kv:
+        qrows, srows = quantize_kv(rows)
+        kv[name][page, off] = qrows
+        kv[name + SCALE_SUFFIX][page, off] = srows
+    else:
+        kv[name][page, off] = rows.to(kv[name].dtype)
+
+
+def paged_cache_update(kv, k_new, v_new, page_table, pos, *, window: int = 0):
     """Write one decode step's K/V into the shared page pool, in place.
 
-    kv: {"k","v"}: [P, ps, KV, hd] (one layer's pages); k_new/v_new
-    [slots, 1, KV, hd]; page_table [slots, n] int32; pos [slots] int32 —
-    token t of slot s lands in page ``page_table[s, t // ps]`` at offset
-    ``t % ps``.  Slots without a request carry an all-trash table (page 0),
-    so their writes clobber only the reserved trash page (duplicate targets
+    kv: {"k","v"[,"k_scale","v_scale"]}: [P, ps, KV(, hd)] (one layer's
+    pages); k_new/v_new [slots, 1, KV, hd]; page_table [slots, n] int32;
+    pos [slots] int32 — token t of slot s lands in page ``page_table[s, t
+    // ps]`` at offset ``t % ps`` (contiguous), or — ring layout, ``window
+    > 0`` — in cell ``(t % window) // ps`` of the slot's ring, same
+    offset.  Slots without a request carry an all-trash table (page 0), so
+    their writes clobber only the reserved trash page (duplicate targets
     there are harmless: nothing reads it).
     """
     ps = kv["k"].shape[1]
     pos = pos.long()
-    page = torch.gather(page_table.long(), 1, (pos // ps)[:, None])[:, 0]
+    idx = pos % window if window else pos
+    page = torch.gather(page_table.long(), 1, (idx // ps)[:, None])[:, 0]
     off = pos % ps
     for name, new in (("k", k_new), ("v", v_new)):
-        kv[name][page, off] = new[:, 0].to(kv[name].dtype)
+        _write_rows(kv, name, page, off, new[:, 0])
     return kv
 
 
-def _chunk_targets(page_ids, start: int, n_valid: int, S: int, ps: int):
+def _chunk_targets(page_ids, start: int, n_valid: int, S: int, ps: int,
+                   window: int = 0):
     """(page, off) scatter targets for one prefill chunk of S bucket slots:
-    token i holds absolute position ``start + i``; bucket padding
-    (i >= n_valid) routes to the reserved trash page 0 so the fixed bucket
-    shape never scatters garbage into held pages."""
+    token i holds absolute position ``start + i`` (ring layouts: cell
+    ``(start + i) % window // ps``); bucket padding (i >= n_valid) routes
+    to the reserved trash page 0 so the fixed bucket shape never scatters
+    garbage into held pages."""
     i = torch.arange(S, device=page_ids.device)
     pos = start + i
-    blk = torch.clamp(pos // ps, 0, page_ids.shape[0] - 1)
+    idx = pos % window if window else pos
+    blk = torch.clamp(idx // ps, 0, page_ids.shape[0] - 1)
     page = torch.where(i < n_valid, page_ids.long()[blk], 0)
     return page, pos % ps
 
 
 def paged_prefill_write(kv, k_new, v_new, page_ids, start: int,
-                        n_valid: int):
+                        n_valid: int, *, window: int = 0):
     """Write one prefill chunk's K/V into the shared page pool, in place.
 
-    kv: {"k","v"}: [P, ps, KV, hd]; k_new/v_new [1, S, KV, hd] (S = padded
-    bucket length); page_ids [n] int32 — one request's page-table row.
-    Padding rows land in the trash page.
+    kv: one layer's pages; k_new/v_new [1, S, KV, hd] (S = padded bucket
+    length); page_ids [n] int32 — one request's page-table row.  Position
+    mapping per ``_chunk_targets`` (contiguous or ring); int8 pools
+    quantize per ``_write_rows``.  Padding rows land in the trash page.
     """
     ps = kv["k"].shape[1]
-    page, off = _chunk_targets(page_ids, start, n_valid, k_new.shape[1], ps)
+    page, off = _chunk_targets(page_ids, start, n_valid, k_new.shape[1], ps,
+                               window)
     for name, new in (("k", k_new), ("v", v_new)):
-        kv[name][page, off] = new[0].to(kv[name].dtype)
+        _write_rows(kv, name, page, off, new[0])
     return kv
 
 
@@ -380,26 +394,71 @@ def paged_prefill_apply(cfg, p, x, positions, kv, page_ids, start: int,
     """Prefill-chunk GQA self-attention directly against the page pool.
 
     x [1, S, D] — one request's chunk, padded to a bucket; positions =
-    start + arange(S); page_ids [n] the request's page-table row.  The
-    chunk's K/V are written into the pool first (pages covering the cached
-    prefix are never written: the chunk starts at ``start`` >= prefix
-    length, and padding writes hit the trash page), then the chunk's
-    queries attend causally over everything cached so far — shared prefix
-    pages, earlier chunks and the chunk itself — through the prefill
-    kernel (``use_kernels``) or its plain version.
+    start + arange(S); page_ids [n] the request's page-table row.
 
-    Returns (out [1, S, D], kv) — kv updated in place.
+    Contiguous layout: the chunk's K/V are written into the pool first
+    (pages covering the cached prefix are never written: the chunk starts
+    at ``start`` >= prefix length, and padding writes hit the trash page),
+    then the chunk's queries attend causally over everything cached so far
+    — shared prefix pages, earlier chunks and the chunk itself.
+
+    Ring layout (sliding-window): the chunk's writes wrap onto cells its
+    own early queries still need, so attention reads the ring as a
+    snapshot BEFORE the write, with the chunk's own K/V as separate
+    operands and ring-arithmetic key positions; the sliding-window mask
+    keeps every overwritten snapshot cell out of the scores.  The engine
+    caps ring chunks at ``window`` tokens.
+
+    ``use_kernels`` runs the CUDA kernels (K2, K5); int8 pools go through
+    the kernel family's ops even without them — the plain versions there
+    apply the same fused dequant as the kernels, which keeps int8 kernel
+    on and off token-identical.  Otherwise the plain path is the gathered
+    ``attention_core``.  Returns (out [1, S, D], kv) — kv updated in place.
     """
     from repro_torch.kernels.paged_attention import ops as pa_ops
-    require_full(cfg)
+    from repro_torch.serving.layouts import SCALE_SUFFIX
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     H = cfg.num_heads
     cd = x.dtype
+    ps = kv["k"].shape[1]
+    n = page_ids.shape[0]
+    window = _paged_window(cfg)
+    quantized = "k" + SCALE_SUFFIX in kv
+    scales = dict(k_scale=kv.get("k" + SCALE_SUFFIX),
+                  v_scale=kv.get("v" + SCALE_SUFFIX))
     q, k, v = _project_qkv_rope(cfg, p, x, positions)
-    kv = paged_prefill_write(kv, k, v, page_ids, start, n_valid)
-    out = pa_ops.paged_prefill(q[0], kv["k"], kv["v"], page_ids, start,
-                               n_valid, use_kernel=use_kernels)[None]
+    if window:
+        if use_kernels or quantized:
+            # snapshot semantics by construction: the ring is read before
+            # the write, and the chunk's own K/V come as fp operands
+            out = pa_ops.paged_ring_prefill(
+                q[0], kv["k"], kv["v"], k[0].to(cd), v[0].to(cd), page_ids,
+                start, n_valid, window=window, use_kernel=use_kernels,
+                **scales)[None]
+        else:
+            table = page_ids.long()
+            ring_k = kv["k"][table].reshape(1, n * ps, *k.shape[2:])
+            ring_v = kv["v"][table].reshape(1, n * ps, *v.shape[2:])
+            cur = start - 1
+            i = torch.arange(n * ps, device=x.device)
+            ring_pos = cur - torch.remainder(cur - i, window)  # < 0: unwritten
+            kk = torch.cat([ring_k.to(cd), k], dim=1)
+            vv = torch.cat([ring_v.to(cd), v], dim=1)
+            j = torch.arange(S, device=x.device)
+            k_pos = torch.cat([ring_pos, start + j])
+            kv_valid = torch.cat([ring_pos >= 0, j < n_valid])[None, :]
+            out = attention_core(q, kk, vv, positions, k_pos, causal=True,
+                                 window=window, q_block=cfg.attn_q_block,
+                                 kv_block=cfg.attn_kv_block,
+                                 kv_valid=kv_valid)
+        kv = paged_prefill_write(kv, k, v, page_ids, start, n_valid,
+                                 window=window)
+    else:
+        kv = paged_prefill_write(kv, k, v, page_ids, start, n_valid)
+        out = pa_ops.paged_prefill(q[0], kv["k"], kv["v"], page_ids, start,
+                                   n_valid, use_kernel=use_kernels,
+                                   **scales)[None]
     out = out.reshape(B, S, H * hd)
     return dot(out, p["wo"], cd), kv
 
@@ -410,20 +469,26 @@ def paged_attention_apply(cfg, p, x, positions, kv, page_table, lengths, *,
 
     x [slots, 1, D]; positions [slots, 1] (= lengths[:, None]); kv one
     layer's pages.  The whole slot batch runs against the shared pool:
-    write this step's K/V, then attend through the decode kernel
-    (``use_kernels``) or its plain version.  Returns (out [slots, 1, D],
-    kv) — kv updated in place.
+    write this step's K/V (quantized on int8 pools), then attend through
+    the decode kernel (``use_kernels``: K1, or K4 on ring pages) or its
+    plain version — the ring's position mapping and window mask, and the
+    int8 dequant, live there.  Returns (out [slots, 1, D], kv) — kv
+    updated in place.
     """
     from repro_torch.kernels.paged_attention import ops as pa_ops
-    require_full(cfg)
+    from repro_torch.serving.layouts import SCALE_SUFFIX
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     H = cfg.num_heads
     cd = x.dtype
+    window = _paged_window(cfg)
     q, k, v = _project_qkv_rope(cfg, p, x, positions)
-    kv = paged_cache_update(kv, k, v, page_table, lengths)
+    kv = paged_cache_update(kv, k, v, page_table, lengths, window=window)
     out = pa_ops.paged_attention(q[:, 0], kv["k"], kv["v"], page_table,
                                  (lengths + 1).to(torch.int32),
+                                 window=window,
+                                 k_scale=kv.get("k" + SCALE_SUFFIX),
+                                 v_scale=kv.get("v" + SCALE_SUFFIX),
                                  use_kernel=use_kernels)
     out = out[:, None].reshape(B, S, H * hd)
     return dot(out, p["wo"], cd), kv

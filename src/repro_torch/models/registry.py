@@ -6,10 +6,10 @@ entry points the runtime dispatches on.  Decode-path contracts are typed
 them a family declares; the serving engine and ``repro_torch.api``
 dispatch on that set, never on ``is None`` probes.
 
-The port builds the ``dense`` and ``moe`` families (mixtral's sliding-
-window page geometry raises through ``layout_for``) and the recurrent
-``hybrid`` (recurrentgemma) and ``ssm`` (rwkv6) families, which have no
-``KVLayout`` and serve on the slotted pool only.  The other families
+The port builds the ``dense`` and ``moe`` families (full, MLA and
+sliding-window attention, on contiguous, latent or ring pages) and the
+recurrent ``hybrid`` (recurrentgemma) and ``ssm`` (rwkv6) families, which
+have no ``KVLayout`` and serve on the slotted pool only.  The other families
 (encdec, vlm, cnn) raise one line naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -145,15 +145,17 @@ def _build_lm(cfg: ModelConfig) -> ModelBundle:
         specs=transformer.lm_specs(cfg),
         loss_fn=functools.partial(transformer.lm_loss, cfg),
         prefill_fn=lambda params, tokens: transformer.lm_prefill(
-            cfg, params, tokens, cache_len=tokens.shape[1]),
+            cfg, params, tokens,
+            cache_len=transformer.decode_cache_len(cfg, tokens.shape[1])),
         decode_fn=functools.partial(transformer.lm_decode, cfg),
         init_decode_state=lambda b, s, device="cpu":
             transformer.init_decode_caches(cfg, b, s, device=device),
         # serving prefill routes MoE drop-free per token (moe_dropless)
         serve_prefill_fn=lambda params, tokens, *, cache_len, n_valid=None,
         use_kernels=False: transformer.lm_prefill(
-            cfg, params, tokens, cache_len=cache_len, n_valid=n_valid,
-            use_kernels=use_kernels, moe_dropless=True),
+            cfg, params, tokens,
+            cache_len=transformer.decode_cache_len(cfg, cache_len),
+            n_valid=n_valid, use_kernels=use_kernels, moe_dropless=True),
         paged_decode_fn=(functools.partial(transformer.lm_paged_decode, cfg)
                          if layout is not None else None),
         paged_prefill_fn=(functools.partial(transformer.lm_paged_prefill,

@@ -1,7 +1,8 @@
 """Decoder-only LM assembly: embeddings + stacked layers + head.
 
-Covers the dense (GQA) and MoE families, with full causal or MLA
-attention (``deepseek-v2-lite``: MLA + MoE).
+Covers the dense (GQA) and MoE families, with full causal, sliding-
+window (``mixtral``: swa + MoE) or MLA attention (``deepseek-v2-lite``:
+MLA + MoE).
 
 Entry points (the JAX package's, same names and contracts):
   * ``lm_loss``         — tokens -> scalar loss
@@ -16,8 +17,9 @@ Parameters keep the JAX pytree layout: ``params["layers"]`` holds stacked
 ``[L, ...]`` leaves, and the scan over layers is a Python loop over their
 slices (views — no copy).  Page pools are ``{"k", "v"}: [L, P, ps, KV,
 hd]`` tensors (MLA: ``{"ckv", "krope"}: [L, P, ps, R | rp]``) written in
-place, as are ring caches.  The paged sliding-window geometry is not
-ported yet (``serving/layouts.py`` raises naming the ROADMAP item).
+place, as are ring caches; int8 pools add ``{"k_scale", "v_scale"}:
+[L, P, ps, KV]`` bf16 leaves, and sliding-window families' pages form a
+ring per slot (``serving/layouts.py``).
 
 ``use_kernels`` on ``lm_forward`` / ``lm_loss`` / ``lm_prefill`` runs every
 layer's attention through kernel K3 (the JAX package's ``use_pallas``);
@@ -100,10 +102,11 @@ def ff_apply(cfg, p, h, *, n_valid=None, per_token: bool = False):
 
 
 def decoder_layer_apply(cfg, p, x, positions, cache=None,
-                        use_kernels=False):
+                        use_kernels=False, per_token: bool = False):
     """Returns (x, new_cache, aux).  MLA attention ignores ``use_kernels``
     here, as the JAX package's does ``use_pallas``: its whole-sequence
-    path is the expanded one."""
+    path is the expanded one.  ``per_token`` routes MoE drop-free per
+    token (``moe_apply``)."""
     h = apply_norm(cfg, p["ln1"], x)
     if cfg.attn_kind == "mla":
         a, new_cache = attn.mla_apply(cfg, p["attn"], h, positions,
@@ -113,7 +116,8 @@ def decoder_layer_apply(cfg, p, x, positions, cache=None,
                                             cache=cache,
                                             use_kernels=use_kernels)
     x = x + a
-    f, aux = ff_apply(cfg, p["ff"], apply_norm(cfg, p["ln2"], x))
+    f, aux = ff_apply(cfg, p["ff"], apply_norm(cfg, p["ln2"], x),
+                      per_token=per_token)
     return x + f, new_cache, aux
 
 
@@ -317,8 +321,11 @@ def lm_paged_prefill(cfg, params, tokens, state, *, use_kernels: bool = False):
         it is masked and written to the trash page)
 
     Returns (logits [1, V] of the last valid token, pages) — pages written
-    in place.  ``use_kernels`` selects the CUDA chunked-prefill kernel (K2,
-    or K7 for MLA's latent pages).
+    in place.  ``use_kernels`` selects the CUDA chunked-prefill kernel (K2
+    on contiguous pages, K5 on a sliding-window family's ring pages, K7 on
+    MLA's latent pages).  Int8 pools carry ``k_scale`` / ``v_scale``
+    leaves beside ``k`` / ``v``; each layer's pages reach the attention
+    with them (quantize on write, dequant fused into the attention).
     """
     x, n_valid, pages = _paged_forward(cfg, params, tokens, state,
                                        use_kernels=use_kernels)
@@ -370,15 +377,22 @@ def lm_decode(cfg, params, tokens, caches):
     at its own position — the JAX engine's ``vmap`` over slots written
     out as a batch axis).
 
+    MoE routes per token on per-row caches: the slots are independent
+    sequences, which the JAX engine decodes one token each (its ``vmap``),
+    where GShard capacity never drops a token — routing the slot batch
+    through one capacity group would let slots displace each other.
+
     Returns (logits [B,V], caches)."""
     params = cast_tree(params, cfg.compute_dtype)
     cd = torch_dtype(cfg.compute_dtype)
     positions = attn.decode_positions(caches["index"][0], tokens.shape[0])
+    per_row = caches["index"].dim() > 1
     x = embed_lookup(cfg, params, tokens, cd)
     for i in range(cfg.num_layers):
         cache = {k: v[i] for k, v in caches.items()}
         x, _, _ = decoder_layer_apply(cfg, layer_params(params, i), x,
-                                      positions, cache=cache)
+                                      positions, cache=cache,
+                                      per_token=per_row)
     x = apply_norm(cfg, params["final_norm"], x)
     logits = lm_head(cfg, params, x)
     return logits[:, 0], caches
@@ -413,8 +427,9 @@ def lm_paged_decode(cfg, params, tokens, state, *, use_kernels: bool = False):
         (= the position this step's token is written at)
 
     Returns (logits [slots, V], pages) — pages written in place.
-    ``use_kernels`` selects the CUDA paged decode kernel (K1, or K6 for
-    MLA's latent pages).
+    ``use_kernels`` selects the CUDA paged decode kernel (K1 on contiguous
+    pages, K4 on ring pages, K6 on MLA's latent pages); int8 pools' scale
+    leaves travel with their pages, as in ``lm_paged_prefill``.
     """
     params = cast_tree(params, cfg.compute_dtype)
     cd = torch_dtype(cfg.compute_dtype)
@@ -432,14 +447,24 @@ def lm_paged_decode(cfg, params, tokens, state, *, use_kernels: bool = False):
     return logits[:, 0], pages
 
 
+def decode_cache_len(cfg, seq_len: int) -> int:
+    """Ring-buffer length: bounded by the attention window when
+    subquadratic."""
+    if cfg.attn_kind in ("swa", "local") and cfg.window:
+        return min(seq_len, cfg.window)
+    return seq_len
+
+
 def init_decode_caches(cfg, batch: int, seq_len: int, device="cpu"):
     """Stacked [L,...] cache tree for lm_decode (MLA: the latent leaves
-    ``ckv`` / ``krope``)."""
+    ``ckv`` / ``krope``); windowed families' rings hold at most
+    ``window`` positions."""
     cd = torch_dtype(cfg.compute_dtype)
+    Lc = decode_cache_len(cfg, seq_len)
     if cfg.attn_kind == "mla":
-        one = attn.mla_init_cache(batch, seq_len, cfg, cd, device)
+        one = attn.mla_init_cache(batch, Lc, cfg, cd, device)
     else:
-        one = attn.init_cache(batch, seq_len, cfg.num_kv_heads,
+        one = attn.init_cache(batch, Lc, cfg.num_kv_heads,
                               cfg.resolved_head_dim, cd, device)
     return {k: v[None].expand((cfg.num_layers,) + v.shape).clone()
             for k, v in one.items()}

@@ -53,10 +53,10 @@ Differences from the JAX engine, all forced by eager PyTorch:
   * Sampled rows draw from a counter-keyed Philox stream
     (``serving/sampling.py``), not JAX's threefry.
 
-Not ported yet, each raising a one-line ``ValueError`` naming its ROADMAP
-item: int8 per-head pages (``kv_dtype="int8"``; MLA's latent pages and the
-slotted pool reject it with the JAX package's errors) and mesh placement
-(``mesh_cfg``).
+Not ported yet: mesh placement (``mesh_cfg``), raising a one-line
+``ValueError`` naming its ROADMAP item.  ``kv_dtype="int8"`` quantizes the
+per-head pages (contiguous and ring); MLA's latent pages and the slotted
+pool reject it with the JAX package's errors.
 """
 from __future__ import annotations
 
@@ -72,6 +72,7 @@ from repro_torch.models.common import torch_dtype
 from repro_torch.obs import (INFLIGHT_COUNTER, NULL_TRACER, Tracer,
                              request_track, write_chrome_trace)
 from repro_torch.serving.kvcache import SlotKVCachePool
+from repro_torch.serving.layouts import quantized_layout
 from repro_torch.serving.metrics import ServingMetrics
 from repro_torch.serving.paged import PagedKVCachePool, upload
 from repro_torch.serving.sampling import (GREEDY, PACKED_WIDTH,
@@ -258,10 +259,13 @@ class ServingEngine:
         self._bucket_slotted = (self.cfg.prefill_bucket
                                 and "bucketed_prefill" in caps)
         if self.paged:
+            # windowed families: a page must tile the window
             self.cfg.check_window(self.layout.window)
-            # int8 pages: the JAX package's error for MLA's latent pages,
-            # the ROADMAP item for per-head pages (not ported yet)
+            # int8 pages: per-head layouts swap their page leaves for int8
+            # + per-(page, offset, kv-head) bf16 scales; MLA's latent pages
+            # fail here with the JAX package's error naming both knobs
             self.cfg.check_kv_dtype(self.layout)
+            self.layout = quantized_layout(self.layout, self.cfg.kv_dtype)
             self.pool = PagedKVCachePool(
                 self.cfg.max_batch, self.cfg.page_size, self.cfg.max_seq_len,
                 lambda: self.bundle.init_decode_state(1, self.cfg.page_size,
@@ -269,6 +273,9 @@ class ServingEngine:
                 num_pages=self.cfg.num_pages, layout=self.layout,
                 enable_prefix_cache=self.cfg.enable_prefix_cache,
                 tracer=self.tracer, device=self.device)
+            # ring chunks are capped at the window: a longer write-then-
+            # attend chunk would wrap onto cells its own queries still
+            # need; the decode span has the same wrap hazard
             self._chunk_cap = self.layout.max_chunk_tokens(
                 self.pool.padded_len)
             self._span_cap = self.layout.max_decode_span(
@@ -663,8 +670,13 @@ class ServingEngine:
             budget = (req.max_new_tokens - len(req.tokens)
                       - self._pending.get(rid, 0)
                       - (1 if slot in override_slots else 0))
-            limits[slot] = max(min(budget, cfg.decode_steps,
-                                   self._span_cap), 0)
+            lim = max(min(budget, cfg.decode_steps, self._span_cap), 0)
+            if lim > 0 and slot in chunk_done and self.paged:
+                # the chunk's blocks are committed to the prefix index only
+                # at submit — a ring rotation planned now would strand them
+                # (see PagedKVCachePool.safe_decode_span)
+                lim = self.pool.safe_decode_span(slot, lim)
+            limits[slot] = lim
         # 4. page growth for the whole span (paged); on starvation preempt
         # until the rest fit
         while self.paged:
@@ -726,6 +738,14 @@ class ServingEngine:
                 continue
             budget = req.max_new_tokens - len(req.tokens)
             k = min(cfg.spec_tokens, budget - 1)
+            if self.pool.layout.window:
+                # ring cells alias position p with p - window: each
+                # optimistic verify write clobbers the oldest in-window
+                # entry, and a rejection cannot restore it (ring rewind
+                # keeps cells).  One draft only ever clobbers the position
+                # that has already left every window a later token can
+                # attend to, so windowed slots draft 1
+                k = 1
             if k < 1:
                 continue
             drafts = self._drafters.propose(
@@ -733,6 +753,14 @@ class ServingEngine:
             if not drafts:
                 continue
             m = len(drafts)
+            # ring windows: the m+1-token write span must stay
+            # rotation-free (verify writes like a chunk, without rotation)
+            span = self.pool.safe_decode_span(slot, m + 1)
+            if span < 2:
+                continue
+            if span < m + 1:
+                m = span - 1
+                drafts = drafts[:m]
             others = [s for s in self.pool.active_slots if s != slot]
             if self.pool.ensure_decode_capacity(skip=others,
                                                 steps={slot: m + 1}):

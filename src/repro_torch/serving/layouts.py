@@ -6,19 +6,25 @@ cache: which decode-state ``leaves`` the pool tiles into pages, the ring
 is the single capability authority: the registry asks it whether a family
 pages, and the engine and pool take the returned layout as an argument.
 
-The port ships the contiguous per-head ``kv`` layout and MLA's latent
-``ckv`` / ``krope`` layout, in the family's compute dtype.  The ring-
-wrapped ``window`` layout (ROADMAP queue 1 item 6) and int8 pages (item
-8) raise naming their item.
+Three geometries: the contiguous per-head ``kv`` layout (full
+attention), MLA's latent ``ckv`` / ``krope`` layout, and the ring-wrapped
+``window`` layout of sliding-window attention — the table is a ring of
+``window // page_size`` cells, token ``t`` lives at cell ``(t % window) //
+page_size``, and a cell's page is reused in place as the sequence wraps.
+Per-head layouts store their pages in the compute dtype or, with
+``kv_dtype="int8"`` (``quantized_layout``), as int8 rows with one bf16
+scale per (page, offset, kv-head) row in an extra ``*_scale`` leaf;
+``quantize_kv`` is the single quantizer every write path calls.
 
-Import discipline: this module depends only on the standard library — it
-sits below both ``repro_torch.models.registry`` and
-``repro_torch.serving.paged``.
+Import discipline: this module depends only on torch — it sits below both
+``repro_torch.models.registry`` and ``repro_torch.serving.paged``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Optional, Tuple
+
+import torch
 
 #: storage dtypes a layout's data leaves may use ("fp32" = native compute
 #: dtype).  ``ServeConfig.kv_dtype`` validates against this.
@@ -27,15 +33,30 @@ KV_DTYPES = ("fp32", "int8")
 #: suffix of the per-row scale leaf a quantized layout carries
 SCALE_SUFFIX = "_scale"
 
-RING_TODO = ("ring-wrapped window pages are not ported yet — ROADMAP queue "
-             "1 item 6 (sliding-window geometry)")
-INT8_TODO = ("int8 KV pages are not ported yet — ROADMAP queue 1 item 8 "
-             "(int8 KV pages)")
+
+
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row int8 quantization of a K/V leaf: one bf16 scale
+    per (..., head) row over the trailing head_dim.  Returns ``(q,
+    scale)`` with ``q`` int8 in [-127, 127] and ``x ~ q * scale[...,
+    None]``.
+
+    The scale is rounded to bf16 *before* the row is divided by it, so
+    dequant with the stored scale reconstructs exactly what was
+    quantized; the clip guards the bf16 round-down that could push a
+    ratio past 127.  The only quantizer: the decode append and the
+    prefill scatter both call it, so a written token's page bytes are a
+    pure function of its row (warm == cold, kernel on == off)."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    scale = torch.where(amax > 0, amax / 127.0,
+                        torch.ones_like(amax)).to(torch.bfloat16)
+    q = torch.clamp(torch.round(xf / scale.float()[..., None]), -127, 127)
+    return q.to(torch.int8), scale
 
 
 def check_kv_dtype_layout(kv_dtype: str, layout: Optional["KVLayout"]) -> None:
-    """Quantized KV needs a per-head paged layout (the JAX package's rule);
-    int8 storage itself is not ported yet.
+    """Quantized KV needs a per-head paged layout (the JAX package's rule).
 
     MLA latent pages stay fp: the latent rank is a *contracted* dim of the
     absorbed-decode einsums, so per-page scales would reassociate those
@@ -55,7 +76,6 @@ def check_kv_dtype_layout(kv_dtype: str, layout: Optional["KVLayout"]) -> None:
             f"(attn_kind='mla'): the latent rank is a contracted dim, so "
             "per-page scales would reassociate the absorbed sums — use "
             "kv_dtype='fp32' with attn_kind='mla'")
-    raise ValueError(INT8_TODO)
 
 
 def check_window_page_size(page_size: int, window: int) -> None:
@@ -79,16 +99,10 @@ def check_window_page_size(page_size: int, window: int) -> None:
 @dataclass(frozen=True)
 class KVLayout:
     """Physical page layout of one attention family's decode cache."""
-    name: str                    # "kv" | "latent"
+    name: str                    # "kv" | "latent" | "window"
     leaves: Tuple[str, ...]      # decode-state leaves the pool pages
     window: int = 0              # > 0: ring-wrapped window pages
-    kv_dtype: str = "fp32"       # "fp32" (native compute dtype)
-
-    def __post_init__(self):
-        if self.window:
-            raise NotImplementedError(RING_TODO)
-        if self.kv_dtype != "fp32":
-            raise NotImplementedError(INT8_TODO)
+    kv_dtype: str = "fp32"       # "fp32" (native) | "int8" (+ scale leaves)
 
     # -- geometry ----------------------------------------------------------
 
@@ -97,42 +111,75 @@ class KVLayout:
         return self.window > 0
 
     @property
+    def quantized(self) -> bool:
+        return self.kv_dtype != "fp32"
+
+    @property
     def data_leaves(self) -> Tuple[str, ...]:
+        """The K/V leaves — ``leaves`` minus a quantized layout's scale
+        leaves (which exist only in the page pool)."""
         return tuple(n for n in self.leaves if not n.endswith(SCALE_SUFFIX))
+
+    def page_template(self, blank: dict) -> dict:
+        """One-page pool template ``{leaf: [L, 1, ps, ...]}`` from the
+        bundle's blank decode state: the data leaves as they are for fp
+        layouts; int8 data leaves plus a bf16 scale leaf (head_dim dropped:
+        one scale per (page, offset, kv-head)) for quantized ones."""
+        if not self.quantized:
+            return {k: blank[k] for k in self.leaves}
+        one = {}
+        for name in self.data_leaves:
+            x = blank[name]
+            one[name] = torch.zeros(x.shape, dtype=torch.int8,
+                                    device=x.device)
+            one[name + SCALE_SUFFIX] = torch.zeros(
+                x.shape[:-1], dtype=torch.bfloat16, device=x.device)
+        return one
 
     def check_page_size(self, page_size: int) -> None:
         check_window_page_size(page_size, self.window)
 
     def max_page_size(self) -> int:
-        """Largest power-of-two page the layout allows (unbounded for
-        contiguous layouts — callers min() it against their own caps)."""
+        """Largest power-of-two page the layout allows: the lowest set bit
+        of the window (unbounded for contiguous layouts — callers min() it
+        against their own caps)."""
         return self.window & -self.window if self.window else 1 << 62
 
     def table_width(self, pages_per_slot: int, page_size: int) -> int:
-        """Page-table columns per slot: the full logical block count."""
-        return pages_per_slot
+        """Page-table columns per slot: the full logical block count for
+        contiguous layouts, the ring size for windowed ones."""
+        if not self.window:
+            return pages_per_slot
+        return min(pages_per_slot, self.window // page_size)
 
     def cell(self, block: int, width: int) -> int:
         """Table column holding logical block ``block``."""
-        return block
+        return block % width if self.ring else block
 
     def live_tokens(self, seq_len: int) -> int:
         """Tokens of K/V a slot holds at sequence length ``seq_len``."""
-        return seq_len
+        return min(seq_len, self.window) if self.ring else seq_len
 
     def max_chunk_tokens(self, padded_len: int) -> int:
         """Largest prefill chunk the layout absorbs in one write-then-attend
-        step (contiguous pages: unbounded up to the slot capacity)."""
-        return padded_len
+        step: a ring chunk longer than the window would overwrite cells its
+        own early queries still need."""
+        return self.window if self.ring else padded_len
 
     def max_decode_span(self, n_steps: int) -> int:
-        """Longest decode span one multi-step dispatch may write."""
-        return n_steps
+        """Longest decode span one multi-step dispatch may write: a ring
+        span longer than the window would wrap onto cells its own earlier
+        steps still attend."""
+        return min(n_steps, self.window) if self.ring else n_steps
 
     def needed_start(self, cached_tokens: int, page_size: int) -> int:
         """First prompt block a new admission must still be able to read
+        when ``cached_tokens`` come from the prefix cache: suffix queries
+        attend keys no older than ``cached_tokens - window + 1``
         (contiguous layouts need every block)."""
-        return 0
+        if not self.window:
+            return 0
+        return max(0, cached_tokens - self.window + 1) // page_size
 
     def describe(self) -> dict:
         """Flat JSON-friendly identity for trace metadata."""
@@ -147,21 +194,31 @@ KV_FULL = KVLayout("kv", ("k", "v"))
 KV_LATENT = KVLayout("latent", ("ckv", "krope"))
 
 
+def quantized_layout(base: Optional[KVLayout],
+                     kv_dtype: str) -> Optional[KVLayout]:
+    """The ``kv_dtype`` storage variant of a base layout: identity for
+    "fp32"; "int8" appends one ``*_scale`` leaf per data leaf.  Raises
+    ``check_kv_dtype_layout``'s error for layouts that cannot quantize
+    (MLA latents, slotted-only families)."""
+    if kv_dtype == "fp32":
+        return base
+    check_kv_dtype_layout(kv_dtype, base)
+    leaves = base.leaves + tuple(n + SCALE_SUFFIX for n in base.leaves)
+    return KVLayout(base.name, leaves, window=base.window, kv_dtype=kv_dtype)
+
+
 def layout_for(cfg, kv_dtype: str = "fp32") -> Optional[KVLayout]:
     """The capability authority: which page layout (if any) serves this
-    model config's decode cache.  None for families with nothing to page
-    (attn_kind "none"); the unported geometry raises naming its ROADMAP
-    item.  ``kv_dtype="int8"`` raises: rejected for MLA with the JAX
-    package's error naming both knobs, not ported for per-head pages."""
+    model config's decode cache — None for families with nothing to page
+    (attn_kind "none").  ``kv_dtype`` selects the storage variant
+    (``quantized_layout``)."""
     kind = getattr(cfg, "attn_kind", "none")
     if kind == "full":
         base = KV_FULL
     elif kind == "mla":
         base = KV_LATENT
     elif kind in ("swa", "local") and getattr(cfg, "window", 0) > 0:
-        raise NotImplementedError(RING_TODO)
+        base = KVLayout("window", ("k", "v"), window=cfg.window)
     else:
         return None
-    if kv_dtype != "fp32":
-        check_kv_dtype_layout(kv_dtype, base)
-    return base
+    return quantized_layout(base, kv_dtype)

@@ -2,10 +2,11 @@
 
 (PyTorch port of the JAX package's pool.  The host bookkeeping is the
 same; the pages are torch tensors on the engine's device written in place
-— where the JAX pool donated its page buffers to jitted ``_insert`` /
-``_copy`` calls, this one does in-place index copies.  Only contiguous
-layouts are ported: the ring-rotation branch of ``_ensure_writable``
-arrives with the window layout, ROADMAP queue 1 item 6.)
+— where the JAX pool donated its page buffers to a jitted ``_copy``, this
+one does in-place index copies.  The JAX pool's whole-prompt ``insert``
+path serves paged families without the prefix contract; every paged
+family of the port declares it, so admission always goes through
+``alloc_prefix`` and chunked prefill, and that path is not ported.)
 
 Where ``SlotKVCachePool`` preallocates a full decode cache per slot —
 cache memory set by the worst case — this pool owns one *global* page pool
@@ -125,11 +126,11 @@ class PagedKVCachePool:
     """Global page pool + refcounted allocator + prefix index + page tables.
 
     ``blank_page_fn()`` must return ``ModelBundle.init_decode_state(1,
-    page_size)`` — the layout's leaves (``"k"/"v"`` [L, 1, ps, KV, hd]) are
-    the one-page template the pool tiles ``num_pages`` times on
-    ``device``.  The engine's paged prefill writes pages in place after
-    ``alloc_prefix`` (the whole-prompt ``insert`` path of the JAX pool
-    arrives with the slotted admission, ROADMAP queue 1 item 4).
+    page_size)``; through ``layout.page_template`` (int8 data leaves plus
+    bf16 scale leaves for a quantized layout) its leaves (``"k"/"v"`` [L,
+    1, ps, KV, hd]) are the one-page template the pool tiles ``num_pages``
+    times on ``device``.  The engine's paged prefill writes pages in place
+    after ``alloc_prefix``.
     """
 
     def __init__(self, num_slots: int, page_size: int, max_seq_len: int,
@@ -138,8 +139,8 @@ class PagedKVCachePool:
                  layout: Optional[KVLayout] = None, tracer=None,
                  device="cpu"):
         assert num_slots >= 1 and page_size >= 1
-        # cache events (alloc/COW/LRU/prefix hit-miss) + plan spans go to
-        # the engine's tracer; NULL_TRACER keeps every emit a no-op
+        # cache events (alloc/COW/ring/LRU/prefix hit-miss) + plan spans go
+        # to the engine's tracer; NULL_TRACER keeps every emit a no-op
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.layout = layout or KV_FULL
         self.layout.check_page_size(page_size)
@@ -167,16 +168,21 @@ class PagedKVCachePool:
                 f"leaves {self.layout.data_leaves}; missing {missing} in "
                 + str(sorted(blank)))
         P = self.num_pages
-        # [L, 1, ps, ...] template -> [L, P, ps, ...] zeroed pages
+        # [L, 1, ps, ...] template -> [L, P, ps, ...] zeroed pages; int8
+        # layouts swap each data leaf for int8 pages + a bf16 scale leaf
+        # (the bundle's native state never carries scales — the pool owns
+        # the storage format)
+        one = self.layout.page_template(blank)
         self.pages = {
-            n: torch.zeros((blank[n].shape[0], P) + tuple(blank[n].shape[2:]),
-                           dtype=blank[n].dtype, device=self.device)
-            for n in self.layout.leaves}
+            n: torch.zeros((t.shape[0], P) + tuple(t.shape[2:]),
+                           dtype=t.dtype, device=self.device)
+            for n, t in one.items()}
 
         # bytes of one page across layers and leaves (for telemetry)
         self.page_bytes = sum(
             t.numel() * t.element_size() // P for t in self.pages.values())
-        # fp32-equivalent page bytes (data leaves at 4 B/elt)
+        # fp32-equivalent page bytes (data leaves at 4 B/elt, no scale
+        # leaves) — the denominator of the int8 savings ratio
         self.page_bytes_fp32 = sum(
             self.pages[n].numel() * 4 // P for n in self.layout.data_leaves)
 
@@ -226,6 +232,7 @@ class PagedKVCachePool:
         self.peak_pages_held = 0
         self.prefix_hit_pages = 0                            # shared mappings
         self.cow_copies = 0
+        self.ring_rotations = 0                              # ring cells reused
         self.cached_pages_evicted = 0                        # LRU reclaims
 
     # -- device page copies (in place) -------------------------------------
@@ -417,11 +424,11 @@ class PagedKVCachePool:
 
     def _ensure_writable(self, slot: int, lo: int, hi: int) -> bool:
         """Make every page that positions ``lo..hi`` will write privately
-        writable: allocate missing blocks and COW a same-block page another
-        slot or the index can still read.  Returns False on page starvation
-        (caller preempts).  (Contiguous layouts: a block's cell is the
-        block itself, so no cell ever holds another block — the JAX pool's
-        ring-rotation branch has nothing to do here.)"""
+        writable: allocate missing blocks, rotate ring cells whose
+        incumbent block has wrapped out of the window (reusing a private
+        page in place; copy-on-writing a shared or indexed one), and COW a
+        same-block page another slot or the index can still read.  Returns
+        False on page starvation (caller preempts)."""
         ps = self.page_size
         for b in range(lo // ps, hi // ps + 1):
             cell = self.layout.cell(b, self.table_width)
@@ -434,10 +441,38 @@ class PagedKVCachePool:
             elif cur is None:
                 if self._alloc_page(slot, b) is None:
                     return False
-            else:
-                raise NotImplementedError(
-                    "ring-cell rotation is not ported yet — ROADMAP queue 1 "
-                    "item 6")
+            else:                       # ring rotation: cur wrapped out
+                pid = self._page_at(slot, cur)
+                if self.refcount[pid] == 1 and \
+                        pid not in self._block_of_page:
+                    # private, unindexed: reuse the page in place — the
+                    # ring-position arithmetic resolves its mixed old/new
+                    # offsets, so no copy and no allocator traffic
+                    i = self._blocks[slot].index(cur)
+                    self._blocks[slot][i] = b
+                    self._cells[slot][cell] = b
+                    self.ring_rotations += 1
+                    self.tracer.instant("pool.ring_rotate", slot=slot,
+                                        page=pid, old_block=cur, block=b)
+                else:
+                    # shared / indexed incumbent: COW into a private page
+                    # and release the original (it parks in the LRU when
+                    # indexed).  The copy is never skipped, even when the
+                    # new block rewrites every offset: a prefill chunk's
+                    # early queries still attend the old positions through
+                    # the pre-write snapshot, which reads whatever page
+                    # the table holds when the chunk runs.
+                    dst = self._grab()
+                    if dst is None:
+                        return False
+                    self._copy(dst, pid)
+                    self.cow_copies += 1
+                    self.ring_rotations += 1
+                    self.tracer.instant("pool.ring_rotate", slot=slot,
+                                        page=pid, old_block=cur, block=b,
+                                        cow_dst=dst)
+                    self._unbind(slot, cur)
+                    self._bind(slot, b, dst)
         return True
 
     # -- prefix matching ---------------------------------------------------
@@ -713,6 +748,28 @@ class PagedKVCachePool:
         self.peak_pages_held = max(self.peak_pages_held, self.pages_held)
         return starved
 
+    def safe_decode_span(self, slot: int, n: int) -> int:
+        """Longest prefix of the decode span ``pos..pos+n-1`` whose writes
+        need no ring rotation: every block is already bound to the slot or
+        lands in a free cell.  The pipelined engine caps a chunk-completing
+        slot's same-cycle decode span with this — its chunk's blocks are
+        committed to the prefix index only at submit, so a rotation planned
+        before that would see an unindexed incumbent and rename its page in
+        place, losing the just-prefilled block from the index (content
+        stays correct).  Speculative verify spans are capped the same way
+        (verify writes like a chunk, without rotation).  Contiguous
+        layouts never rotate: ``n``."""
+        if not self.layout.ring:
+            return n
+        ps = self.page_size
+        pos = int(self.pos[slot])
+        for k in range(n):
+            b = (pos + k) // ps
+            cur = self._cells[slot].get(self.layout.cell(b, self.table_width))
+            if cur is not None and cur != b:
+                return k
+        return n
+
     def decode_operands(self, limits: Dict[int, int],
                         mask_slots=()) -> torch.Tensor:
         """One packed ``[slots, table_width + 2]`` int32 device operand for
@@ -741,12 +798,17 @@ class PagedKVCachePool:
         that nothing will ever read (decode attends ``0..pos`` and the
         next writes cover them — the same hygiene argument as page
         reuse, see module docstring), so only host bookkeeping moves:
-        ``pos`` drops to ``new_pos`` and blocks wholly past the new
-        position unbind, freeing their pages."""
+        ``pos`` drops to ``new_pos`` and — contiguous layouts — blocks
+        wholly past the new position unbind, freeing their pages.  Ring
+        layouts keep their cells bound: the verify span was planned
+        rotation-free (``safe_decode_span``), so every touched block is
+        already the cell's incumbent and is rewritten in place as the
+        sequence grows again."""
         assert new_pos >= 1, new_pos
-        last_blk = (new_pos - 1) // self.page_size
-        for b in [b for b in self._blocks[slot] if b > last_blk]:
-            self._unbind(slot, b)
+        if not self.layout.ring:
+            last_blk = (new_pos - 1) // self.page_size
+            for b in [b for b in self._blocks[slot] if b > last_blk]:
+                self._unbind(slot, b)
         self.pos[slot] = new_pos
 
     def advance(self, skip=(), steps=None) -> None:

@@ -13,7 +13,8 @@ terms summed in another order); K3's gradients 1e-4 of their largest
 magnitude (fp32); K6/K7 as K1/K2 (fp32 1e-5, bf16 1e-2); K9 (fp32) 1e-5
 of the largest |h| (the same sequential recurrence; expf may differ in the
 last ulp); K10 (fp32) 1e-4 of the largest |out| / |s_last| (the reference
-sums each output over the state column in another order).
+sums each output over the state column in another order); K4 / K5 / K8
+as K1 / K2 (the same fused int8 dequant in kernel and plain version).
 """
 import numpy as np
 import pytest
@@ -394,3 +395,178 @@ def test_cuda_recurrence_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="do not fit"):
         wkv_kernel.wkv6_kernel(r, r, r, r, torch.zeros((3, 64), device=dev),
                                torch.zeros((1, 2, 64, 64), device=dev))
+
+
+# ---------------------------------------------------------------------------
+# K4 (ring decode), K5 (ring chunked prefill) and K8 (int8 pages in K1, K2,
+# K4, K5)
+# ---------------------------------------------------------------------------
+
+def _ring_case(seed, slots, H, KV, hd, ps, n, lengths):
+    """A ring of n cells per slot (window n * ps), each slot's cells bound
+    up to its length (never past n), the trash page 0 poisoned."""
+    rng = np.random.default_rng(seed)
+    P = slots * n + 1
+    q = rng.normal(size=(slots, H, hd)).astype(np.float32)
+    k = rng.normal(size=(P, ps, KV, hd)).astype(np.float32)
+    v = rng.normal(size=(P, ps, KV, hd)).astype(np.float32)
+    table = np.zeros((slots, n), np.int32)
+    pid = 1
+    for s, length in enumerate(lengths):
+        for i in range(min(n, -(-length // ps))):
+            table[s, i] = pid
+            pid += 1
+    k[0], v[0] = 1e4, -1e4
+    return q, k, v, table, np.asarray(lengths, np.int32)
+
+
+def _int8(x, dev):
+    """Quantize fp pages the way the pool's writes do: int8 pages and
+    bf16 scales."""
+    from repro_torch.serving.layouts import quantize_kv
+    q, s = quantize_kv(torch.from_numpy(x))
+    return q.to(dev), s.to(dev)
+
+
+#: (slots, H, KV, hd, ps, n, lengths): mixtral's decode (G 6, hd 128, a
+#: 4096-token ring of 256 cells) with lengths on both sides of the window
+#: and straddling pages of slots shorter than it (where a truncating
+#: modulo would unmask never-written cells), and a small hd-64 ring
+RING_DECODE_CASES = [
+    (8, 48, 8, 128, 16, 256, [1, 17, 4095, 4096, 4097, 4200, 333, 8191]),
+    (4, 8, 2, 64, 8, 4, [3, 9, 32, 77]),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", RING_DECODE_CASES)
+def test_cuda_ring_decode_kernel_matches_plain(case, dtype, int8):
+    dev = _cuda()
+    slots, H, KV, hd, ps, n, lengths = case
+    q, k, v, table, lens = _ring_case(6, slots, H, KV, hd, ps, n, lengths)
+    if int8:
+        (kp, ks), (vp, vs) = _int8(k, dev), _int8(v, dev)
+        kw = dict(k_scale=ks, v_scale=vs)
+    else:
+        kp, vp, kw = _t(k, dtype, dev), _t(v, dtype, dev), {}
+    args = (_t(q, dtype, dev), kp, vp, torch.from_numpy(table).to(dev),
+            torch.from_numpy(lens).to(dev))
+    n0 = port_kernel.paged_attention_kernel.launches
+    out = port_ops.paged_attention(*args, window=n * ps, use_kernel=True,
+                                   **kw)
+    want = port_ops.paged_attention(*args, window=n * ps, use_kernel=False,
+                                    **kw)
+    assert port_kernel.paged_attention_kernel.launches == n0 + 1
+    torch.testing.assert_close(out.float(), want.float(), rtol=0,
+                               atol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_int8_decode_and_prefill_kernels_match_plain(dtype):
+    """K8 in K1 and K2 at qwen's serving geometry (G 5, hd 128)."""
+    dev = _cuda()
+    q, k, v, table, lengths = _decode_case(8, 8, 40, 8, 128, 16, 6)
+    (kp, ks), (vp, vs) = _int8(k, dev), _int8(v, dev)
+    args = (_t(q, dtype, dev), kp, vp, torch.from_numpy(table).to(dev),
+            torch.from_numpy(lengths).to(dev))
+    out = port_ops.paged_attention(*args, k_scale=ks, v_scale=vs,
+                                   use_kernel=True)
+    want = port_ops.paged_attention(*args, k_scale=ks, v_scale=vs,
+                                    use_kernel=False)
+    torch.testing.assert_close(out.float(), want.float(), rtol=0,
+                               atol=TOL[dtype])
+    rng = np.random.default_rng(9)
+    row = torch.from_numpy(table[3]).to(dev)
+    for S, start, n_valid in ((5, 90, 3), (64, 0, 60)):
+        qp = _t(rng.normal(size=(S, 40, 128)).astype(np.float32), dtype, dev)
+        n0 = port_kernel.paged_prefill_kernel.launches
+        out = port_ops.paged_prefill(qp, kp, vp, row, start, n_valid,
+                                     k_scale=ks, v_scale=vs, use_kernel=True)
+        want = port_ops.paged_prefill(qp, kp, vp, row, start, n_valid,
+                                      k_scale=ks, v_scale=vs,
+                                      use_kernel=False)
+        assert port_kernel.paged_prefill_kernel.launches == n0 + 1
+        torch.testing.assert_close(out[:n_valid].float(),
+                                   want[:n_valid].float(), rtol=0,
+                                   atol=TOL[dtype])
+
+
+#: (H, KV, hd, ps, n, S, start, n_valid): window = n * ps.  The JAX test
+#: grid's cases (cold, wrapped, partial, S > window), a verify row, and
+#: mixtral's chunks: 1024 queries wrapping the 4096-token ring, a ragged
+#: fifth chunk of a 4,200-token prompt, a verify row past the window
+RING_PREFILL_CASES = [
+    (4, 2, 64, 8, 3, 16, 0, 16),
+    (4, 2, 64, 8, 3, 16, 30, 13),
+    (8, 8, 64, 4, 4, 8, 10, 5),
+    (2, 1, 64, 8, 2, 32, 70, 27),
+    (48, 8, 128, 16, 256, 1024, 3584, 1024),
+    (48, 8, 128, 16, 256, 128, 4096, 104),
+    (48, 8, 128, 16, 256, 5, 4210, 2),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", RING_PREFILL_CASES)
+def test_cuda_ring_prefill_kernel_matches_plain(case, dtype, int8):
+    dev = _cuda()
+    H, KV, hd, ps, n, S, start, n_valid = case
+    rng = np.random.default_rng(7)
+    q = _t(rng.normal(size=(S, H, hd)).astype(np.float32), dtype, dev)
+    k = rng.normal(size=(n + 1, ps, KV, hd)).astype(np.float32)
+    v = rng.normal(size=(n + 1, ps, KV, hd)).astype(np.float32)
+    ck = _t(rng.normal(size=(S, KV, hd)).astype(np.float32), dtype, dev)
+    cv = _t(rng.normal(size=(S, KV, hd)).astype(np.float32), dtype, dev)
+    row = torch.arange(1, n + 1, dtype=torch.int32, device=dev)
+    if int8:
+        (kp, ks), (vp, vs) = _int8(k, dev), _int8(v, dev)
+        kw = dict(k_scale=ks, v_scale=vs)
+    else:
+        kp, vp, kw = _t(k, dtype, dev), _t(v, dtype, dev), {}
+    args = (q, kp, vp, ck, cv, row, start, n_valid)
+    n0 = port_kernel.paged_ring_prefill_kernel.launches
+    out = port_ops.paged_ring_prefill(*args, window=n * ps, use_kernel=True,
+                                      **kw)
+    want = port_ops.paged_ring_prefill(*args, window=n * ps,
+                                       use_kernel=False, **kw)
+    assert port_kernel.paged_ring_prefill_kernel.launches == n0 + 1
+    torch.testing.assert_close(out[:n_valid].float(),
+                               want[:n_valid].float(), rtol=0,
+                               atol=TOL[dtype])
+    assert (out[n_valid:] == 0).all()      # padding rows come back 0
+
+
+@pytest.mark.cuda
+def test_cuda_ring_and_int8_wrappers_reject_what_the_kernels_do_not_take():
+    dev = _cuda()
+    q = torch.zeros((2, 4, 64), device=dev)
+    pages = torch.zeros((3, 4, 2, 64), dtype=torch.int8, device=dev)
+    scale = torch.zeros((3, 4, 2), dtype=torch.bfloat16, device=dev)
+    table = torch.zeros((2, 1), dtype=torch.int32, device=dev)
+    lengths = torch.ones((2,), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="k_scale and v_scale"):
+        port_ops.paged_attention(q, pages, pages, table, lengths,
+                                 k_scale=scale, use_kernel=True)
+    with pytest.raises(ValueError, match="bfloat16"):
+        port_ops.paged_attention(q, pages, pages, table, lengths,
+                                 k_scale=scale.float(), v_scale=scale.float(),
+                                 use_kernel=True)
+    fp = torch.zeros((3, 4, 2, 64), device=dev)
+    chunk = torch.zeros((5, 2, 64), device=dev)
+    with pytest.raises(ValueError, match="window"):
+        port_ops.paged_ring_prefill(torch.zeros((5, 4, 64), device=dev), fp,
+                                    fp, chunk, chunk, table[0].repeat(3), 0,
+                                    5, window=8, use_kernel=True)
+    with pytest.raises(ValueError, match="head_dim"):
+        port_ops.paged_ring_prefill(
+            torch.zeros((5, 4, 256), device=dev),
+            torch.zeros((3, 4, 2, 256), device=dev),
+            torch.zeros((3, 4, 2, 256), device=dev),
+            torch.zeros((5, 2, 256), device=dev),
+            torch.zeros((5, 2, 256), device=dev), table[0], 0, 5, window=8,
+            use_kernel=True)
