@@ -7,7 +7,10 @@ Phases, in order; any failure exits non-zero:
 
 1. environment — torch / CUDA versions and the card's name and power limit;
 2. build — every CUDA source under ``src/repro_torch/csrc`` with ``nvcc``,
-   one process per source, all started together;
+   one process per source, all started together; each kernel's registers
+   and spills (``-Xptxas -v``); then ``cuobjdump -sass`` of the K3 and K5
+   libraries: every bf16 instantiation of their tensor-core kernels must
+   issue HGMMA (wgmma) instructions;
 3. kernels — each hand-written kernel held against its plain PyTorch
    version on the card at its path's shapes (K1, K2: qwen serving; K3: the
    training forward, plus a sliding-window and a ragged case, the flash
@@ -17,7 +20,8 @@ Phases, in order; any failure exits non-zero:
    recurrentgemma's width; K10: the RWKV-6 WKV recurrence at rwkv6's, with
    s0 != 0; K4 / K5: mixtral's ring decode, lengths on both sides of its
    4096-token window, and ring chunked prefill, a 1024-query chunk that
-   wraps the ring; K8: int8 pages in K1, K2 at qwen's shapes and K4, K5 at
+   wraps the ring and a verify row (the bf16 kernel's split path), both
+   reported; K8: int8 pages in K1, K2 at qwen's shapes and K4, K5 at
    mixtral's; in bf16, and checked in fp32), with its time beside the
    plain version's, a bytes/operations
    bound, and, where one exists, one PyTorch library call computing the
@@ -70,8 +74,10 @@ Phases, in order; any failure exits non-zero:
 11. mixtral serve — full-width ``mixtral-8x22b`` cut to 4 of its 56 layers
    (sliding window 4096, 8 experts top-2) on ring pages: the six requests
    and a 4,200-token one in 1024-token chunks, whose fifth chunk and
-   decode wrap the ring.  K4 must launch 4 x decode steps and K5 4 x
-   (prefill chunks + verifies), and the pool must rotate ring cells; then
+   decode wrap the ring, profiled (the cold profile: K5's share of device
+   time while the long prompt is prefilled chunk by chunk, and TTFT).  K4
+   must launch 4 x decode steps and K5 4 x (prefill chunks + verifies),
+   and the pool must rotate ring cells; then
    the checked drive, the ``use_kernels=False`` arm (partings printed), a
    profile of the warm engine (the long prompt a ring prefix hit); then
    the int8 arm as for qwen; then in fp32, kernels on and off,
@@ -192,16 +198,75 @@ def env_phase(torch):
     return smi[0]
 
 
+def _demangle(names):
+    """Readable kernel names (``c++filt`` where the machine has it)."""
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, check=True)
+        return out.stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError):
+        return list(names)
+
+
+def _ptxas_report(text):
+    """(kernel, "N registers, spills") of each entry function in an
+    ``-Xptxas -v`` log."""
+    rows, fn, spill = [], None, ""
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and fn:
+            regs = line.split("Used")[1].split(",")[0].strip()
+            rows.append((fn, f"{regs}; {spill}"))
+            fn = None
+    return list(zip(_demangle([f for f, _ in rows]), (r for _, r in rows)))
+
+
+#: the sources whose bf16 kernels run on the tensor cores, and how many
+#: instantiations of them each library holds (K3: hd 64 / 128 / 256; K5:
+#: hd 64 / 128 x fp / int8 pages)
+TENSOR_CORE_KERNELS = {"flash_attention": ("flash_fwd_kernel_wgmma", 3),
+                       "paged_ring_prefill": ("paged_ring_prefill_kernel_wgmma",
+                                              4)}
+
+
+def tensor_core_check(build):
+    """``cuobjdump -sass`` of the built K3 and K5 libraries: the wgmma
+    (HGMMA) instructions of every kernel; each bf16 instantiation must
+    issue them."""
+    tool = Path(build.nvcc_path()).parent / "cuobjdump"
+    for name, (kernel, want) in TENSOR_CORE_KERNELS.items():
+        sass = subprocess.run([str(tool), "-sass", str(build.lib_path(name))],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        funcs = {}
+        fn = None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :")[1].strip()
+                funcs[fn] = 0
+            elif fn is not None and "HGMMA" in line:
+                funcs[fn] += 1
+        for readable, (fn, n) in zip(_demangle(list(funcs)), funcs.items()):
+            log(f"  sass {name}: {n:5d} HGMMA  {readable[:110]}")
+        mma = [n for fn, n in funcs.items() if kernel in fn]
+        if len(mma) != want or not all(mma):
+            raise AssertionError(f"{name}: {len(mma)} {kernel} instantiations "
+                                 f"(want {want}), HGMMA counts {mma}")
+
+
 def build_phase():
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     logs = build.build_all()
     dt = time.perf_counter() - t0
     for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+        for fn, info in _ptxas_report(text):
+            log(f"  ptxas {name}: {info}  {fn[:110]}")
     log(f"build: {len(logs)} sources in {dt:.2f} s")
+    tensor_core_check(build)
 
 
 # ---------------------------------------------------------------------------
@@ -452,6 +517,7 @@ def k5_case(torch, F, gen, dtype, int8, S, start, n_valid, timed=True):
     """K5 (ring chunked prefill, snapshot-before-write) at mixtral's shape
     on one request's ring of 256 cells; ``int8``: its K8 branch (int8
     snapshot pages, fp chunk operands)."""
+    from repro_torch.kernels.paged_attention import kernel as pk
     from repro_torch.kernels.paged_attention import ops, ref
     n_pages = MX_CELLS + 8
     k, v, kw = _page_pair(torch, gen, (n_pages, PS, MX_KV, HD), dtype, int8)
@@ -473,9 +539,14 @@ def k5_case(torch, F, gen, dtype, int8, S, start, n_valid, timed=True):
     out, want = kern(), plain()
     torch.cuda.synchronize()
     err = (out[:n_valid].float() - want[:n_valid].float()).abs().max().item()
+    # the bf16 kernel's split of its key tiles (fp32: the scalar kernel)
+    splits = 1 if dtype == torch.float32 else pk.ring_prefill_splits(
+        S, MX_G, MX_KV, start, n_valid, MX_WINDOW,
+        torch.cuda.get_device_properties(0).multi_processor_count)
     case = dict(case=f"{'int8' if int8 else 'fp'} {str(dtype)[6:]} S={S} "
                      f"start={start} n_valid={n_valid} KV={MX_KV} G={MX_G} "
-                     f"hd={HD} ps={PS} window={MX_WINDOW}", max_abs_err=err)
+                     f"hd={HD} ps={PS} window={MX_WINDOW} splits={splits}",
+                max_abs_err=err)
     if not timed:
         return case
     T = MX_CELLS * PS
@@ -517,10 +588,12 @@ def k5_case(torch, F, gen, dtype, int8, S, start, n_valid, timed=True):
 #: K5 cases (S, start, n_valid): the drive's 1024-token chunk that wraps
 #: the ring (reported), the ragged fifth chunk of its 4,200-token prompt
 #: (bucket 128), a cold chunk, and a verify row (S = spec_tokens + 1,
-#: one draft on a ring) past the window
+#: one draft on a ring) past the window (reported beside the chunk: it
+#: takes the bf16 kernel's split path)
 K5_CASES = ((1024, 3584, 1024), (128, 4096, 104), (1024, 0, 1024),
             (5, 4210, 2))
 K5_REPORTED = (1024, 3584, 1024)
+K5_VERIFY = (5, 4210, 2)
 
 
 def _valid_pairs(Sq, Sk, causal, window):
@@ -828,7 +901,7 @@ def kernel_phase(torch, F):
                 k4_case(torch, F, gen, fp32, True, timed=False)],
             "paged_ring_prefill_int8": [
                 k5_case(torch, F, gen, bf16, True, *K5_REPORTED),
-                k5_case(torch, F, gen, bf16, True, 5, 4210, 2, timed=False),
+                k5_case(torch, F, gen, bf16, True, *K5_VERIFY),
                 k5_case(torch, F, gen, fp32, True, *K5_REPORTED,
                         timed=False)],
             "flash_attention": [k3_case(torch, F, gen, *c)
@@ -890,16 +963,33 @@ def kernel_phase(torch, F):
                if c == K10_REPORTED)
     k5 = next(r for r, c in zip(rows["paged_ring_prefill"], K5_CASES)
               if c == K5_REPORTED)
+    k5v = next(r for r, c in zip(rows["paged_ring_prefill"], K5_CASES)
+               if c == K5_VERIFY)
+    k5q, k5qv = rows["paged_ring_prefill_int8"][:2]
+    k3 = rows["flash_attention"][0]
+    log(f"K5 (bf16, S=1024 wrapping the ring): {k5['ms']:.4f} ms, SDPA "
+        f"{k5['library_ms']:.4f}; verify S=5: {k5v['ms']:.4f} ms, SDPA "
+        f"{k5v['library_ms']:.4f}; int8 {k5q['ms']:.4f} ms = "
+        f"{k5q['ms'] / k5['ms']:.3f}x fp, int8 verify {k5qv['ms']:.4f} ms; "
+        f"K3 (B=2 S=2048 causal): {k3['ms']:.4f} ms, SDPA "
+        f"{k3['library_ms']:.4f} ({k3['ms'] / k3['library_ms']:.2f}x)")
 
     def worst(name, reported):
         return dict(reported, max_abs_err=max(r["max_abs_err"]
                                               for r in rows[name]))
 
+    def with_verify(row, verify):
+        return dict(row, **{f"verify_{k}": verify[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+
     return {"paged_attention": rows["paged_attention"][0],
             "paged_ring_decode": worst("paged_ring_decode",
                                        rows["paged_ring_decode"][0]),
-            "paged_ring_prefill": worst("paged_ring_prefill", k5),
+            "paged_ring_prefill": with_verify(
+                worst("paged_ring_prefill", k5), k5v),
             **{n: worst(n, rows[n][0]) for n in INT8_KERNELS},
+            "paged_ring_prefill_int8": with_verify(
+                worst("paged_ring_prefill_int8", k5q), k5qv),
             "paged_prefill": dict(k2, max_abs_err=max(
                 r["max_abs_err"] for r in rows["paged_prefill"])),
             "flash_attention": dict(rows["flash_attention"][0], max_abs_err=max(
@@ -953,6 +1043,9 @@ REPETITIVE = {"qwen2.5-14b": [11, 12, 13, 14, 15, 16] * 6,
 LOAD_KW = {"mixtral-8x22b": {"num_layers": 4}}
 DRIVE_KW = {"mixtral-8x22b": {"prefill_chunk_tokens": 1024}}
 LONG_PROMPT = {"mixtral-8x22b": 4200}
+#: the drives whose first (cold) run is profiled: mixtral's long prompt
+#: goes through K5 chunk by chunk only there
+COLD_PROFILE = ("mixtral-8x22b",)
 
 #: the kernels each serve drive runs, by family
 SERVE_KERNELS = {"qwen2.5-14b": ("paged_attention", "paged_prefill"),
@@ -1213,6 +1306,42 @@ def checked_drive(torch, sess, prompts, outs, names, **overrides):
         f"{'equal' if checked == outs else 'differ from'} the kernel arm's")
 
 
+def device_kernels(torch, prof):
+    """(device us, launches, name) of every CUDA kernel a profile holds."""
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = []
+    for e in prof.key_averages():
+        if e.device_type != cuda:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        kernels.append((us, e.count, e.key))
+    return kernels
+
+
+def report_profile(kernels, wall, what, marks=()):
+    """Print a drive's device busy share, the GEMMs' share of device time
+    and each marked kernel family's (a name holding the mark), and the
+    kernels that take the most."""
+    busy = sum(k[0] for k in kernels) / 1e6
+    if not busy:
+        log(f"profile ({what}): wall {wall:.2f} s; device time not measured "
+            "(the profiler recorded no CUDA kernels)")
+        return
+    gemm = sum(k[0] for k in kernels
+               if any(m in k[2].lower() for m in GEMM_MARKS)) / 1e6
+    shares = {mk: sum(k[0] for k in kernels if mk in k[2]) / 1e6 / busy
+              for mk in marks}
+    log(f"profile ({what}): wall {wall:.2f} s, device busy {busy:.3f} s "
+        f"({100 * busy / wall:.1f}% of wall), {sum(k[1] for k in kernels)} "
+        f"kernel launches; GEMMs {100 * gemm / busy:.1f}% of device time"
+        + "".join(f", {mk} {100 * sh:.1f}%" for mk, sh in shares.items()))
+    for us, n, name in sorted(kernels, reverse=True)[:12]:
+        log(f"  {100 * us / 1e6 / busy:5.1f}% of device  {us / 1e3:9.2f} ms  "
+            f"{n:7d} launches  {name[:100]}")
+
+
 def profile_phase(torch, sess, prompts, marks=()):
     """One more drive of the same requests under ``torch.profiler`` (CUDA
     activity only, which keeps its overhead and post-processing small):
@@ -1232,31 +1361,9 @@ def profile_phase(torch, sess, prompts, marks=()):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     m = sess.engine.metrics.summary()
-    cuda = torch.autograd.DeviceType.CUDA
-    kernels = []
-    for e in prof.key_averages():
-        if e.device_type != cuda:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        kernels.append((us, e.count, e.key))
-    busy = sum(k[0] for k in kernels) / 1e6
-    if not busy:
-        log(f"profile: wall {wall:.2f} s; device time not measured (the "
-            "profiler recorded no CUDA kernels)")
-        return
-    gemm = sum(k[0] for k in kernels
-               if any(m in k[2].lower() for m in GEMM_MARKS)) / 1e6
-    ours = sum(k[0] for k in kernels if any(m in k[2] for m in marks)) / 1e6
-    log(f"profile (warm engine): wall {wall:.2f} s, prefix-hit tokens "
-        f"{m['prefill_tokens_saved']}, device busy {busy:.3f} s "
-        f"({100 * busy / wall:.1f}% of wall), {sum(k[1] for k in kernels)} "
-        f"kernel launches; GEMMs {100 * gemm / busy:.1f}% of device time, "
-        f"{'+'.join(marks) or 'marked kernels'} {100 * ours / busy:.1f}%")
-    for us, n, name in sorted(kernels, reverse=True)[:12]:
-        log(f"  {100 * us / 1e6 / busy:5.1f}% of device  {us / 1e3:9.2f} ms  "
-            f"{n:7d} launches  {name[:100]}")
+    report_profile(device_kernels(torch, prof), wall,
+                   f"warm engine, prefix-hit tokens "
+                   f"{m['prefill_tokens_saved']}", marks)
 
 
 def _describe(cfg):
@@ -1341,7 +1448,20 @@ def serve_phase(torch, arch, profile_marks=()):
     ours = SERVE_KERNELS[arch]
     recurrent = sess.bundle.kv_layout is None
     ring = cfg.attn_kind == "swa"
-    outs, wall, counts, m = serve_once(torch, sess, prompts)
+    if arch in COLD_PROFILE:
+        # the first drive, cold, under the profiler: the long prompt's
+        # chunks run through the prefill kernel here, not in the warm
+        # profile (there it is a prefix hit)
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            outs, wall, counts, m = serve_once(torch, sess, prompts)
+        report_profile(device_kernels(torch, prof), wall,
+                       f"cold engine, the first drive: ttft mean "
+                       f"{m['ttft_mean_s']:.3f} s p99 {m['ttft_p99_s']:.3f} s, "
+                       f"prefill chunks {MODEL_CALLS.get('lm_paged_prefill')}",
+                       profile_marks)
+    else:
+        outs, wall, counts, m = serve_once(torch, sess, prompts)
     pool = "slotted" if recurrent else "paged"
     log(f"serve {cfg.name} (kernels, {pool} pool): {len(prompts)} requests "
         f"x {MAX_NEW} new tokens in "
@@ -1809,7 +1929,9 @@ def main() -> int:
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"]})
+                        "library_ms": r["library_ms"],
+                        **{k: v for k, v in r.items()
+                           if k.startswith("verify_")}})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,364 @@
+// Tensor-core tile helpers shared by the bf16 attention kernels (K3 flash
+// forward, K5 ring chunked prefill) for Hopper (sm_90a).
+//
+// A block is one warpgroup (4 warps, 128 threads) that owns 64 query rows,
+// 16 a warp: the M of wgmma.m64nNk16.  Q, K and V tiles sit bf16 in shared
+// memory in the 128-byte-swizzled layout (sw128_offset), filled by
+// cp.async (16 bytes a thread, zero-filled where the source row does not
+// exist) and double-buffered by the callers with commit_group /
+// wait_group.  The tensor cores read them through matrix descriptors:
+// S = Q K^T with both operands K-major in shared memory (wgmma_ss), and
+// O += P V with P from registers and V transposed (wgmma_rt).
+//
+// Register layouts (PTX ISA, wgmma .m64nNk16 with .bf16 inputs and .f32
+// sums), with gid = lane / 4 and tig = lane % 4, warp w holding rows
+// 16w..16w+15: the sums of columns 8j..8j+7 are d[j][0], d[j][1] (row gid,
+// cols 2tig, 2tig+1) and d[j][2], d[j][3] (row gid + 8) — mma.m16n8k16's C
+// fragment, one per 8 columns.  So a thread holds two rows of every score
+// tile, and the four lanes of a quad hold one row between them: row max
+// and row sum reduce over the quad.  An A operand in registers has
+// mma.m16n8k16's A layout, and the C fragments of two neighbouring 8-key
+// score tiles are, element for element, the A fragment of one 16-key step
+// of the PV product: P goes from the score registers to A registers and
+// never through shared memory (FA2's register reuse), as two bf16
+// operands whose sum holds P to ~2^-18 (split_p).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+#include "paged_common.cuh"
+
+namespace repro_torch {
+
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte asynchronous copy global -> shared; pred false zero-fills the 16
+// bytes and reads nothing (src must still be a valid global address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(pred ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N committed groups of this thread are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// 2^x on the special-function unit (flushes subnormal results to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One online-softmax step on scaled, masked scores in log2 units (the
+// softmax scale times log2(e) folded into one multiply; masked entries
+// hold the finite NEG_INF), for this thread's two rows (h = 0: row gid,
+// h = 1: row gid + 8): m (log2 units) and l updated, s turned into the
+// probabilities 2^(s - m) = exp of the natural-unit difference, and the
+// factor corr the output accumulator must be rescaled by (rescale_o).  A
+// row that has seen no live key keeps m = NEG_INF; its exponent is taken
+// against 0 instead, so its masked entries give exactly 0 and l and o
+// stay 0 (NEG_INF - NEG_INF would be 0 and count them as 1).  l is this
+// thread's partial sum over its own columns; quad_sum completes it at the
+// end.
+template <int NT>
+__device__ __forceinline__ void softmax_p(float (&s)[NT][4], float (&m)[2],
+                                          float (&l)[2], float (&corr)[2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx = m[h];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      mx = fmaxf(mx, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
+    mx = quad_max(mx);
+    const float base = mx == NEG_INF ? 0.f : mx;
+    corr[h] = ex2(m[h] - base);
+    m[h] = mx;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 2 * h; e < 2 * h + 2; ++e) {
+        s[j][e] = ex2(s[j][e] - base);
+        sum += s[j][e];
+      }
+    l[h] = l[h] * corr[h] + sum;
+  }
+}
+
+// o *= corr, row by row; skipped when no row of the warp raised its max
+template <int NO>
+__device__ __forceinline__ void rescale_o(float (&o)[NO][4],
+                                          const float (&corr)[2]) {
+  if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+    for (int c = 0; c < NO; ++c) {
+      o[c][0] *= corr[0];
+      o[c][1] *= corr[0];
+      o[c][2] *= corr[1];
+      o[c][3] *= corr[1];
+    }
+  }
+}
+
+// P split into two bf16 A operands, hi = bf16(P) and lo = bf16(P - hi),
+// for one 16-key step kk: hi + lo carries P to ~2^-18 of itself, where
+// bf16 alone (2^-9) would move outputs near 2 by a bf16 ulp against the
+// plain version's fp32 P.
+template <int NT>
+__device__ __forceinline__ void split_p(uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                        const float (&p)[NT][4], int kk) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const float* x = &p[2 * kk + (r >> 1)][(r & 1) * 2];
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x[0], x[1]);
+    const float2 hf = __bfloat1622float2(h);
+    hi[r] = *reinterpret_cast<const uint32_t*>(&h);
+    lo[r] = pack_bf16(x[0] - hf.x, x[1] - hf.y);
+  }
+}
+
+// Four int8 values (one 32-bit word) as two bf16x2 words, exactly: each
+// byte, biased to unsigned, becomes the fp32 2^23 + u by a byte permute,
+// minus 2^23 + 128 gives x, and x's bf16 is its upper half (|x| <= 128
+// needs no rounding) — full-rate integer and fp32 work, no conversion unit.
+__device__ __forceinline__ void int8x4_to_bf16(uint32_t w, uint32_t& lo,
+                                               uint32_t& hi) {
+  const uint32_t u = w ^ 0x80808080u;
+  float f[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + i)) -
+           8388736.f;
+  lo = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
+  hi = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
+}
+
+// ---------------------------------------------------------------------------
+// wgmma (sm_90a): the four warps of a warpgroup multiply a 64-row tile at
+// once, B (and for Q K^T also A) read by the tensor cores straight from
+// shared memory in the 128-byte-swizzled layout below
+// ---------------------------------------------------------------------------
+
+// A 128-byte-swizzled tile of `rows` x HD bf16: HD / 64 column blocks of
+// rows x 128 bytes, 1024-byte aligned; the 16-byte chunk c of row r sits at
+// chunk c ^ (r % 8) of its 128-byte line (so the eight lines an 8 x 8
+// core matrix spans fall in distinct banks).  Element offset of chunk j
+// (elements 8j..8j+7) of row r:
+__device__ __forceinline__ int sw128_offset(int rows, int r, int j) {
+  return (j >> 3) * rows * 64 + r * 64 + (((j & 7) ^ (r & 7)) << 3);
+}
+
+// Copy n rows x HD bf16 into a swizzled shared tile with cp.async, all
+// threads of the block taking part; row t's source is src_row(t) (nullptr:
+// zero-fill), `any` a valid global address for the zero-filling copies.
+template <int HD, int NTHREADS, typename RowFn>
+__device__ __forceinline__ void cp_async_rows_sw128(__nv_bfloat16* dst, int n,
+                                                    const void* any,
+                                                    RowFn src_row) {
+  constexpr int CPR = HD / 8;
+  for (int i = threadIdx.x; i < n * CPR; i += NTHREADS) {
+    const int t = i / CPR, j = i % CPR;
+    const __nv_bfloat16* src = src_row(t);
+    cp_async16(dst + sw128_offset(n, t, j), src ? src + j * 8 : any,
+               src != nullptr);
+  }
+}
+
+// Shared-memory matrix descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (K-major: stride between 8-row
+// groups = 1024, leading unused; MN-major: leading = stride between
+// 64-column blocks, stride = between 8-row groups along K).
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// make shared-memory writes of this thread (cp.async, st.shared) visible
+// to the tensor cores' reads (the async proxy); a barrier follows
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// pin registers an asynchronous product reads or writes: no access to them
+// moves across this point
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[j][e])::"memory");
+}
+
+// D (64 x 32) {=, +=} A B: A and B K-major in shared memory (descriptors)
+__device__ __forceinline__ void wgmma_ss(float (&d)[4][4], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (64 x 64) {=, +=} A B: A and B K-major in shared memory (descriptors)
+__device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (64 x 64) {=, +=} A B: A from registers (m16n8k16 A fragments, each
+// warp its 16 rows), B MN-major (transposed) in shared memory (descriptor)
+__device__ __forceinline__ void wgmma_rt(float (&d)[8][4],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// D (64 x 128) {=, +=} A B: A from registers (m16n8k16 A fragments, each
+// warp its 16 rows), B MN-major (transposed) in shared memory (descriptor)
+__device__ __forceinline__ void wgmma_rt(float (&d)[16][4],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// D (64 x 256) {=, +=} A B: A from registers (m16n8k16 A fragments, each
+// warp its 16 rows), B MN-major (transposed) in shared memory (descriptor)
+__device__ __forceinline__ void wgmma_rt(float (&d)[32][4],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]),
+        "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]),
+        "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3]),
+        "+f"(d[18][0]), "+f"(d[18][1]), "+f"(d[18][2]), "+f"(d[18][3]),
+        "+f"(d[19][0]), "+f"(d[19][1]), "+f"(d[19][2]), "+f"(d[19][3]),
+        "+f"(d[20][0]), "+f"(d[20][1]), "+f"(d[20][2]), "+f"(d[20][3]),
+        "+f"(d[21][0]), "+f"(d[21][1]), "+f"(d[21][2]), "+f"(d[21][3]),
+        "+f"(d[22][0]), "+f"(d[22][1]), "+f"(d[22][2]), "+f"(d[22][3]),
+        "+f"(d[23][0]), "+f"(d[23][1]), "+f"(d[23][2]), "+f"(d[23][3]),
+        "+f"(d[24][0]), "+f"(d[24][1]), "+f"(d[24][2]), "+f"(d[24][3]),
+        "+f"(d[25][0]), "+f"(d[25][1]), "+f"(d[25][2]), "+f"(d[25][3]),
+        "+f"(d[26][0]), "+f"(d[26][1]), "+f"(d[26][2]), "+f"(d[26][3]),
+        "+f"(d[27][0]), "+f"(d[27][1]), "+f"(d[27][2]), "+f"(d[27][3]),
+        "+f"(d[28][0]), "+f"(d[28][1]), "+f"(d[28][2]), "+f"(d[28][3]),
+        "+f"(d[29][0]), "+f"(d[29][1]), "+f"(d[29][2]), "+f"(d[29][3]),
+        "+f"(d[30][0]), "+f"(d[30][1]), "+f"(d[30][2]), "+f"(d[30][3]),
+        "+f"(d[31][0]), "+f"(d[31][1]), "+f"(d[31][2]), "+f"(d[31][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+}  // namespace repro_torch

@@ -15,27 +15,40 @@
 // What bounds it on an H100: operations.  At the training shape (B = 2,
 // S = 2048, 40 query / 8 kv heads, hd = 128, causal) the work is ~86 GFLOP
 // against ~0.1 GB of bytes: 0.087 ms at the 989 TFLOP/s bf16 tensor-core
-// peak, 0.03 ms at 3.35 TB/s.  This first kernel computes both products
-// with scalar fp32 FMAs (67 TFLOP/s peak off the tensor cores), so it sits
-// at least ~15x above the bound, and more where shared-memory loads limit
-// the FMA rate.  What the design does: the TPU grid's sequential kv axis
-// becomes a loop inside the block; one block per (query row bh, 64-query
-// tile) holds the Q tile and each 64-key K/V tile in shared memory as fp32
-// (16-byte global loads), and a 4 x 8 (scores) / 4 x hd/8 (output) register
-// tile per thread reuses every shared-memory load 4-16 times.  The key loop
-// starts at the tile's window edge and stops at its causal horizon, so tiles
-// above the diagonal or outside the window are never loaded, and the
-// heaviest (latest) query tiles are scheduled first.  Tensor-core tiles
-// (mma.sync / wgmma) and TMA are later work.
+// peak, 0.03 ms at 3.35 TB/s.  So the products belong on the tensor cores.
 //
-// Head dims 64, 128 and 256 (recurrentgemma's local attention).  At hd 256
-// the fp32 tiles take (64 + 64) * 257 + 64 * 256 + 64 * 65 floats = 213,760
-// bytes of shared memory, under the 232,448 a block may opt in to (the
-// launch sets cudaFuncAttributeMaxDynamicSharedMemorySize above 48 KB), and
-// a thread holds a 4 x 32 output tile.
-#include "paged_common.cuh"
+// The bf16 design (flash_fwd_kernel_wgmma): one warpgroup (4 warps) per
+// (query row bh, 64-query tile), the wgmma's M; the TPU grid's sequential
+// kv axis becomes a loop inside the block over key tiles of 64 keys (32 at
+// hd 256) that starts at the tile's window edge and stops at its causal
+// horizon, so tiles above the diagonal or outside the window are never
+// loaded, and only the diagonal, window-edge and ragged tiles are masked.
+// Q and each K / V tile go bf16 into 128-byte-swizzled shared memory by
+// cp.async, K / V double-buffered; the next tile's copies are issued while
+// the tensor cores take this tile's Q K^T.  Q K^T is wgmma with both
+// operands in shared memory; P V takes P from registers as two bf16
+// operands, hi + lo, which hold P to ~2^-18 (bf16 P alone moves outputs
+// near 2 by a bf16 ulp against the plain version) and V transposed from
+// shared memory (attn_tiles.cuh).  The heaviest (latest) query tiles are
+// scheduled first.  Two blocks share an SM (Q 16 KB + two stages of K / V,
+// 64 KB, at hd 128), so one block's softmax runs under the other's
+// products; a three-stage, software-pipelined variant (the next tile's
+// Q K^T under this tile's softmax) measured slower.
+//
+// fp32 (flash_fwd_kernel<float, HD>) keeps the scalar body of the first
+// port — Q, K and V tiles in shared memory as fp32, 4 x 8 register tiles of
+// scalar FMAs — chosen by dtype alone: it feeds the flash autograd check
+// (gradients within 1e-4) and recurrentgemma's fp32 arm, and TF32 tensor
+// cores (10-bit mantissa) would spend those margins.  At hd 256 its fp32
+// tiles take (64 + 64) * 257 + 64 * 256 + 64 * 65 floats = 213,760 bytes of
+// shared memory, under the 232,448 a block may opt in to.
+#include "attn_tiles.cuh"
 
 namespace repro_torch {
+
+// ---------------------------------------------------------------------------
+// fp32 scalar kernel (the first port's body, unchanged)
+// ---------------------------------------------------------------------------
 
 constexpr int FA_BQ = 64;            // queries per block
 constexpr int FA_BK = 64;            // keys per tile
@@ -228,20 +241,220 @@ int fa_launch(const void* q, const void* k, const void* v, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int fa_launch_hd(int hd, const void* q, const void* k, const void* v,
-                 void* out, void* lse, int BH, int G, int Sq, int Sk,
-                 int causal, int window, cudaStream_t stream) {
+
+// ---------------------------------------------------------------------------
+// bf16 tensor-core kernel
+// ---------------------------------------------------------------------------
+
+constexpr int FW_BQ = 64;            // queries per block: one warpgroup
+constexpr int FW_THREADS = 128;
+
+// One warpgroup per (query row bh, 64-query tile), BK keys a tile.  Shared
+// memory, all 128-byte swizzled: Q [HD / 64][64][64], then two stages of
+// K and V [HD / 64][BK][64] each.
+template <int HD, int BK>
+__global__ void __launch_bounds__(FW_THREADS)
+flash_fwd_kernel_wgmma(const __nv_bfloat16* __restrict__ q,
+                       const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v,
+                       __nv_bfloat16* __restrict__ out,
+                       float* __restrict__ lse, int Sq, int Sk, int G,
+                       int causal, int window, float scale_log2) {
+  constexpr int NT = BK / 8;         // 8-key score tiles
+  constexpr int NO = HD / 8;         // 8-column output tiles
+  constexpr int QE = FW_BQ * HD;     // elements of the Q tile
+  constexpr int KE = BK * HD;        // elements of one K or V tile
+  extern __shared__ unsigned char smem_raw[];
+  __nv_bfloat16* q_tile = reinterpret_cast<__nv_bfloat16*>(
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+  __nv_bfloat16* kv = q_tile + QE;   // [stage][K | V]
+
+  const int nq = (Sq + FW_BQ - 1) / FW_BQ;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x)) * FW_BQ;
+  const int bh = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const __nv_bfloat16* qb = q + static_cast<int64_t>(bh) * Sq * HD;
+  const __nv_bfloat16* kb = k + static_cast<int64_t>(bh / G) * Sk * HD;
+  const __nv_bfloat16* vb = v + static_cast<int64_t>(bh / G) * Sk * HD;
+
+  // key tiles that hold a valid key for some query of this tile
+  const int k_end = causal ? min(Sk, q0 + FW_BQ) : Sk;
+  const int k_begin = window ? max(0, q0 - window + 1) : 0;
+  const int t_begin = k_begin / BK;
+  const int t_end = (k_end + BK - 1) / BK;
+  const int q_last = q0 + FW_BQ - 1;
+  // this thread's two rows: gid and gid + 8 of its warp's 16
+  const int ra = q0 + warp * 16 + lane / 4;
+
+  auto issue_tile = [&](int t, int st) {
+    const int k0 = t * BK;
+    cp_async_rows_sw128<HD, FW_THREADS>(
+        kv + 2 * st * KE, BK, kb, [&](int r) -> const __nv_bfloat16* {
+          return k0 + r < Sk ? kb + static_cast<int64_t>(k0 + r) * HD
+                             : nullptr;
+        });
+    cp_async_rows_sw128<HD, FW_THREADS>(
+        kv + (2 * st + 1) * KE, BK, vb, [&](int r) -> const __nv_bfloat16* {
+          return k0 + r < Sk ? vb + static_cast<int64_t>(k0 + r) * HD
+                             : nullptr;
+        });
+  };
+
+  float o[NO][4];
+#pragma unroll
+  for (int c = 0; c < NO; ++c) o[c][0] = o[c][1] = o[c][2] = o[c][3] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+
+  // prologue: Q (rows past Sq zero) and the first key tile
+  cp_async_rows_sw128<HD, FW_THREADS>(
+      q_tile, FW_BQ, qb, [&](int r) -> const __nv_bfloat16* {
+        return q0 + r < Sq ? qb + static_cast<int64_t>(q0 + r) * HD
+                           : nullptr;
+      });
+  if (t_begin < t_end) issue_tile(t_begin, 0);
+  cp_async_commit();
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const int st = (t - t_begin) & 1;
+    cp_async_wait<0>();
+    fence_async_smem();
+    __syncthreads();                 // tile t landed; t - 1 consumed
+    const __nv_bfloat16* kd = kv + 2 * st * KE;
+    const __nv_bfloat16* vd = kd + KE;
+
+    // S = Q K^T: HD / 16 k-steps, 32 bytes each into a 64-column block
+    float s[NT][4];
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < HD / 16; ++ks)
+      wgmma_ss(s,
+               sw128_desc(q_tile + (ks >> 2) * FW_BQ * 64 + (ks & 3) * 16, 0,
+                          1024),
+               sw128_desc(kd + (ks >> 2) * BK * 64 + (ks & 3) * 16, 0, 1024),
+               ks > 0);
+    wgmma_commit();
+    // while the tensor cores take it: the next tile's copies
+    if (t + 1 < t_end) issue_tile(t + 1, st ^ 1);
+    cp_async_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+
+    const int k0 = t * BK;
+    const bool masked = (causal && k0 + BK - 1 > q0) ||
+                        (window && k0 <= q_last - window) || k0 + BK > Sk;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale_log2;
+        if (masked) {
+          const int kp = k0 + j * 8 + (lane % 4) * 2 + (e & 1);
+          const int qp = ra + 8 * (e >> 1);
+          const bool ok = kp < Sk && (!causal || kp <= qp) &&
+                          (!window || kp > qp - window);
+          x = ok ? x : NEG_INF;
+        }
+        s[j][e] = x;
+      }
+    float corr[2];
+    softmax_p<NT>(s, m, l, corr);
+    rescale_o<NO>(o, corr);
+
+    // O += P V: P as hi + lo bf16 operands from registers, V transposed
+    uint32_t hi[NT / 2][4], lo[NT / 2][4];
+#pragma unroll
+    for (int kk = 0; kk < NT / 2; ++kk) split_p<NT>(hi[kk], lo[kk], s, kk);
+    fence_regs(o);
+    fence_regs(hi);
+    fence_regs(lo);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < NT / 2; ++kk) {
+      const uint64_t dv = sw128_desc(vd + kk * 16 * 64, BK * 128, 1024);
+      wgmma_rt(o, hi[kk], dv, 1);
+      wgmma_rt(o, lo[kk], dv, 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
+    fence_regs(hi);
+    fence_regs(lo);
+  }
+
+  const int col0 = (lane % 4) * 2;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = ra + 8 * hr;
+    const float lc = fmaxf(quad_sum(l[hr]), 1e-30f);
+    if (row >= Sq) continue;
+    const float inv = 1.f / lc;
+    __nv_bfloat16* dst = out + (static_cast<int64_t>(bh) * Sq + row) * HD + col0;
+#pragma unroll
+    for (int c = 0; c < NO; ++c)
+      *reinterpret_cast<uint32_t*>(dst + c * 8) =
+          pack_bf16(o[c][2 * hr] * inv, o[c][2 * hr + 1] * inv);
+    if (lane % 4 == 0)                // m in log2 units
+      lse[static_cast<int64_t>(bh) * Sq + row] =
+          (m[hr] == NEG_INF ? NEG_INF : m[hr] * LN2) + logf(lc);
+  }
+}
+
+template <int HD, int BK>
+int fa_launch_wgmma(const void* q, const void* k, const void* v, void* out,
+                    void* lse, int BH, int G, int Sq, int Sk, int causal,
+                    int window, cudaStream_t stream) {
+  // Q, two stages of K and V, and up to 1 KB to align the base
+  const size_t smem = (static_cast<size_t>(FW_BQ) + 4 * BK) * HD *
+                          sizeof(__nv_bfloat16) + 1024;
+  auto kernel = flash_fwd_kernel_wgmma<HD, BK>;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  using bf16 = __nv_bfloat16;
+  dim3 grid((Sq + FW_BQ - 1) / FW_BQ, BH);
+  kernel<<<grid, FW_THREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out),
+      static_cast<float*>(lse), Sq, Sk, G, causal, window,
+      LOG2E / sqrtf(static_cast<float>(HD)));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dispatch on (dtype, head dim): bf16 to the tensor-core kernel, fp32 to
+// the scalar body
+int fa_launch_hd(int dtype, int hd, const void* q, const void* k,
+                 const void* v, void* out, void* lse, int BH, int G, int Sq,
+                 int Sk, int causal, int window, cudaStream_t stream) {
+  if (dtype == DTYPE_BF16) {
+    switch (hd) {
+      case 64:
+        return fa_launch_wgmma<64, 64>(q, k, v, out, lse, BH, G, Sq, Sk,
+                                       causal, window, stream);
+      case 128:
+        return fa_launch_wgmma<128, 64>(q, k, v, out, lse, BH, G, Sq, Sk,
+                                        causal, window, stream);
+      case 256:
+        return fa_launch_wgmma<256, 32>(q, k, v, out, lse, BH, G, Sq, Sk,
+                                        causal, window, stream);
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  if (dtype != DTYPE_F32) return static_cast<int>(cudaErrorInvalidValue);
   switch (hd) {
     case 64:
-      return fa_launch<T, 64>(q, k, v, out, lse, BH, G, Sq, Sk, causal,
-                              window, stream);
+      return fa_launch<float, 64>(q, k, v, out, lse, BH, G, Sq, Sk, causal,
+                                  window, stream);
     case 128:
-      return fa_launch<T, 128>(q, k, v, out, lse, BH, G, Sq, Sk, causal,
-                               window, stream);
+      return fa_launch<float, 128>(q, k, v, out, lse, BH, G, Sq, Sk, causal,
+                                   window, stream);
     case 256:
-      return fa_launch<T, 256>(q, k, v, out, lse, BH, G, Sq, Sk, causal,
-                               window, stream);
+      return fa_launch<float, 256>(q, k, v, out, lse, BH, G, Sq, Sk, causal,
+                                   window, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -261,13 +474,6 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (BKV < 1 || BH % BKV != 0 || Sq < 1 || Sk < 1 || window < 0 ||
       BH > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int G = BH / BKV;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DTYPE_BF16)
-    return fa_launch_hd<__nv_bfloat16>(hd, q, k, v, out, lse, BH, G, Sq, Sk,
-                                       causal, window, s);
-  if (dtype == DTYPE_F32)
-    return fa_launch_hd<float>(hd, q, k, v, out, lse, BH, G, Sq, Sk, causal,
-                               window, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return fa_launch_hd(dtype, hd, q, k, v, out, lse, BH, BH / BKV, Sq, Sk,
+                      causal, window, static_cast<cudaStream_t>(stream));
 }

@@ -48,7 +48,8 @@ def nvcc_path() -> str:
     return found
 
 
-def _lib_path(name: str) -> Path:
+def lib_path(name: str) -> Path:
+    """The library file of ``csrc/<name>.cu`` for the current sources."""
     h = hashlib.sha256()
     for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(src.read_bytes())
@@ -57,7 +58,7 @@ def _lib_path(name: str) -> Path:
 
 
 def _start(name: str) -> Tuple[Path, subprocess.Popen]:
-    out = _lib_path(name)
+    out = lib_path(name)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
            str(CSRC / f"{name}.cu")]
@@ -81,7 +82,7 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
     log (``-Xptxas -v`` register and shared-memory report; empty for a
     library that was already built)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    started = {n: _start(n) for n in names if not _lib_path(n).exists()}
+    started = {n: _start(n) for n in names if not lib_path(n).exists()}
     logs = {n: "" for n in names}
     for n, (out, proc) in started.items():
         logs[n] = _finish(n, out, proc)
@@ -93,5 +94,5 @@ def load(name: str) -> ctypes.CDLL:
     lib = _loaded.get(name)
     if lib is None:
         build_all((name,))
-        lib = _loaded[name] = ctypes.CDLL(str(_lib_path(name)))
+        lib = _loaded[name] = ctypes.CDLL(str(lib_path(name)))
     return lib

@@ -30,6 +30,7 @@ from the repo's sources on the first CUDA launch (``kernels/build.py``).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -203,15 +204,69 @@ paged_prefill_kernel.launches = 0
 paged_prefill_kernel.launches_by = {}
 
 
+#: query rows and key positions per tile of the bf16 K5 kernel (RP_BM /
+#: RP_BK in csrc/paged_ring_prefill.cu)
+RING_ROW_TILE = RING_KEY_TILE = 64
+#: K5 splits its blocks' key tiles until about this many blocks per SM run
+RING_SPLIT_BLOCKS_PER_SM = 2
+RING_MAX_SPLITS = 64
+
+
+def ring_prefill_key_tiles(r0: int, G: int, start: int, n_valid: int,
+                           window: int) -> int:
+    """Key tiles the bf16 K5 block of query rows ``[r0, r0 + 64)`` (rows
+    ``r = i * G + g``) walks: the positions some row of it keeps, from the
+    first row's window edge to the last valid row's own position
+    (``RingKeys`` in the source); 0 for a block of padding rows."""
+    r_hi = min(r0 + RING_ROW_TILE, n_valid * G)
+    if r0 >= r_hi:
+        return 0
+    lo = max(0, start + r0 // G - window + 1)
+    hi = start + (r_hi - 1) // G + 1
+    return -(-(hi - lo) // RING_KEY_TILE)
+
+
+def ring_prefill_splits(S: int, G: int, KV: int, start: int, n_valid: int,
+                        window: int, sms: int) -> int:
+    """How many contiguous key ranges (``blockIdx.z``) the bf16 K5 launch
+    splits every block's key tiles into: 1 when KV x row tiles already
+    fill ``RING_SPLIT_BLOCKS_PER_SM`` blocks per SM, else enough to, but
+    never more than the fewest tiles of a block (no split is empty) or
+    ``RING_MAX_SPLITS``.  A function of the shapes, not a setting."""
+    row_tiles = -(-n_valid * G // RING_ROW_TILE)
+    target = RING_SPLIT_BLOCKS_PER_SM * sms
+    if row_tiles == 0 or KV * row_tiles >= target:
+        return 1
+    fewest = min(ring_prefill_key_tiles(r0, G, start, n_valid, window)
+                 for r0 in range(0, n_valid * G, RING_ROW_TILE))
+    return max(1, min(-(-target // (KV * row_tiles)), fewest,
+                      RING_MAX_SPLITS))
+
+
+def split_range(n_tiles: int, splits: int, z: int):
+    """Key tiles ``[lo, hi)`` of split ``z`` (as the kernel cuts them)."""
+    return z * n_tiles // splits, (z + 1) * n_tiles // splits
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def paged_ring_prefill_kernel(q, k_pages, v_pages, chunk_k, chunk_v,
                               page_row, start: int, n_valid: int, *,
-                              window: int, k_scale=None, v_scale=None):
+                              window: int, k_scale=None, v_scale=None,
+                              _splits=None):
     """K5; int8 snapshot pages with ``k_scale`` / ``v_scale`` (K8).  q:
     [S, KV, G, hd] — one request's bucketed chunk (post-rope); k/v_pages:
     [P, ps, KV, hd] — the ring BEFORE the chunk's writes; chunk_k/chunk_v:
     [S, KV, hd] — the chunk's own keys / values in q's dtype; page_row:
     [n] int32 — the request's ring of cells.  Returns [S, KV, G, hd] in
-    q.dtype; rows past ``n_valid`` come back 0 (never read by callers)."""
+    q.dtype; rows past ``n_valid`` come back 0 (never read by callers).
+    bf16 runs the tensor-core kernel, its key tiles split by
+    ``ring_prefill_splits`` (``_splits`` overrides that count, for the
+    tests that hold split and unsplit launches together); fp32 the
+    scalar kernel."""
     S, KV, G, hd = q.shape
     if q.device.type == "cpu":
         out = paged_ring_prefill_ref(q.reshape(S, KV * G, hd), k_pages,
@@ -230,6 +285,8 @@ def paged_ring_prefill_kernel(q, k_pages, v_pages, chunk_k, chunk_v,
             raise ValueError(f"{name} {tuple(t.shape)} is not {(S, KV, hd)}")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
+    if q.data_ptr() % 16:
+        raise ValueError("q must be 16-byte aligned")
     P, ps, kv_p, hd_p = k_pages.shape
     if (kv_p, hd_p) != (KV, hd):
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, pages "
@@ -237,15 +294,25 @@ def paged_ring_prefill_kernel(q, k_pages, v_pages, chunk_k, chunk_v,
     if window <= 0 or page_row.shape[0] * ps > window:
         raise ValueError(f"ring of {page_row.shape[0]} cells x {ps} does not "
                          f"fit window {window}")
+    if q.dtype == torch.bfloat16:
+        splits = _splits or ring_prefill_splits(
+            S, G, KV, start, n_valid, window, _sm_count(q.device.index or 0))
+    elif _splits not in (None, 1):
+        raise ValueError("only the bf16 kernel splits its key tiles")
+    else:
+        splits = 1
+    rows_pad = -(-S * G // RING_ROW_TILE) * RING_ROW_TILE
+    ws = (torch.empty(splits * KV * rows_pad * (hd + 2), dtype=torch.float32,
+                      device=q.device) if splits > 1 else None)
     out = torch.empty_like(q)
     fn = _lib("paged_ring_prefill", "paged_ring_prefill_launch",
-              [_P] * 9 + [_I] * 11 + [_P])
+              [_P] * 10 + [_I] * 12 + [_P])
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              _ptr(k_scale), _ptr(v_scale), chunk_k.data_ptr(),
-             chunk_v.data_ptr(), page_row.data_ptr(), out.data_ptr(), S, KV,
-             G, hd, ps, page_row.shape[0], int(start), int(n_valid),
-             int(window), _DTYPES[q.dtype], int(quantized),
-             torch.cuda.current_stream(q.device).cuda_stream)
+             chunk_v.data_ptr(), page_row.data_ptr(), out.data_ptr(),
+             _ptr(ws), S, KV, G, hd, ps, page_row.shape[0], int(start),
+             int(n_valid), int(window), _DTYPES[q.dtype], int(quantized),
+             int(splits), torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "paged_ring_prefill")
     _count(paged_ring_prefill_kernel, "int8" if quantized else "fp")
     return out

@@ -210,6 +210,21 @@ def paged_ring_prefill_ref(q, k_pages, v_pages, chunk_k, chunk_v,
     return out.to(q.dtype)
 
 
+def merge_partials_ref(m, l, acc):
+    """Plain version of K5's split merge (``paged_ring_prefill_kernel_merge``):
+    per-split softmax partials of the same rows — row max ``m`` and sum
+    ``l`` [splits, rows], unnormalized ``acc`` [splits, rows, hd], all
+    fp32 — folded into the rows' output [rows, hd]: each split rescaled by
+    ``exp(m - max m)``, then divided by ``max(sum l, 1e-30)``.  A split
+    that saw no live key of a row carries (NEG_INF, 0, 0) and weighs
+    nothing; a row no split saw a live key of comes out 0 (its weights are
+    ``exp(NEG_INF - NEG_INF) = 1`` on zero partials)."""
+    w = torch.exp(m - m.amax(dim=0))
+    lsum = (w * l).sum(dim=0)
+    out = (w[..., None] * acc).sum(dim=0)
+    return out / torch.clamp(lsum, min=1e-30)[:, None]
+
+
 def paged_mla_prefill_ref(q_lat, q_rope, ckv_pages, krope_pages,
                           page_table, start: int, n_valid: int, *,
                           scale: float):

@@ -147,7 +147,12 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
     (130, 130, 6, 1, 64, False, 40),
     # recurrentgemma's local attention: hd 256, one kv head, window 2048
     (46, 46, 10, 1, 256, True, 2048), (2100, 2100, 10, 1, 256, True, 2048),
-    (300, 300, 10, 1, 256, True, 100)])
+    (300, 300, 10, 1, 256, True, 100),
+    # Sq != Sk (causal from position 0 on both axes), ragged lengths at
+    # every head dim, window edges inside a key tile
+    (160, 100, 8, 2, 64, True, 0), (77, 300, 4, 2, 128, True, 0),
+    (129, 129, 4, 1, 256, True, 64), (65, 200, 4, 4, 256, False, 0),
+    (333, 333, 8, 8, 128, True, 65), (50, 64, 4, 2, 64, False, 20)])
 def test_cuda_flash_kernel_matches_plain(dtype, Sq, Sk, H, KV, hd, causal,
                                          window):
     dev = _cuda()
@@ -506,6 +511,10 @@ RING_PREFILL_CASES = [
     (48, 8, 128, 16, 256, 1024, 3584, 1024),
     (48, 8, 128, 16, 256, 128, 4096, 104),
     (48, 8, 128, 16, 256, 5, 4210, 2),
+    # G = 6 with S * G not a multiple of the 64-row tile (rows straddle
+    # tiles and queries), at hd 128 and 64
+    (48, 8, 128, 16, 256, 37, 3000, 37),
+    (12, 2, 64, 8, 4, 21, 40, 19),
 ]
 
 
@@ -570,3 +579,73 @@ def test_cuda_ring_and_int8_wrappers_reject_what_the_kernels_do_not_take():
             torch.zeros((5, 2, 256), device=dev),
             torch.zeros((5, 2, 256), device=dev), table[0], 0, 5, window=8,
             use_kernel=True)
+
+
+def _ring_prefill_args(case, dtype, int8, dev, seed=7):
+    H, KV, hd, ps, n, S, start, n_valid = case
+    rng = np.random.default_rng(seed)
+    q = _t(rng.normal(size=(S, H, hd)).astype(np.float32), dtype, dev)
+    k = rng.normal(size=(n + 1, ps, KV, hd)).astype(np.float32)
+    v = rng.normal(size=(n + 1, ps, KV, hd)).astype(np.float32)
+    ck = _t(rng.normal(size=(S, KV, hd)).astype(np.float32), dtype, dev)
+    cv = _t(rng.normal(size=(S, KV, hd)).astype(np.float32), dtype, dev)
+    row = torch.arange(1, n + 1, dtype=torch.int32, device=dev)
+    if int8:
+        (kp, ks), (vp, vs) = _int8(k, dev), _int8(v, dev)
+        kw = dict(k_scale=ks, v_scale=vs)
+    else:
+        kp, vp, kw = _t(k, dtype, dev), _t(v, dtype, dev), {}
+    return (q, kp, vp, ck, cv, row, start, n_valid), dict(kw, window=n * ps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("S", [1, 2, 3, 4, 5])
+def test_cuda_ring_verify_rows_take_the_split_path(S, int8):
+    """Verify rows (S = spec_tokens + 1 <= 5) past mixtral's window: 8
+    blocks on the card, so the bf16 kernel splits their key tiles and
+    merges the partials."""
+    dev = _cuda()
+    case = (48, 8, 128, 16, 256, S, 4210, S)
+    args, kw = _ring_prefill_args(case, "bfloat16", int8, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert port_kernel.ring_prefill_splits(S, 6, 8, 4210, S, 4096, sms) > 1
+    n0 = port_kernel.paged_ring_prefill_kernel.launches
+    out = port_ops.paged_ring_prefill(*args, use_kernel=True, **kw)
+    want = port_ops.paged_ring_prefill(*args, use_kernel=False, **kw)
+    assert port_kernel.paged_ring_prefill_kernel.launches == n0 + 1
+    torch.testing.assert_close(out.float(), want.float(), rtol=0,
+                               atol=TOL["bfloat16"])
+
+
+#: (case as RING_PREFILL_CASES, forced splits): a verify row; a chunk of
+#: 64 single-head rows against a 16-token window, whose 2 key tiles leave
+#: its first rows no live key in the second split and, at 4 splits, two
+#: splits with no tile at all; a ragged G = 6 chunk
+SPLIT_CASES = [((48, 8, 128, 16, 256, 5, 4210, 5), 33),
+               ((1, 1, 64, 8, 2, 64, 100, 64), 2),
+               ((1, 1, 64, 8, 2, 64, 100, 64), 4),
+               ((12, 2, 64, 8, 4, 21, 40, 19), 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("case,splits", SPLIT_CASES)
+def test_cuda_ring_prefill_split_matches_unsplit(case, splits, int8):
+    """The split launch (partials + merge) against the unsplit one and the
+    plain version, through the wrapper's internal split count."""
+    dev = _cuda()
+    args, kw = _ring_prefill_args(case, "bfloat16", int8, dev, seed=11)
+    n_valid = args[7]
+    whole = port_kernel.paged_ring_prefill_kernel
+    q4 = args[0].reshape(args[0].shape[0], args[1].shape[2], -1,
+                         args[0].shape[-1]).contiguous()
+    got = whole(q4, *args[1:], _splits=splits, **kw)
+    one = whole(q4, *args[1:], _splits=1, **kw)
+    want = port_ops.paged_ring_prefill(*args, use_kernel=False, **kw)
+    torch.testing.assert_close(got[:n_valid].float(), one[:n_valid].float(),
+                               rtol=0, atol=TOL["bfloat16"])
+    torch.testing.assert_close(
+        got[:n_valid].float().reshape(want[:n_valid].shape),
+        want[:n_valid].float(), rtol=0, atol=TOL["bfloat16"])
+    assert (got[n_valid:] == 0).all()
