@@ -8,9 +8,10 @@ Phases, in order; any failure exits non-zero:
 1. environment — torch / CUDA versions and the card's name and power limit;
 2. build — every CUDA source under ``src/repro_torch/csrc`` with ``nvcc``,
    one process per source, all started together; each kernel's registers
-   and spills (``-Xptxas -v``); then ``cuobjdump -sass`` of the K3 and K5
-   libraries: every bf16 instantiation of their tensor-core kernels must
-   issue HGMMA (wgmma) instructions;
+   and spills (``-Xptxas -v``); then ``cuobjdump -sass`` of the K3, K5 and
+   K1 / K4 libraries: every bf16 instantiation of their tensor-core
+   kernels must issue HGMMA (wgmma; K3, K5) or HMMA (mma.sync; K1 / K4)
+   instructions;
 3. kernels — each hand-written kernel held against its plain PyTorch
    version on the card at its path's shapes (K1, K2: qwen serving; K3: the
    training forward, plus a sliding-window and a ragged case, the flash
@@ -22,8 +23,10 @@ Phases, in order; any failure exits non-zero:
    4096-token window, and ring chunked prefill, a 1024-query chunk that
    wraps the ring and a verify row (the bf16 kernel's split path), both
    reported; K8: int8 pages in K1, K2 at qwen's shapes and K4, K5 at
-   mixtral's; in bf16, and checked in fp32), with its time beside the
-   plain version's, a bytes/operations
+   mixtral's; in bf16, and checked in fp32 — K1 / K4 / K8 within 1e-5
+   there), with its time beside the plain version's (K1 / K4 / K8 also
+   with their split count, CUDA launches a call and registers and
+   spills), a bytes/operations
    bound, and, where one exists, one PyTorch library call computing the
    same function as a yardstick (timed here only; the port never calls
    it);
@@ -89,6 +92,12 @@ Phases, in order; any failure exits non-zero:
 12. a JSON ``kernels`` line, then as the last line
    ``{"ok": true, "device": {...}}``.
 
+    python3 chip_smoke.py --decode-kernels [SRC]
+
+runs only K1 and K4 with their K8 branches (the kernel phase's cases) from
+the package under SRC (default this checkout's ``src``): two checkouts'
+decode kernels side by side in one call.
+
 Exits with code 2 and prints no result when CUDA is unavailable.
 """
 from __future__ import annotations
@@ -118,6 +127,9 @@ FP32_FLOPS_PER_S = 67e12
 #: so they may differ by one bf16 ulp of the output; outputs are averages
 #: of N(0, 1) values, |x| < 4, where one ulp is at most 2**-6
 KERNEL_ATOL = 2.0 ** -6
+#: fp32 decode kernel (K1 / K4 / K8) vs plain version: the same fp32 terms
+#: summed in another order
+FP32_KERNEL_ATOL = 1e-5
 #: greedy streams may part only where the reference's top-two logits sit
 #: within this many bf16 ulps of the top logit (a near-tie that fp32
 #: summation order can flip)
@@ -160,7 +172,10 @@ def log(*a):
 
 def time_ms(torch, fn, iters=20, warmup=3):
     """Mean device ms of ``fn`` over ``iters`` launches, each timed with
-    CUDA events after an L2 flush (the flush is outside the events)."""
+    CUDA events after an L2 flush (the flush is outside the events).  The
+    events take in the host's time to enqueue ``fn`` where it outlasts the
+    flush: tens of microseconds for a Python wrapper (``device_ms`` leaves
+    it out)."""
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
@@ -175,6 +190,27 @@ def time_ms(torch, fn, iters=20, warmup=3):
         b.synchronize()
         total += a.elapsed_time(b)
     return total / iters
+
+
+def device_ms(torch, fn, iters=20):
+    """Mean device time of the CUDA kernels ``fn`` launches (torch.profiler,
+    kernel time only: no host enqueue time), each call after an L2 flush
+    whose own kernels are left out."""
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        flush.zero_()
+        torch.cuda.synchronize()
+    skip = {name for _, _, name in device_kernels(torch, prof)}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    return sum(us for us, _, name in device_kernels(torch, prof)
+               if name not in skip) / 1e3 / iters
 
 
 def bound(bytes_moved, flops, flops_per_s=BF16_FLOPS_PER_S):
@@ -224,20 +260,23 @@ def _ptxas_report(text):
     return list(zip(_demangle([f for f, _ in rows]), (r for _, r in rows)))
 
 
-#: the sources whose bf16 kernels run on the tensor cores, and how many
-#: instantiations of them each library holds (K3: hd 64 / 128 / 256; K5:
-#: hd 64 / 128 x fp / int8 pages)
-TENSOR_CORE_KERNELS = {"flash_attention": ("flash_fwd_kernel_wgmma", 3),
-                       "paged_ring_prefill": ("paged_ring_prefill_kernel_wgmma",
-                                              4)}
+#: the sources whose bf16 kernels run on the tensor cores: the (mangled)
+#: name of their bf16 kernels, how many instantiations each library holds
+#: (K3: hd 64 / 128 / 256; K5: hd 64 / 128 x fp / int8 pages; K1 / K4: hd
+#: 64 / 128 / 256 x fp / int8 pages) and the SASS op they must issue
+#: (HGMMA: wgmma; HMMA: mma.sync)
+TENSOR_CORE_KERNELS = {
+    "flash_attention": ("flash_fwd_kernel_wgmma", 3, "HGMMA"),
+    "paged_ring_prefill": ("paged_ring_prefill_kernel_wgmma", 4, "HGMMA"),
+    "paged_attention": ("paged_decode_kernelI13__nv_bfloat16", 6, "HMMA")}
 
 
 def tensor_core_check(build):
-    """``cuobjdump -sass`` of the built K3 and K5 libraries: the wgmma
-    (HGMMA) instructions of every kernel; each bf16 instantiation must
+    """``cuobjdump -sass`` of the built K3, K5 and K1 / K4 libraries: the
+    tensor-core instructions of every kernel; each bf16 instantiation must
     issue them."""
     tool = Path(build.nvcc_path()).parent / "cuobjdump"
-    for name, (kernel, want) in TENSOR_CORE_KERNELS.items():
+    for name, (kernel, want, op) in TENSOR_CORE_KERNELS.items():
         sass = subprocess.run([str(tool), "-sass", str(build.lib_path(name))],
                               capture_output=True, text=True,
                               check=True).stdout
@@ -247,14 +286,18 @@ def tensor_core_check(build):
             if "Function :" in line:
                 fn = line.split("Function :")[1].strip()
                 funcs[fn] = 0
-            elif fn is not None and "HGMMA" in line:
+            elif fn is not None and op in line:
                 funcs[fn] += 1
         for readable, (fn, n) in zip(_demangle(list(funcs)), funcs.items()):
-            log(f"  sass {name}: {n:5d} HGMMA  {readable[:110]}")
+            log(f"  sass {name}: {n:5d} {op}  {readable[:110]}")
         mma = [n for fn, n in funcs.items() if kernel in fn]
         if len(mma) != want or not all(mma):
             raise AssertionError(f"{name}: {len(mma)} {kernel} instantiations "
-                                 f"(want {want}), HGMMA counts {mma}")
+                                 f"(want {want}), {op} counts {mma}")
+
+
+#: readable kernel name -> "N registers; spills" from the build's ptxas log
+PTXAS = {}
 
 
 def build_phase():
@@ -264,6 +307,7 @@ def build_phase():
     dt = time.perf_counter() - t0
     for name, text in logs.items():
         for fn, info in _ptxas_report(text):
+            PTXAS[fn] = info
             log(f"  ptxas {name}: {info}  {fn[:110]}")
     log(f"build: {len(logs)} sources in {dt:.2f} s")
     tensor_core_check(build)
@@ -289,8 +333,44 @@ def _table_rows(torch, lengths, n_table, n_pages, seed):
     return rows.cuda()
 
 
+def cuda_launches(torch, fn):
+    """CUDA kernels one call of ``fn`` launches, as ``torch.profiler``
+    records them (0: the profiler recorded none)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(n for _, n, _ in device_kernels(torch, prof))
+
+
+def _decode_splits(torch, pk, kv, n_table, window):
+    """The decode launch's split count at this case's shapes (1 for a tree
+    whose decode kernel does not split: ``--decode-kernels`` on an older
+    checkout)."""
+    if not hasattr(pk, "decode_splits"):
+        return 1
+    return pk.decode_splits(
+        SLOTS, kv, n_table, PS, window,
+        torch.cuda.get_device_properties(0).multi_processor_count)
+
+
+def _decode_row(torch, dtype, int8, splits):
+    """What the K1 / K4 / K8 rows carry beside the check: the split count,
+    the tolerance by dtype, and the instantiation's registers and spills
+    (``-Xptxas -v``)."""
+    t = "__nv_bfloat16" if dtype == torch.bfloat16 else "float"
+    inst = f"paged_decode_kernel<{t}, {'signed char' if int8 else t}, {HD}>"
+    regs = next((v for k, v in PTXAS.items() if inst in k),
+                "not measured (the library was built before this run)")
+    return dict(splits=splits, ptxas=f"{inst}: {regs}",
+                tol=FP32_KERNEL_ATOL if dtype == torch.float32
+                else KERNEL_ATOL)
+
+
 def k1_case(torch, F, gen, dtype=None, int8=False, timed=True):
     """K1 at qwen's decode shape; ``int8``: its K8 branch."""
+    from repro_torch.kernels.paged_attention import kernel as pk
     from repro_torch.kernels.paged_attention import ops, ref
     dtype = dtype or torch.bfloat16
     n_table = 16
@@ -312,9 +392,11 @@ def k1_case(torch, F, gen, dtype=None, int8=False, timed=True):
     out, want = kern(), plain()
     torch.cuda.synchronize()
     err = (out.float() - want.float()).abs().max().item()
+    splits = _decode_splits(torch, pk, KV, n_table, 0)
     case = dict(case=f"{'int8' if int8 else 'fp'} {str(dtype)[6:]} slots="
                      f"{SLOTS} KV={KV} G={G} hd={HD} ps={PS} lengths="
-                     f"{lengths}", max_abs_err=err)
+                     f"{lengths} splits={splits}", max_abs_err=err,
+                **_decode_row(torch, dtype, int8, splits))
     if not timed:
         return case
 
@@ -343,7 +425,10 @@ def k1_case(torch, F, gen, dtype=None, int8=False, timed=True):
     b_ms, b_by = bound(nbytes, flops)
     return dict(case, ms=time_ms(torch, kern),
                 plain_ms=time_ms(torch, plain), bound_ms=b_ms, bound_by=b_by,
-                library_ms=time_ms(torch, lib), library_max_abs_err=lib_err)
+                library_ms=time_ms(torch, lib), library_max_abs_err=lib_err,
+                launches_per_call=cuda_launches(torch, kern),
+                device_ms=device_ms(torch, kern),
+                library_device_ms=device_ms(torch, lib))
 
 
 def k2_case(torch, F, gen, S, start, n_valid, dtype=None, int8=False,
@@ -451,6 +536,7 @@ def _page_bytes(rows, dtype, int8):
 def k4_case(torch, F, gen, dtype, int8, timed=True):
     """K4 (ring decode) at mixtral's decode shape; ``int8``: its K8
     branch."""
+    from repro_torch.kernels.paged_attention import kernel as pk
     from repro_torch.kernels.paged_attention import ops, ref
     n_pages = SLOTS * MX_CELLS + 1
     k, v, kw = _page_pair(torch, gen, (n_pages, PS, MX_KV, HD), dtype, int8)
@@ -471,9 +557,11 @@ def k4_case(torch, F, gen, dtype, int8, timed=True):
     out, want = kern(), plain()
     torch.cuda.synchronize()
     err = (out.float() - want.float()).abs().max().item()
+    splits = _decode_splits(torch, pk, MX_KV, MX_CELLS, MX_WINDOW)
     row = dict(case=f"{'int8' if int8 else 'fp'} {str(dtype)[6:]} slots="
                     f"{SLOTS} KV={MX_KV} G={MX_G} hd={HD} ps={PS} window="
-                    f"{MX_WINDOW} lengths={MX_LENGTHS}", max_abs_err=err)
+                    f"{MX_WINDOW} lengths={MX_LENGTHS} splits={splits}",
+               max_abs_err=err, **_decode_row(torch, dtype, int8, splits))
     if not timed:
         return row
     T = MX_CELLS * PS
@@ -498,7 +586,10 @@ def k4_case(torch, F, gen, dtype, int8, timed=True):
     b_ms, b_by = bound(nbytes, flops)
     return dict(row, ms=time_ms(torch, kern), plain_ms=time_ms(torch, plain),
                 bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(torch, lib),
-                library_max_abs_err=lib_err)
+                library_max_abs_err=lib_err,
+                launches_per_call=cuda_launches(torch, kern),
+                device_ms=device_ms(torch, kern),
+                library_device_ms=device_ms(torch, lib))
 
 
 def _ring_pairs(S, start, n_valid, window):
@@ -874,10 +965,59 @@ K10_CASES = ((1, 17, 32, 64), (1, 46, 32, 64))
 K10_REPORTED = (1, 46, 32, 64)
 
 
+def report_row(name, r):
+    """Print one kernel case (its check, and its times where it was
+    timed); returns whether it agrees with its plain version."""
+    if "rel_tol" in r:
+        ok = r["rel_err"] <= r["rel_tol"]
+        check = (f"max_abs_err {r['max_abs_err']:.3g}, over max(1, "
+                 f"|plain|) {r['rel_err']:.3g} (tol {r['rel_tol']:.3g})")
+    else:
+        tol = r.get("tol", KERNEL_ATOL)
+        ok = r["max_abs_err"] <= tol
+        check = f"max_abs_err {r['max_abs_err']:.3g} (tol {tol:.3g})"
+    if "lse_rel_err" in r:
+        ok = ok and r["lse_rel_err"] <= LSE_RTOL
+        check += f"; L rel err {r['lse_rel_err']:.3g} (tol {LSE_RTOL:.3g})"
+    if "ptxas" in r:                          # K1 / K4 / K8
+        check += f"; {r['ptxas']}"
+    if "ms" not in r:                         # checked, not timed
+        log(f"kernel {name} [{r['case']}]: {check} {'ok' if ok else 'FAIL'}")
+        return ok
+    lib = ("library_ms none (no single PyTorch call computes it)"
+           if r["library_ms"] is None else
+           f"library_ms {r['library_ms']:.4f} (sdpa, err "
+           f"{r['library_max_abs_err']:.3g})")
+    calls = (f"; CUDA launches a call {r['launches_per_call']}; device_ms "
+             f"{r['device_ms']:.4f} (sdpa {r['library_device_ms']:.4f})"
+             if "launches_per_call" in r else "")
+    log(f"kernel {name} [{r['case']}]: {check} {'ok' if ok else 'FAIL'}; ms "
+        f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f} bound_ms "
+        f"{r['bound_ms']:.5f} ({r['bound_by']}) {lib}{calls}")
+    return ok
+
+
+def decode_phase(torch, F):
+    """``--decode-kernels``: K1 and K4 with their K8 branches alone, in
+    bf16 (timed) and fp32 (checked), as the kernel phase runs them — for
+    holding two checkouts' decode kernels side by side in one call."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    ok = True
+    for name, case in (("paged_attention", k1_case),
+                       ("paged_ring_decode", k4_case)):
+        for dtype in (torch.bfloat16, torch.float32):
+            for int8 in (False, True):
+                r = case(torch, F, gen, dtype, int8,
+                         timed=dtype == torch.bfloat16)
+                ok = report_row(name + ("_int8" if int8 else ""), r) and ok
+    return ok
+
+
 def kernel_phase(torch, F):
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     bf16, fp32 = torch.bfloat16, torch.float32
-    rows = {"paged_attention": [k1_case(torch, F, gen)],
+    rows = {"paged_attention": [k1_case(torch, F, gen),
+                                k1_case(torch, F, gen, fp32, timed=False)],
             "paged_prefill": [k2_case(torch, F, gen, *c) for c in K2_CASES],
             # K4, K5 and K8 (int8 in K1, K2, K4, K5): the timed bf16 case
             # first, then the checked-only fp32 ones
@@ -911,38 +1051,8 @@ def kernel_phase(torch, F):
                                   for c in K7_CASES],
             "lru_scan": [k9_case(torch, gen, *c) for c in K9_CASES],
             "wkv6": [k10_case(torch, gen, *c) for c in K10_CASES]}
-    failed = []
-    for name, cases in rows.items():
-        for r in cases:
-            if "rel_tol" in r:
-                ok = r["rel_err"] <= r["rel_tol"]
-                check = (f"max_abs_err {r['max_abs_err']:.3g}, over max(1, "
-                         f"|plain|) {r['rel_err']:.3g} (tol "
-                         f"{r['rel_tol']:.3g})")
-            else:
-                ok = r["max_abs_err"] <= KERNEL_ATOL
-                check = (f"max_abs_err {r['max_abs_err']:.3g} (tol "
-                         f"{KERNEL_ATOL:.3g})")
-            if "lse_rel_err" in r:
-                ok = ok and r["lse_rel_err"] <= LSE_RTOL
-                check += (f"; L rel err {r['lse_rel_err']:.3g} "
-                          f"(tol {LSE_RTOL:.3g})")
-            if "ms" not in r:                 # checked, not timed
-                log(f"kernel {name} [{r['case']}]: {check} "
-                    f"{'ok' if ok else 'FAIL'}")
-                if not ok:
-                    failed.append(f"{name} [{r['case']}]")
-                continue
-            lib = ("library_ms none (no single PyTorch call computes it)"
-                   if r["library_ms"] is None else
-                   f"library_ms {r['library_ms']:.4f} (sdpa, err "
-                   f"{r['library_max_abs_err']:.3g})")
-            log(f"kernel {name} [{r['case']}]: {check} "
-                f"{'ok' if ok else 'FAIL'}; ms {r['ms']:.4f} plain_ms "
-                f"{r['plain_ms']:.4f} bound_ms {r['bound_ms']:.5f} "
-                f"({r['bound_by']}) {lib}")
-            if not ok:
-                failed.append(f"{name} [{r['case']}]")
+    failed = [f"{name} [{r['case']}]" for name, cases in rows.items()
+              for r in cases if not report_row(name, r)]
     grads = k3_grad_check(torch)
     log(f"kernel flash_attention autograd (fp32, B=2 S=512 H=40 KV=8 "
         f"hd=128): max |err| / max |ref| "
@@ -967,6 +1077,20 @@ def kernel_phase(torch, F):
                if c == K5_VERIFY)
     k5q, k5qv = rows["paged_ring_prefill_int8"][:2]
     k3 = rows["flash_attention"][0]
+    k1, k4 = rows["paged_attention"][0], rows["paged_ring_decode"][0]
+    k1q, k4q = (rows["paged_attention_int8"][0],
+                rows["paged_ring_decode_int8"][0])
+    for what, r, rq in (("K4 (bf16, ring 4096)", k4, k4q),
+                        ("K1 (bf16, qwen)", k1, k1q)):
+        log(f"{what}: {r['ms']:.4f} ms in {r['splits']} splits = "
+            f"{r['ms'] / r['library_ms']:.2f}x SDPA {r['library_ms']:.4f}; "
+            f"int8 {rq['ms']:.4f} ms = {rq['ms'] / r['ms']:.3f}x fp.  Device "
+            f"time only: {r['device_ms']:.4f} ms = "
+            f"{r['device_ms'] / r['library_device_ms']:.2f}x SDPA "
+            f"{r['library_device_ms']:.4f}, "
+            f"{100 * r['bound_ms'] / r['device_ms']:.1f}% of its bound; int8 "
+            f"{rq['device_ms']:.4f} ms = "
+            f"{rq['device_ms'] / r['device_ms']:.3f}x fp")
     log(f"K5 (bf16, S=1024 wrapping the ring): {k5['ms']:.4f} ms, SDPA "
         f"{k5['library_ms']:.4f}; verify S=5: {k5v['ms']:.4f} ms, SDPA "
         f"{k5v['library_ms']:.4f}; int8 {k5q['ms']:.4f} ms = "
@@ -982,7 +1106,8 @@ def kernel_phase(torch, F):
         return dict(row, **{f"verify_{k}": verify[k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
 
-    return {"paged_attention": rows["paged_attention"][0],
+    return {"paged_attention": worst("paged_attention",
+                                     rows["paged_attention"][0]),
             "paged_ring_decode": worst("paged_ring_decode",
                                        rows["paged_ring_decode"][0]),
             "paged_ring_prefill": with_verify(
@@ -1844,10 +1969,23 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    # --decode-kernels [SRC]: the decode kernels of the package under SRC
+    # (default this checkout's src/) alone, built and timed
+    decode_only = sys.argv[1:2] == ["--decode-kernels"]
+    src = Path(sys.argv[2]) if decode_only and len(sys.argv) > 2 \
+        else ROOT / "src"
+    sys.path.insert(0, str(src.resolve()))
     import torch.nn.functional as F
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if decode_only:
+        from repro_torch.kernels import build
+        env_phase(torch)
+        log(f"decode kernels of {build.CSRC}")
+        for fn, info in _ptxas_report(build.build_all(("paged_attention",))[
+                "paged_attention"]):
+            PTXAS[fn] = info
+        return 0 if decode_phase(torch, F) else 1
 
     card = env_phase(torch)
     count_model_calls()

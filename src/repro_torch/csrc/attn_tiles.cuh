@@ -1,5 +1,6 @@
 // Tensor-core tile helpers shared by the bf16 attention kernels (K3 flash
-// forward, K5 ring chunked prefill) for Hopper (sm_90a).
+// forward, K5 ring chunked prefill) for Hopper (sm_90a); the paged decode
+// kernel (K1 / K4) takes its cp.async, ex2 and int8 widening from here too.
 //
 // A block is one warpgroup (4 warps, 128 threads) that owns 64 query rows,
 // 16 a warp: the M of wgmma.m64nNk16.  Q, K and V tiles sit bf16 in shared
@@ -148,18 +149,24 @@ __device__ __forceinline__ void split_p(uint32_t (&hi)[4], uint32_t (&lo)[4],
   }
 }
 
-// Four int8 values (one 32-bit word) as two bf16x2 words, exactly: each
-// byte, biased to unsigned, becomes the fp32 2^23 + u by a byte permute,
-// minus 2^23 + 128 gives x, and x's bf16 is its upper half (|x| <= 128
-// needs no rounding) — full-rate integer and fp32 work, no conversion unit.
-__device__ __forceinline__ void int8x4_to_bf16(uint32_t w, uint32_t& lo,
-                                               uint32_t& hi) {
+// Four int8 values (one 32-bit word, byte i = value i) as fp32, exactly:
+// each byte, biased to unsigned, becomes the fp32 2^23 + u by a byte
+// permute, and minus 2^23 + 128 gives x — full-rate integer and fp32 work,
+// no conversion unit.
+__device__ __forceinline__ void int8x4_to_f32(uint32_t w, float* f) {
   const uint32_t u = w ^ 0x80808080u;
-  float f[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
     f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + i)) -
            8388736.f;
+}
+
+// Four int8 values as two bf16x2 words, exactly: x's bf16 is the upper
+// half of its fp32 (|x| <= 128 needs no rounding).
+__device__ __forceinline__ void int8x4_to_bf16(uint32_t w, uint32_t& lo,
+                                               uint32_t& hi) {
+  float f[4];
+  int8x4_to_f32(w, f);
   lo = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
   hi = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
 }

@@ -3,7 +3,8 @@
   * ``paged_attention_kernel`` — K1 / K4, decode: ``csrc/paged_attention.cu``,
     the port of the TPU kernel ``paged_attention_kernel`` of the JAX
     package, contiguous pages (K1) and ring-wrapped window pages
-    (``window > 0``, K4).
+    (``window > 0``, K4); every slot's live pages split over
+    ``decode_splits`` blocks, merged in the same launch.
   * ``paged_prefill_kernel`` — K2, chunked prefill and speculative
     verify on contiguous pages: ``csrc/paged_prefill.cu``, the port of
     ``paged_prefill_kernel``.
@@ -105,13 +106,73 @@ def _check_pages(q, k_pages, v_pages, k_scale=None, v_scale=None,
     return quantized
 
 
+#: keys a warp of the decode kernel takes at once, the warps of a block and
+#: the query heads a block holds (PD_KEYS / PD_MAX_WARPS / PD_MAXG in
+#: csrc/paged_attention.cu)
+DECODE_KEYS, DECODE_WARPS, DECODE_MAX_G = 16, 4, 8
+#: the decode kernel splits slots' pages until about this many blocks per
+#: SM run, never into more than DECODE_MAX_SPLITS (PD_MAX_SPLITS)
+DECODE_BLOCKS_PER_SM = 2
+DECODE_MAX_SPLITS = 64
+
+
+def decode_live_pages(length: int, n_table: int, ps: int, window: int) -> int:
+    """Pages of a slot the decode kernel reads: its live cells — ``length``,
+    on the ring saturated at the window — within the table, rounded up to
+    whole pages (the kernel computes this from ``lengths`` on the device)."""
+    cells = min(length, window) if window > 0 else length
+    return -(-max(0, min(cells, n_table * ps)) // ps)
+
+
+def decode_split_cap(n_table: int, ps: int, window: int) -> int:
+    """The most splits a decode launch over this table takes: a full slot's
+    split holds at least one page and keeps every warp of its block busy
+    (``DECODE_WARPS`` rounds of ``DECODE_KEYS`` keys)."""
+    cells = min(n_table * ps, window) if window > 0 else n_table * ps
+    return max(1, min(DECODE_MAX_SPLITS, -(-cells // ps),
+                      cells // (DECODE_KEYS * DECODE_WARPS)))
+
+
+@functools.lru_cache(maxsize=None)
+def decode_splits(slots: int, KV: int, n_table: int, ps: int, window: int,
+                  sms: int) -> int:
+    """How many page ranges (``blockIdx.z``) the decode launch splits every
+    slot's live pages into: enough for ``DECODE_BLOCKS_PER_SM`` blocks per
+    SM over slots x KV, capped by ``decode_split_cap``.  A function of the
+    shapes, never of ``lengths`` (a device value: reading it would sync the
+    host on every layer of every decode step)."""
+    want = -(-DECODE_BLOCKS_PER_SM * sms // (slots * KV))
+    return max(1, min(want, decode_split_cap(n_table, ps, window)))
+
+
+_SCRATCH: dict = {}
+
+
+def _decode_scratch(device, stream: int, n_ws: int, n_counters: int):
+    """The split decode's fp32 workspace and merge counters on ``device``
+    for ``stream``, kept across launches (the launches of one stream run
+    one after another, so they share them): the counters are zeroed once
+    here and left zero by every launch.  Grown when a launch needs more."""
+    ws, counters = _SCRATCH.get((device, stream), (None, None))
+    if ws is None or ws.numel() < n_ws or counters.numel() < n_counters:
+        ws = torch.empty(max(n_ws, 1 << 16), dtype=torch.float32,
+                         device=device)
+        counters = torch.zeros(max(n_counters, 1024), dtype=torch.int32,
+                               device=device)
+        _SCRATCH[device, stream] = ws, counters
+    return ws, counters
+
+
 def paged_attention_kernel(q, k_pages, v_pages, page_table, lengths, *,
-                           window: int = 0, k_scale=None, v_scale=None):
+                           window: int = 0, k_scale=None, v_scale=None,
+                           _splits=None):
     """K1 (``window == 0``) / K4 (``window > 0``, ring pages); int8 pages
     with ``k_scale`` / ``v_scale`` (K8).  q: [slots, KV, G, hd]; k/v_pages:
     [P, ps, KV, hd]; page_table: [slots, n_table] int32; lengths: [slots]
     int32.  Returns [slots, KV, G, hd] in q.dtype (0 for a slot with
-    length 0)."""
+    length 0).  Every slot's live pages split over ``decode_splits``
+    blocks (``_splits`` overrides that count, for the tests that hold
+    split and unsplit launches together); one launch either way."""
     slots, KV, G, hd = q.shape
     if q.device.type == "cpu":
         out = paged_attention_ref(q.reshape(slots, KV * G, hd), k_pages,
@@ -126,6 +187,7 @@ def paged_attention_kernel(q, k_pages, v_pages, page_table, lengths, *,
     _check(page_table, "page_table", torch.int32, q.device, 2)
     _check(lengths, "lengths", torch.int32, q.device, 1)
     P, ps, kv_p, hd_p = k_pages.shape
+    n_table = page_table.shape[1]
     if (kv_p, hd_p) != (KV, hd) or page_table.shape[0] != slots \
             or lengths.shape[0] != slots:
         raise ValueError(
@@ -135,14 +197,29 @@ def paged_attention_kernel(q, k_pages, v_pages, page_table, lengths, *,
         raise ValueError(f"GQA group {G} outside the kernel's 1..32")
     if window < 0:
         raise ValueError(f"window {window} < 0")
+    if quantized and ps * KV % 2:
+        raise ValueError(f"int8 pages need page_size x KV even (scales load "
+                         f"as 4-byte words), got {ps} x {KV}")
+    if q.data_ptr() % 16:
+        raise ValueError("q must be 16-byte aligned")
+    splits = _splits or decode_splits(slots, KV, n_table, ps, window,
+                                      _sm_count(q.device.index or 0))
+    if not 1 <= splits <= DECODE_MAX_SPLITS:
+        raise ValueError(f"splits {splits} outside 1..{DECODE_MAX_SPLITS}")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ws = counters = None
+    if splits > 1:
+        ws, counters = _decode_scratch(
+            q.device, stream, slots * KV * G * splits * (hd + 2),
+            slots * KV * -(-G // DECODE_MAX_G))
     out = torch.empty_like(q)
     fn = _lib("paged_attention", "paged_attention_launch",
-              [_P] * 8 + [_I] * 9 + [_P])
+              [_P] * 10 + [_I] * 10 + [_P])
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              _ptr(k_scale), _ptr(v_scale), page_table.data_ptr(),
-             lengths.data_ptr(), out.data_ptr(), slots, KV, G, hd, ps,
-             page_table.shape[1], int(window), _DTYPES[q.dtype],
-             int(quantized), torch.cuda.current_stream(q.device).cuda_stream)
+             lengths.data_ptr(), out.data_ptr(), _ptr(ws), _ptr(counters),
+             slots, KV, G, hd, ps, n_table, int(window), _DTYPES[q.dtype],
+             int(quantized), int(splits), stream)
     _raise_on(err, "paged_attention")
     _count(paged_attention_kernel, ("ring_" if window else "")
            + ("int8" if quantized else "fp"))
@@ -244,7 +321,8 @@ def ring_prefill_splits(S: int, G: int, KV: int, start: int, n_valid: int,
 
 
 def split_range(n_tiles: int, splits: int, z: int):
-    """Key tiles ``[lo, hi)`` of split ``z`` (as the kernel cuts them)."""
+    """Key tiles (K5) or live pages (K1 / K4) ``[lo, hi)`` of split ``z``,
+    as the kernels cut them."""
     return z * n_tiles // splits, (z + 1) * n_tiles // splits
 
 

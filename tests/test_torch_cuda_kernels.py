@@ -14,7 +14,9 @@ magnitude (fp32); K6/K7 as K1/K2 (fp32 1e-5, bf16 1e-2); K9 (fp32) 1e-5
 of the largest |h| (the same sequential recurrence; expf may differ in the
 last ulp); K10 (fp32) 1e-4 of the largest |out| / |s_last| (the reference
 sums each output over the state column in another order); K4 / K5 / K8
-as K1 / K2 (the same fused int8 dequant in kernel and plain version).
+as K1 / K2 (the same fused int8 dequant in kernel and plain version); K1
+/ K4 / K8 split over pages against unsplit as K1 (the splits' partials
+merge the same fp32 terms in another order).
 """
 import numpy as np
 import pytest
@@ -649,3 +651,90 @@ def test_cuda_ring_prefill_split_matches_unsplit(case, splits, int8):
         got[:n_valid].float().reshape(want[:n_valid].shape),
         want[:n_valid].float(), rtol=0, atol=TOL["bfloat16"])
     assert (got[n_valid:] == 0).all()
+
+
+# ---------------------------------------------------------------------------
+# K1 / K4 and their K8 branches split over pages
+# ---------------------------------------------------------------------------
+
+#: (slots, H, KV, hd, ps, n, window, lengths): qwen's decode (G 5, a table
+#: of 16 pages; window 0 = contiguous pages), mixtral's 4096-token ring (G
+#: 6), a small hd-64 ring, and groups past a block's 8 heads (G 12: a full
+#: and a partial G-group; G 32 on one kv-head), lengths 0 and 1 among
+#: them, the trash page 0 poisoned
+DECODE_SPLIT_CASES = [
+    (8, 40, 8, 128, 16, 16, 0, [0, 1, 16, 17, 256, 100, 37, 200]),
+    (8, 48, 8, 128, 16, 256, 4096, [0, 1, 17, 4095, 4096, 4097, 333, 8191]),
+    (4, 8, 2, 64, 8, 4, 32, [0, 1, 9, 77]),
+    (4, 48, 4, 128, 16, 8, 0, [0, 1, 77, 128]),
+    (2, 32, 1, 64, 8, 4, 32, [5, 40]),
+]
+
+
+def _decode_split_args(case, dtype, int8, dev):
+    slots, H, KV, hd, ps, n, window, lengths = case
+    q, k, v, table, lens = _ring_case(12, slots, H, KV, hd, ps, n, lengths)
+    if int8:
+        (kp, ks), (vp, vs) = _int8(k, dev), _int8(v, dev)
+        kw = dict(k_scale=ks, v_scale=vs)
+    else:
+        kp, vp, kw = _t(k, dtype, dev), _t(v, dtype, dev), {}
+    args = (_t(q, dtype, dev), kp, vp, torch.from_numpy(table).to(dev),
+            torch.from_numpy(lens).to(dev))
+    return args, dict(kw, window=window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["2", "cap"])
+@pytest.mark.parametrize("int8", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", DECODE_SPLIT_CASES)
+def test_cuda_decode_split_matches_unsplit(case, dtype, int8, which):
+    """The split launch (partials merged by the last split's block) against
+    the unsplit one and the plain version, through the wrapper's internal
+    split count: 2, and the shape's cap (the table's pages where the cap is
+    below 3, so short slots leave splits empty)."""
+    dev = _cuda()
+    slots, H, KV, hd, ps, n, window, lengths = case
+    args, kw = _decode_split_args(case, dtype, int8, dev)
+    cap = port_kernel.decode_split_cap(n, ps, window)
+    splits = 2 if which == "2" else (cap if cap > 2 else n)
+    q4 = args[0].reshape(slots, KV, H // KV, hd)
+    whole = port_kernel.paged_attention_kernel
+    n0 = whole.launches
+    got = whole(q4, *args[1:], _splits=splits, **kw).reshape(args[0].shape)
+    one = whole(q4, *args[1:], _splits=1, **kw).reshape(args[0].shape)
+    assert whole.launches == n0 + 2
+    want = port_ops.paged_attention(*args, use_kernel=False, **kw)
+    live = args[4] > 0
+    for out in (got, one):
+        torch.testing.assert_close(out[live].float(), want[live].float(),
+                                   rtol=0, atol=TOL[dtype])
+        assert (out[~live] == 0).all()          # length 0 comes out 0
+    torch.testing.assert_close(got.float(), one.float(), rtol=0,
+                               atol=TOL[dtype])
+    # the counters are left zero: the same launch again gives the same out
+    again = whole(q4, *args[1:], _splits=splits, **kw).reshape(got.shape)
+    torch.testing.assert_close(again, got, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_split_count_does_not_sync_the_host():
+    """Choosing the split count reads shapes only: the wrapper runs under
+    ``set_sync_debug_mode("error")``, which raises on any host sync."""
+    dev = _cuda()
+    case = DECODE_SPLIT_CASES[1]
+    args, kw = _decode_split_args(case, "bfloat16", False, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert port_kernel.decode_splits(8, 8, 256, 16, 4096, sms) > 1
+    port_ops.paged_attention(*args, use_kernel=True, **kw)   # built, warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = port_ops.paged_attention(*args, use_kernel=True, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = port_ops.paged_attention(*args, use_kernel=False, **kw)
+    live = args[4] > 0
+    torch.testing.assert_close(out[live].float(), want[live].float(),
+                               rtol=0, atol=TOL["bfloat16"])
