@@ -8,10 +8,10 @@ Phases, in order; any failure exits non-zero:
 1. environment — torch / CUDA versions and the card's name and power limit;
 2. build — every CUDA source under ``src/repro_torch/csrc`` with ``nvcc``,
    one process per source, all started together; each kernel's registers
-   and spills (``-Xptxas -v``); then ``cuobjdump -sass`` of the K3, K5 and
-   K1 / K4 libraries: every bf16 instantiation of their tensor-core
-   kernels must issue HGMMA (wgmma; K3, K5) or HMMA (mma.sync; K1 / K4)
-   instructions;
+   and spills (``-Xptxas -v``); then ``cuobjdump -sass`` of the K3, K2,
+   K5, K1 / K4 and K6 libraries: every bf16 instantiation of their
+   tensor-core kernels must issue HGMMA (wgmma; K3, K2, K5) or HMMA
+   (mma.sync; K1 / K4, K6) instructions;
 3. kernels — each hand-written kernel held against its plain PyTorch
    version on the card at its path's shapes (K1, K2: qwen serving; K3: the
    training forward, plus a sliding-window and a ragged case, the flash
@@ -26,7 +26,9 @@ Phases, in order; any failure exits non-zero:
    mixtral's; in bf16, and checked in fp32 — K1 / K4 / K8 within 1e-5
    there), with its time beside the plain version's (K1 / K4 / K8 also
    with their split count, CUDA launches a call and registers and
-   spills), a bytes/operations
+   spills; K1, K2, K4, K6, K7 and the K8 branches also with their device
+   time alone, ``device_ms``, beside the library call's), a
+   bytes/operations
    bound, and, where one exists, one PyTorch library call computing the
    same function as a yardstick (timed here only; the port never calls
    it);
@@ -35,7 +37,8 @@ Phases, in order; any failure exits non-zero:
    shared page-aligned prefix (prefix-cache hit) and a repetitive prompt
    (n-gram drafts verified through the prefill kernel).  Every kernel's
    launch count is zeroed just before and read just after; each must be
-   launched;
+   launched; then the same drive with every K1 / K2 launch held against its
+   plain version on that launch's inputs;
 5. comparison — the same requests with ``use_kernels=False`` (plain
    versions on the card); greedy streams must match, or part only where
    the plain forward's top two logits are a bf16 near-tie; then the same
@@ -92,11 +95,13 @@ Phases, in order; any failure exits non-zero:
 12. a JSON ``kernels`` line, then as the last line
    ``{"ok": true, "device": {...}}``.
 
-    python3 chip_smoke.py --decode-kernels [SRC]
+    python3 chip_smoke.py --kernels K2,K6[,...] [SRC]
 
-runs only K1 and K4 with their K8 branches (the kernel phase's cases) from
+builds and times only the named kernels (K1, K2, K4, K5, K6, K7; the K8
+branches come with K1, K2, K4 and K5) at the kernel phase's cases, from
 the package under SRC (default this checkout's ``src``): two checkouts'
-decode kernels side by side in one call.
+kernels side by side in one call.  ``--decode-kernels [SRC]`` is
+``--kernels K1,K4 [SRC]``.
 
 Exits with code 2 and prints no result when CUDA is unavailable.
 """
@@ -193,10 +198,15 @@ def time_ms(torch, fn, iters=20, warmup=3):
 
 
 def device_ms(torch, fn, iters=20):
-    """Mean device time of the CUDA kernels ``fn`` launches (torch.profiler,
-    kernel time only: no host enqueue time), each call after an L2 flush
-    whose own kernels are left out."""
+    """Device time of the CUDA kernels one call of ``fn`` launches
+    (torch.profiler, kernel time only: no host enqueue time), each call
+    after an L2 flush whose own kernels are left out: the median over
+    ``iters`` calls, since now and then one call of a profile reads many
+    times slower than the rest (the mean over the profile where its trace
+    holds no flush-delimited call).  NaN (not measured) when three
+    profiles in a row record none of ``fn``'s kernels."""
     from torch.profiler import ProfilerActivity, profile
+    cuda = torch.autograd.DeviceType.CUDA
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     fn()
     torch.cuda.synchronize()
@@ -204,13 +214,29 @@ def device_ms(torch, fn, iters=20):
         flush.zero_()
         torch.cuda.synchronize()
     skip = {name for _, _, name in device_kernels(torch, prof)}
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    return sum(us for us, _, name in device_kernels(torch, prof)
-               if name not in skip) / 1e3 / iters
+    for _ in range(3):          # the profiler now and then records nothing
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        # a flush's kernel starts each call; the kernels after it are fn's
+        calls = []
+        for e in sorted((e for e in prof.events() if e.device_type == cuda),
+                        key=lambda e: e.time_range.start):
+            if e.name in skip:
+                calls.append(0.0)
+            elif calls:
+                calls[-1] += e.time_range.elapsed_us()
+        calls = sorted(c for c in calls if c > 0)
+        if calls:
+            return calls[len(calls) // 2] / 1e3
+        # no flush-delimited call in the trace: the mean over the profile
+        total = sum(us for us, _, name in device_kernels(torch, prof)
+                    if name not in skip)
+        if total > 0:
+            return total / 1e3 / iters
+    return math.nan             # not measured
 
 
 def bound(bytes_moved, flops, flops_per_s=BF16_FLOPS_PER_S):
@@ -262,19 +288,21 @@ def _ptxas_report(text):
 
 #: the sources whose bf16 kernels run on the tensor cores: the (mangled)
 #: name of their bf16 kernels, how many instantiations each library holds
-#: (K3: hd 64 / 128 / 256; K5: hd 64 / 128 x fp / int8 pages; K1 / K4: hd
-#: 64 / 128 / 256 x fp / int8 pages) and the SASS op they must issue
-#: (HGMMA: wgmma; HMMA: mma.sync)
+#: (K3: hd 64 / 128 / 256; K2, K5: hd 64 / 128 x fp / int8 pages; K1 / K4:
+#: hd 64 / 128 / 256 x fp / int8 pages; K6: the two MLA geometries) and the
+#: SASS op they must issue (HGMMA: wgmma; HMMA: mma.sync)
 TENSOR_CORE_KERNELS = {
     "flash_attention": ("flash_fwd_kernel_wgmma", 3, "HGMMA"),
-    "paged_ring_prefill": ("paged_ring_prefill_kernel_wgmma", 4, "HGMMA"),
-    "paged_attention": ("paged_decode_kernelI13__nv_bfloat16", 6, "HMMA")}
+    "paged_prefill": ("paged_prefill_wgmma_kernel", 4, "HGMMA"),
+    "paged_ring_prefill": ("paged_prefill_wgmma_kernel", 4, "HGMMA"),
+    "paged_attention": ("paged_decode_kernelI13__nv_bfloat16", 6, "HMMA"),
+    "paged_mla": ("paged_mla_decode_kernel_mma", 2, "HMMA")}
 
 
 def tensor_core_check(build):
-    """``cuobjdump -sass`` of the built K3, K5 and K1 / K4 libraries: the
-    tensor-core instructions of every kernel; each bf16 instantiation must
-    issue them."""
+    """``cuobjdump -sass`` of the built K3, K2, K5, K1 / K4 and K6
+    libraries: the tensor-core instructions of every kernel; each bf16
+    instantiation must issue them."""
     tool = Path(build.nvcc_path()).parent / "cuobjdump"
     for name, (kernel, want, op) in TENSOR_CORE_KERNELS.items():
         sass = subprocess.run([str(tool), "-sass", str(build.lib_path(name))],
@@ -344,15 +372,29 @@ def cuda_launches(torch, fn):
     return sum(n for _, n, _ in device_kernels(torch, prof))
 
 
+def _sms(torch):
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
 def _decode_splits(torch, pk, kv, n_table, window):
     """The decode launch's split count at this case's shapes (1 for a tree
     whose decode kernel does not split: ``--decode-kernels`` on an older
     checkout)."""
     if not hasattr(pk, "decode_splits"):
         return 1
-    return pk.decode_splits(
-        SLOTS, kv, n_table, PS, window,
-        torch.cuda.get_device_properties(0).multi_processor_count)
+    return pk.decode_splits(SLOTS, kv, n_table, PS, window, _sms(torch))
+
+
+def _prefill_splits(torch, pk, S, g, kv, start, n_valid, window=0):
+    """The bf16 K2 / K5 launch's split count at this case's shapes (1 for
+    a tree whose kernel does not split: ``--kernels`` on an older
+    checkout)."""
+    sms = _sms(torch)
+    if hasattr(pk, "prefill_splits"):
+        return pk.prefill_splits(S, g, kv, start, n_valid, sms, window)
+    if window and hasattr(pk, "ring_prefill_splits"):
+        return pk.ring_prefill_splits(S, g, kv, start, n_valid, window, sms)
+    return 1
 
 
 def _decode_row(torch, dtype, int8, splits):
@@ -434,6 +476,7 @@ def k1_case(torch, F, gen, dtype=None, int8=False, timed=True):
 def k2_case(torch, F, gen, S, start, n_valid, dtype=None, int8=False,
             timed=True):
     """K2 at qwen's prefill / verify shapes; ``int8``: its K8 branch."""
+    from repro_torch.kernels.paged_attention import kernel as pk
     from repro_torch.kernels.paged_attention import ops, ref
     dtype = dtype or torch.bfloat16
     n_table = 32
@@ -453,9 +496,13 @@ def k2_case(torch, F, gen, S, start, n_valid, dtype=None, int8=False,
     out, want = kern(), plain()
     torch.cuda.synchronize()
     err = (out[:n_valid].float() - want[:n_valid].float()).abs().max().item()
+    splits = 1 if dtype == torch.float32 else _prefill_splits(
+        torch, pk, S, G, KV, start, n_valid)
     case = dict(case=f"{'int8' if int8 else 'fp'} {str(dtype)[6:]} S={S} "
                      f"start={start} n_valid={n_valid} KV={KV} G={G} hd={HD} "
-                     f"ps={PS}", max_abs_err=err)
+                     f"ps={PS} splits={splits}", max_abs_err=err,
+                tol=FP32_KERNEL_ATOL if dtype == torch.float32
+                else KERNEL_ATOL)
     if not timed:
         return case
 
@@ -485,14 +532,17 @@ def k2_case(torch, F, gen, S, start, n_valid, dtype=None, int8=False,
     b_ms, b_by = bound(nbytes, flops)
     return dict(case, ms=time_ms(torch, kern),
                 plain_ms=time_ms(torch, plain), bound_ms=b_ms, bound_by=b_by,
-                library_ms=time_ms(torch, lib), library_max_abs_err=lib_err)
+                library_ms=time_ms(torch, lib), library_max_abs_err=lib_err,
+                device_ms=device_ms(torch, kern),
+                library_device_ms=device_ms(torch, lib))
 
 
 #: (S, start, n_valid): verify rows (S = spec_tokens + 1 = 5) and prefill
 #: buckets, cold (start 0) and after a prefix hit (start > 0), full and
-#: ragged (n_valid < S)
+#: ragged (n_valid < S); the last a verify after a 480-token prefix, whose
+#: 8 key tiles take the bf16 kernel's split path
 K2_CASES = ((5, 0, 5), (5, 37, 3), (16, 0, 11), (16, 32, 16), (64, 0, 40),
-            (64, 64, 64), (256, 0, 200), (256, 48, 256))
+            (64, 64, 64), (256, 0, 200), (256, 48, 256), (5, 480, 5))
 #: the K2 case the kernels line reports: a verify row mid-sequence, the
 #: call the serving path makes most often
 K2_REPORTED = (5, 37, 3)
@@ -631,9 +681,8 @@ def k5_case(torch, F, gen, dtype, int8, S, start, n_valid, timed=True):
     torch.cuda.synchronize()
     err = (out[:n_valid].float() - want[:n_valid].float()).abs().max().item()
     # the bf16 kernel's split of its key tiles (fp32: the scalar kernel)
-    splits = 1 if dtype == torch.float32 else pk.ring_prefill_splits(
-        S, MX_G, MX_KV, start, n_valid, MX_WINDOW,
-        torch.cuda.get_device_properties(0).multi_processor_count)
+    splits = 1 if dtype == torch.float32 else _prefill_splits(
+        torch, pk, S, MX_G, MX_KV, start, n_valid, MX_WINDOW)
     case = dict(case=f"{'int8' if int8 else 'fp'} {str(dtype)[6:]} S={S} "
                      f"start={start} n_valid={n_valid} KV={MX_KV} G={MX_G} "
                      f"hd={HD} ps={PS} window={MX_WINDOW} splits={splits}",
@@ -810,11 +859,18 @@ def _mla_bound(q_rows, keys, pairs):
     return bound(nbytes, flops)
 
 
-def k6_case(torch, F, gen):
+def k6_case(torch, F, gen, dtype=None, timed=True):
+    """K6 at deepseek's decode shape (fp32: checked only); the bf16 case
+    also times the kernel at forced split counts, where the wrapper takes
+    them."""
+    import inspect
+    from repro_torch.kernels.paged_attention import kernel as pk
     from repro_torch.kernels.paged_attention import ops, ref
+    dtype = dtype or torch.bfloat16
     n_pages = SLOTS * MLA_TABLE + 1
     lengths = [1, PS, PS + 1, MLA_TABLE * PS, 78, 46, 60, 33]
-    q_lat, q_rope, ckv, kr = _mla_inputs(torch, gen, SLOTS, n_pages)
+    q_lat, q_rope, ckv, kr = (t.to(dtype) for t in _mla_inputs(
+        torch, gen, SLOTS, n_pages))
     table = _table_rows(torch, lengths, MLA_TABLE, n_pages, SEED + 2)
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
 
@@ -829,6 +885,18 @@ def k6_case(torch, F, gen):
     out, want = kern(), plain()
     torch.cuda.synchronize()
     err = (out.float() - want.float()).abs().max().item()
+    split_arg = "_splits" in inspect.signature(pk.paged_mla_kernel).parameters
+    splits = (pk.mla_decode_splits(SLOTS, MLA_TABLE, _sms(torch))
+              if split_arg and dtype == torch.bfloat16 else 1)
+    case = dict(case=f"{str(dtype)[6:]} slots={SLOTS} H={MLA_H} R={MLA_R} "
+                     f"rp={MLA_RP} ps={PS} lengths={lengths} "
+                     f"splits={splits}", max_abs_err=err,
+                tol=FP32_KERNEL_ATOL if dtype == torch.float32
+                else KERNEL_ATOL)
+    if not timed:
+        return case
+    if split_arg:
+        k6_split_sweep(torch, gen, lengths)
     T = MLA_TABLE * PS
     idx = table.long()
     mask = (torch.arange(T, device="cuda")[None, :] < lens[:, None])
@@ -837,11 +905,31 @@ def k6_case(torch, F, gen):
                     kr[idx].reshape(SLOTS, T, MLA_RP), mask[:, None, None])
     lib_err = (lib()[:, :, 0].float() - want.float()).abs().max().item()
     b_ms, b_by = _mla_bound(SLOTS, sum(lengths), sum(lengths))
-    return dict(case=f"slots={SLOTS} H={MLA_H} R={MLA_R} rp={MLA_RP} "
-                     f"ps={PS} lengths={lengths}",
-                max_abs_err=err, ms=time_ms(torch, kern),
+    return dict(case, ms=time_ms(torch, kern),
                 plain_ms=time_ms(torch, plain), bound_ms=b_ms, bound_by=b_by,
-                library_ms=time_ms(torch, lib), library_max_abs_err=lib_err)
+                library_ms=time_ms(torch, lib), library_max_abs_err=lib_err,
+                device_ms=device_ms(torch, kern),
+                library_device_ms=device_ms(torch, lib))
+
+
+def k6_split_sweep(torch, gen, lengths):
+    """The bf16 K6 kernel's device time at forced split counts, at the
+    drive's lengths on its 8-page table and at 1024 tokens a slot on a
+    64-page one (the data behind ``mla_decode_splits``)."""
+    from repro_torch.kernels.paged_attention import kernel as pk
+    for n_table, lens_ in ((MLA_TABLE, lengths), (64, [1024] * SLOTS)):
+        n_pages = SLOTS * n_table + 1
+        q_lat, q_rope, ckv, kr = _mla_inputs(torch, gen, SLOTS, n_pages)
+        table = _table_rows(torch, lens_, n_table, n_pages, SEED + 3)
+        lens = torch.tensor(lens_, dtype=torch.int32, device="cuda")
+        counts = [n for n in (1, 2, 3, 4, 6, 8) if n <= n_table]
+        sweep = {n: device_ms(torch, lambda n=n: pk.paged_mla_kernel(
+            q_lat, q_rope, ckv, kr, table, lens, scale=MLA_SCALE,
+            _splits=n)) for n in counts}
+        log(f"K6 device ms by forced splits (table {n_table}, lengths "
+            f"{lens_}; the wrapper picks "
+            f"{pk.mla_decode_splits(SLOTS, n_table, _sms(torch))}): "
+            + ", ".join(f"{n}: {t:.4f}" for n, t in sweep.items()))
 
 
 def k7_case(torch, F, gen, S, start, n_valid):
@@ -881,7 +969,9 @@ def k7_case(torch, F, gen, S, start, n_valid):
                      f"R={MLA_R} rp={MLA_RP} ps={PS}",
                 max_abs_err=err, ms=time_ms(torch, kern),
                 plain_ms=time_ms(torch, plain), bound_ms=b_ms, bound_by=b_by,
-                library_ms=time_ms(torch, lib), library_max_abs_err=lib_err)
+                library_ms=time_ms(torch, lib), library_max_abs_err=lib_err,
+                device_ms=device_ms(torch, kern),
+                library_device_ms=device_ms(torch, lib))
 
 
 #: (S, start, n_valid) of the deepseek drive: verify rows (S = 5) and the
@@ -988,69 +1078,127 @@ def report_row(name, r):
            if r["library_ms"] is None else
            f"library_ms {r['library_ms']:.4f} (sdpa, err "
            f"{r['library_max_abs_err']:.3g})")
-    calls = (f"; CUDA launches a call {r['launches_per_call']}; device_ms "
-             f"{r['device_ms']:.4f} (sdpa {r['library_device_ms']:.4f})"
+    calls = (f"; CUDA launches a call {r['launches_per_call']}"
              if "launches_per_call" in r else "")
+    if "device_ms" in r:
+        calls += (f"; device_ms {r['device_ms']:.4f} (sdpa "
+                  f"{r['library_device_ms']:.4f})")
     log(f"kernel {name} [{r['case']}]: {check} {'ok' if ok else 'FAIL'}; ms "
         f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f} bound_ms "
         f"{r['bound_ms']:.5f} ({r['bound_by']}) {lib}{calls}")
     return ok
 
 
-def decode_phase(torch, F):
-    """``--decode-kernels``: K1 and K4 with their K8 branches alone, in
-    bf16 (timed) and fp32 (checked), as the kernel phase runs them — for
-    holding two checkouts' decode kernels side by side in one call."""
+# the kernel phase's rows of each paged kernel: kernels-line name -> cases
+# (the timed bf16 case first, then those only checked)
+
+def _rows_k1(torch, F, gen):
+    bf16, fp32 = torch.bfloat16, torch.float32
+    return {"paged_attention": [k1_case(torch, F, gen),
+                                k1_case(torch, F, gen, fp32, timed=False)],
+            "paged_attention_int8": [
+                k1_case(torch, F, gen, bf16, True),
+                k1_case(torch, F, gen, fp32, True, timed=False)]}
+
+
+def _rows_k4(torch, F, gen):
+    bf16, fp32 = torch.bfloat16, torch.float32
+    return {"paged_ring_decode": [k4_case(torch, F, gen, bf16, False),
+                                  k4_case(torch, F, gen, fp32, False,
+                                          timed=False)],
+            "paged_ring_decode_int8": [
+                k4_case(torch, F, gen, bf16, True),
+                k4_case(torch, F, gen, fp32, True, timed=False)]}
+
+
+def _rows_k2(torch, F, gen):
+    """K2 and its K8 branch timed in bf16 at every ``K2_CASES`` shape;
+    fp32 checked at every shape (int8: at two)."""
+    bf16, fp32 = torch.bfloat16, torch.float32
+    return {"paged_prefill": [k2_case(torch, F, gen, *c) for c in K2_CASES]
+            + [k2_case(torch, F, gen, *c, fp32, timed=False)
+               for c in K2_CASES],
+            "paged_prefill_int8": [k2_case(torch, F, gen, *c, bf16, True)
+                                   for c in K2_CASES]
+            + [k2_case(torch, F, gen, *c, fp32, True, timed=False)
+               for c in (K2_REPORTED, (64, 0, 40))]}
+
+
+def _rows_k5(torch, F, gen):
+    bf16, fp32 = torch.bfloat16, torch.float32
+    return {"paged_ring_prefill": [k5_case(torch, F, gen, bf16, False, *c)
+                                   for c in K5_CASES] + [
+                k5_case(torch, F, gen, fp32, False, *c, timed=False)
+                for c in K5_CASES],
+            "paged_ring_prefill_int8": [
+                k5_case(torch, F, gen, bf16, True, *K5_REPORTED),
+                k5_case(torch, F, gen, bf16, True, *K5_VERIFY),
+                k5_case(torch, F, gen, fp32, True, *K5_REPORTED,
+                        timed=False)]}
+
+
+def _rows_k6(torch, F, gen):
+    return {"paged_mla": [k6_case(torch, F, gen),
+                          k6_case(torch, F, gen, torch.float32,
+                                  timed=False)]}
+
+
+def _rows_k7(torch, F, gen):
+    return {"paged_mla_prefill": [k7_case(torch, F, gen, *c)
+                                  for c in K7_CASES]}
+
+
+#: ``--kernels`` names -> (the source to build, the kernel phase's rows)
+KERNEL_ROWS = {"K1": ("paged_attention", _rows_k1),
+               "K2": ("paged_prefill", _rows_k2),
+               "K4": ("paged_attention", _rows_k4),
+               "K5": ("paged_ring_prefill", _rows_k5),
+               "K6": ("paged_mla", _rows_k6),
+               "K7": ("paged_mla_prefill", _rows_k7)}
+
+
+def k2_summary(rows):
+    """K2 and its int8 branch against SDPA at every timed case, by device
+    time; returns the index in ``K2_CASES`` of the prefill bucket (S > 5)
+    where K2 stands worst against SDPA."""
+    fp = [r for r in rows["paged_prefill"] if "ms" in r]
+    q8 = [r for r in rows["paged_prefill_int8"] if "ms" in r]
+    for c, r, rq in zip(K2_CASES, fp, q8):
+        log(f"K2 {c}: device {r['device_ms']:.4f} ms = "
+            f"{r['device_ms'] / r['library_device_ms']:.2f}x SDPA "
+            f"{r['library_device_ms']:.4f} (events {r['ms']:.4f}, SDPA "
+            f"{r['library_ms']:.4f}); int8 {rq['device_ms']:.4f} ms = "
+            f"{rq['device_ms'] / r['device_ms']:.3f}x fp, "
+            f"{rq['device_ms'] / rq['library_device_ms']:.2f}x its SDPA "
+            f"{rq['library_device_ms']:.4f}")
+    return max((i for i, c in enumerate(K2_CASES) if c[0] > 5),
+               key=lambda i: fp[i]["device_ms"] / fp[i]["library_device_ms"])
+
+
+def kernels_only_phase(torch, F, names):
+    """``--kernels``: the named paged kernels alone, in bf16 (timed) and
+    fp32 (checked), as the kernel phase runs them — for holding two
+    checkouts' kernels side by side in one call."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    ok = True
-    for name, case in (("paged_attention", k1_case),
-                       ("paged_ring_decode", k4_case)):
-        for dtype in (torch.bfloat16, torch.float32):
-            for int8 in (False, True):
-                r = case(torch, F, gen, dtype, int8,
-                         timed=dtype == torch.bfloat16)
-                ok = report_row(name + ("_int8" if int8 else ""), r) and ok
+    rows = {}
+    for n in names:
+        rows.update(KERNEL_ROWS[n][1](torch, F, gen))
+    ok = all([report_row(name, r) for name, cases in rows.items()
+              for r in cases])
+    if "K2" in names:
+        k2_summary(rows)
     return ok
 
 
 def kernel_phase(torch, F):
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    bf16, fp32 = torch.bfloat16, torch.float32
-    rows = {"paged_attention": [k1_case(torch, F, gen),
-                                k1_case(torch, F, gen, fp32, timed=False)],
-            "paged_prefill": [k2_case(torch, F, gen, *c) for c in K2_CASES],
-            # K4, K5 and K8 (int8 in K1, K2, K4, K5): the timed bf16 case
-            # first, then the checked-only fp32 ones
-            "paged_ring_decode": [k4_case(torch, F, gen, bf16, False),
-                                  k4_case(torch, F, gen, fp32, False,
-                                          timed=False)],
-            "paged_ring_prefill": [k5_case(torch, F, gen, bf16, False, *c)
-                                   for c in K5_CASES] + [
-                k5_case(torch, F, gen, fp32, False, *c, timed=False)
-                for c in K5_CASES],
-            "paged_attention_int8": [
-                k1_case(torch, F, gen, bf16, True),
-                k1_case(torch, F, gen, fp32, True, timed=False)],
-            "paged_prefill_int8": [
-                k2_case(torch, F, gen, *K2_REPORTED, bf16, True),
-                k2_case(torch, F, gen, 64, 0, 40, bf16, True, timed=False),
-                k2_case(torch, F, gen, *K2_REPORTED, fp32, True,
-                        timed=False)],
-            "paged_ring_decode_int8": [
-                k4_case(torch, F, gen, bf16, True),
-                k4_case(torch, F, gen, fp32, True, timed=False)],
-            "paged_ring_prefill_int8": [
-                k5_case(torch, F, gen, bf16, True, *K5_REPORTED),
-                k5_case(torch, F, gen, bf16, True, *K5_VERIFY),
-                k5_case(torch, F, gen, fp32, True, *K5_REPORTED,
-                        timed=False)],
-            "flash_attention": [k3_case(torch, F, gen, *c)
-                                for c in K3_CASES],
-            "paged_mla": [k6_case(torch, F, gen)],
-            "paged_mla_prefill": [k7_case(torch, F, gen, *c)
-                                  for c in K7_CASES],
-            "lru_scan": [k9_case(torch, gen, *c) for c in K9_CASES],
-            "wkv6": [k10_case(torch, gen, *c) for c in K10_CASES]}
+    rows = {}
+    for _, fn in KERNEL_ROWS.values():
+        rows.update(fn(torch, F, gen))
+    rows.update({
+        "flash_attention": [k3_case(torch, F, gen, *c) for c in K3_CASES],
+        "lru_scan": [k9_case(torch, gen, *c) for c in K9_CASES],
+        "wkv6": [k10_case(torch, gen, *c) for c in K10_CASES]})
     failed = [f"{name} [{r['case']}]" for name, cases in rows.items()
               for r in cases if not report_row(name, r)]
     grads = k3_grad_check(torch)
@@ -1063,8 +1211,9 @@ def kernel_phase(torch, F):
     if failed:
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{failed}")
-    k2 = next(r for r, c in zip(rows["paged_prefill"], K2_CASES)
-              if c == K2_REPORTED)
+    k2, k2q = (next(r for r, c in zip(rows[n], K2_CASES) if c == K2_REPORTED)
+               for n in ("paged_prefill", "paged_prefill_int8"))
+    k2b = k2_summary(rows)
     k7 = next(r for r, c in zip(rows["paged_mla_prefill"], K7_CASES)
               if c == K7_REPORTED)
     k9 = next(r for r, c in zip(rows["lru_scan"], K9_CASES)
@@ -1102,9 +1251,18 @@ def kernel_phase(torch, F):
         return dict(reported, max_abs_err=max(r["max_abs_err"]
                                               for r in rows[name]))
 
-    def with_verify(row, verify):
-        return dict(row, **{f"verify_{k}": verify[k] for k in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+    def with_verify(row, verify, tag="verify"):
+        return dict(row, **{f"{tag}_{k}": verify[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "device_ms", "library_device_ms") if k in verify})
+
+    k6 = rows["paged_mla"][0]
+    log(f"K6 (bf16, deepseek): device {k6['device_ms']:.4f} ms in "
+        f"{k6['case'].split('splits=')[1]} splits = "
+        f"{k6['device_ms'] / k6['library_device_ms']:.2f}x SDPA "
+        f"{k6['library_device_ms']:.4f} (events {k6['ms']:.4f}, SDPA "
+        f"{k6['library_ms']:.4f}); K7 verify: device {k7['device_ms']:.4f} "
+        f"ms, SDPA {k7['library_device_ms']:.4f}")
 
     return {"paged_attention": worst("paged_attention",
                                      rows["paged_attention"][0]),
@@ -1115,11 +1273,17 @@ def kernel_phase(torch, F):
             **{n: worst(n, rows[n][0]) for n in INT8_KERNELS},
             "paged_ring_prefill_int8": with_verify(
                 worst("paged_ring_prefill_int8", k5q), k5qv),
-            "paged_prefill": dict(k2, max_abs_err=max(
-                r["max_abs_err"] for r in rows["paged_prefill"])),
+            # K2 and its int8 branch: the reported verify row, and the
+            # prefill bucket where K2 stands worst against SDPA beside it
+            "paged_prefill": with_verify(worst("paged_prefill", k2),
+                                         rows["paged_prefill"][k2b],
+                                         "bucket"),
+            "paged_prefill_int8": with_verify(
+                worst("paged_prefill_int8", k2q),
+                rows["paged_prefill_int8"][k2b], "bucket"),
             "flash_attention": dict(rows["flash_attention"][0], max_abs_err=max(
                 r["max_abs_err"] for r in rows["flash_attention"])),
-            "paged_mla": rows["paged_mla"][0],
+            "paged_mla": worst("paged_mla", rows["paged_mla"][0]),
             "paged_mla_prefill": dict(k7, max_abs_err=max(
                 r["max_abs_err"] for r in rows["paged_mla_prefill"])),
             "lru_scan": dict(k9, max_abs_err=max(
@@ -1562,9 +1726,9 @@ def check_ring_launches(cfg, counts, names, pool):
 
 
 def serve_phase(torch, arch, profile_marks=()):
-    """Serve ``arch`` at full width with the kernels; then (MLA, MoE ring
-    and the recurrent families) once more with every launch of the
-    family's kernels checked; then with ``use_kernels=False``; then a
+    """Serve ``arch`` at full width with the kernels; then once more with
+    every launch of the family's kernels checked; then with
+    ``use_kernels=False``; then a
     profile; then (per-head pages) the int8 arm; for qwen, last, the same
     requests on the slotted pool.  Returns the kernel drives' launch
     counts of the family's kernels."""
@@ -1624,8 +1788,7 @@ def serve_phase(torch, arch, profile_marks=()):
         if len(o) != MAX_NEW or not all(0 <= t < cfg.vocab_size for t in o):
             raise AssertionError(f"bad stream {o}")
     moe = cfg.moe is not None
-    if moe or recurrent:
-        checked_drive(torch, sess, prompts, outs, ours)
+    checked_drive(torch, sess, prompts, outs, ours)
 
     plain, pwall, pcounts, pm = serve_once(torch, sess, prompts,
                                            use_kernels=False)
@@ -1969,30 +2132,48 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    # --decode-kernels [SRC]: the decode kernels of the package under SRC
-    # (default this checkout's src/) alone, built and timed
-    decode_only = sys.argv[1:2] == ["--decode-kernels"]
-    src = Path(sys.argv[2]) if decode_only and len(sys.argv) > 2 \
-        else ROOT / "src"
+    # --kernels K2,K6 [SRC] (--decode-kernels [SRC]: K1,K4): the named
+    # kernels of the package under SRC (default this checkout's src/)
+    # alone, built and timed
+    args = sys.argv[1:]
+    names = None
+    if args[:1] == ["--decode-kernels"]:
+        names, args = ["K1", "K4"], args[1:]
+    elif args[:1] == ["--kernels"] and len(args) > 1:
+        names, args = args[1].split(","), args[2:]
+        unknown = set(names) - set(KERNEL_ROWS)
+        if unknown:
+            print(f"chip_smoke: unknown kernels {sorted(unknown)}; "
+                  f"choose from {sorted(KERNEL_ROWS)}", file=sys.stderr)
+            return 2
+    elif args:
+        print(f"chip_smoke: unknown arguments {args}", file=sys.stderr)
+        return 2
+    src = Path(args[0]) if names and args else ROOT / "src"
     sys.path.insert(0, str(src.resolve()))
     import torch.nn.functional as F
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if decode_only:
+    if names:
         from repro_torch.kernels import build
         env_phase(torch)
-        log(f"decode kernels of {build.CSRC}")
-        for fn, info in _ptxas_report(build.build_all(("paged_attention",))[
-                "paged_attention"]):
-            PTXAS[fn] = info
-        return 0 if decode_phase(torch, F) else 1
+        log(f"kernels {','.join(names)} of {build.CSRC}")
+        logs = build.build_all(sorted({KERNEL_ROWS[n][0] for n in names}))
+        for text in logs.values():
+            for fn, info in _ptxas_report(text):
+                PTXAS[fn] = info
+                log(f"  ptxas: {info}  {fn[:110]}")
+        return 0 if kernels_only_phase(torch, F, names) else 1
 
     card = env_phase(torch)
     count_model_calls()
     build_phase()
     stats = kernel_phase(torch, F)
+    # profile marks: K1 / K4's kernel, and K2's (K5's on mixtral): the bf16
+    # body paged_prefill_wgmma_kernel with its split merge
+    # prefill_merge_kernel, or the scalar paged_*prefill_kernel
     counts = serve_phase(torch, "qwen2.5-14b",
-                         ("paged_decode_kernel", "paged_prefill_kernel"))
+                         ("paged_decode_kernel", "prefill"))
     gc.collect()                        # the serve session and its engines
     torch.cuda.empty_cache()
     qwen_k3 = counts.pop("flash_attention")           # the slotted arm's
@@ -2021,8 +2202,7 @@ def main() -> int:
     for arch in ("recurrentgemma-2b", "rwkv6-1.6b"):
         fp32_phase(torch, arch)
     counts.update(serve_phase(torch, "mixtral-8x22b",
-                              ("paged_decode_kernel",
-                               "paged_ring_prefill_kernel")))
+                              ("paged_decode_kernel", "prefill")))
     gc.collect()                        # the bf16 mixtral session
     torch.cuda.empty_cache()
     fp32_phase(torch, "mixtral-8x22b")
@@ -2069,8 +2249,12 @@ def main() -> int:
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],
                         **{k: v for k, v in r.items()
-                           if k.startswith("verify_")}})
-    log(json.dumps({"kernels": kernels}))
+                           if k.startswith(("verify_", "bucket_"))
+                           or k in ("device_ms", "library_device_ms")}})
+    # a time the profiler did not record is null, not NaN (not JSON)
+    log(json.dumps({"kernels": [
+        {k: None if isinstance(v, float) and math.isnan(v) else v
+         for k, v in row.items()} for row in kernels]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,6 +1,7 @@
 // Tensor-core tile helpers shared by the bf16 attention kernels (K3 flash
-// forward, K5 ring chunked prefill) for Hopper (sm_90a); the paged decode
-// kernel (K1 / K4) takes its cp.async, ex2 and int8 widening from here too.
+// forward; K2 / K5 chunked prefill, paged_prefill_body.cuh) for Hopper
+// (sm_90a); the paged decode kernels (K1 / K4, K6) take their mma.sync,
+// ldmatrix, cp.async, ex2 and int8 widening from here too.
 //
 // A block is one warpgroup (4 warps, 128 threads) that owns 64 query rows,
 // 16 a warp: the M of wgmma.m64nNk16.  Q, K and V tiles sit bf16 in shared
@@ -169,6 +170,34 @@ __device__ __forceinline__ void int8x4_to_bf16(uint32_t w, uint32_t& lo,
   int8x4_to_f32(w, f);
   lo = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
   hi = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
+}
+
+// mma.sync pieces (the bf16 decode bodies, K1 / K4 and K6): D (16 x 8,
+// fp32) += A (16 x 16 bf16, row-major fragment) B (16 x 8 bf16, column
+// fragment), and four 8 x 8 b16 matrices from shared memory, as stored or
+// transposed (lane l gives the address of row l % 8 of matrix l / 8).
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
 }
 
 // ---------------------------------------------------------------------------

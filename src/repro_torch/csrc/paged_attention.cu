@@ -144,27 +144,6 @@ __device__ __forceinline__ void load_widen(const PT* src, float (&f)[N]) {
   }
 }
 
-// Tensor-core pieces of the bf16 body: D (16 x 8, fp32) += A (16 x 16 bf16,
-// row-major fragment) B (16 x 8 bf16, column fragment), and four 8 x 8 b16
-// matrices from shared memory, transposed (lane l gives the address of row
-// l % 8 of matrix l / 8).
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
 // Pipeline geometry of a (query type, page type, head dim): the bytes of
 // one round's stage (K tile, V tile, int8 scale words), the per-warp
 // scratch (probabilities; for int8 pages on the tensor cores also the V

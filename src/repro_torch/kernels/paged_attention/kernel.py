@@ -7,12 +7,16 @@
     ``decode_splits`` blocks, merged in the same launch.
   * ``paged_prefill_kernel`` — K2, chunked prefill and speculative
     verify on contiguous pages: ``csrc/paged_prefill.cu``, the port of
-    ``paged_prefill_kernel``.
+    ``paged_prefill_kernel``; in bf16 the tensor-core body it shares with
+    K5 (``csrc/paged_prefill_body.cuh``), short chunks' key tiles split
+    over ``prefill_splits`` blocks.
   * ``paged_ring_prefill_kernel`` — K5, chunked prefill and verify on
     ring pages, snapshot-before-write: ``csrc/paged_ring_prefill.cu``, the
     port of ``paged_ring_prefill_kernel``.
   * ``paged_mla_kernel`` — K6, absorbed-MLA decode over latent pages:
-    ``csrc/paged_mla.cu``, the port of ``paged_mla_kernel``.
+    ``csrc/paged_mla.cu``, the port of ``paged_mla_kernel``; in bf16 every
+    slot's live pages split over ``mla_decode_splits`` blocks, one
+    thread-block cluster a slot, merged in the same launch.
   * ``paged_mla_prefill_kernel`` — K7, absorbed-MLA chunked prefill and
     verify: ``csrc/paged_mla_prefill.cu``, the port of
     ``paged_mla_prefill_kernel``.
@@ -44,15 +48,17 @@ from repro_torch.kernels.paged_attention.ref import (
     paged_prefill_ref, paged_ring_prefill_ref)
 
 _HEAD_DIMS = (64, 128, 256)
-#: head dims K5 is instantiated for (the ring families': mixtral 128)
-RING_PREFILL_HEAD_DIMS = (64, 128)
+#: head dims the bf16 tensor-core body of K2 / K5 is instantiated for (the
+#: ring families': mixtral 128), and so all K5 takes; K2's bf16 hd 256
+#: runs its scalar body, unsplit
+PREFILL_MMA_HEAD_DIMS = (64, 128)
 #: the largest GQA group K2 holds (MAXG in paged_prefill.cu)
 PREFILL_MAX_G = 8
 
 #: (H, R, rp) geometries K6 / K7 are instantiated for: deepseek-v2-lite at
 #: full width and the smoke config (``launch_geom`` in the CUDA sources)
 MLA_GEOMS = ((16, 512, 64), (4, 32, 8))
-#: page sizes K6 / K7 take (the shared-memory tile is ps x (R + rp) fp32)
+#: page sizes K6 / K7 take (the fp32 shared-memory tile is ps x (R + rp))
 MLA_PAGE_SIZES = range(8, 65)
 
 _P = ctypes.c_void_p
@@ -243,13 +249,18 @@ def _check_chunk(q, page_row, start: int, n_valid: int):
 
 
 def paged_prefill_kernel(q, k_pages, v_pages, page_row, start: int,
-                         n_valid: int, *, k_scale=None, v_scale=None):
+                         n_valid: int, *, k_scale=None, v_scale=None,
+                         _splits=None):
     """K2; int8 pages with ``k_scale`` / ``v_scale`` (K8).  q: [S, KV, G,
     hd] — one request's bucketed chunk (post-rope); k/v_pages: [P, ps, KV,
     hd] — the pool AFTER the chunk's K/V were written; page_row: [n]
-    int32; start / n_valid ints.  Returns [S, KV, G, hd] in q.dtype; rows
-    past ``n_valid`` are padding and come back 0 from the kernel (never
-    read by callers)."""
+    int32, ``start + n_valid <= n * ps``; start / n_valid ints.  Returns
+    [S, KV, G, hd] in q.dtype; rows past ``n_valid`` are padding and come
+    back 0 from the kernel (never read by callers).  bf16 at hd 64 / 128
+    runs the tensor-core body, its key tiles split by ``prefill_splits``
+    (``_splits`` overrides that count, for the tests that hold split and
+    unsplit launches together); fp32, and bf16 at hd 256, the scalar
+    body."""
     S, KV, G, hd = q.shape
     if q.device.type == "cpu":
         out = paged_prefill_ref(q.reshape(S, KV * G, hd), k_pages, v_pages,
@@ -264,13 +275,27 @@ def paged_prefill_kernel(q, k_pages, v_pages, page_row, start: int,
     if (kv_p, hd_p) != (KV, hd):
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, pages "
                          f"{tuple(k_pages.shape)}")
+    if start + n_valid > page_row.shape[0] * ps:
+        raise ValueError(f"chunk end {start + n_valid} past the table's "
+                         f"{page_row.shape[0]} x {ps} cells")
+    if q.data_ptr() % 16:
+        raise ValueError("q must be 16-byte aligned")
+    if q.dtype == torch.bfloat16 and hd in PREFILL_MMA_HEAD_DIMS:
+        splits = _splits or prefill_splits(S, G, KV, start, n_valid,
+                                           _sm_count(q.device.index or 0))
+    elif _splits not in (None, 1):
+        raise ValueError("only the bf16 tensor-core body splits its key "
+                         "tiles")
+    else:
+        splits = 1
     out = torch.empty_like(q)
     fn = _lib("paged_prefill", "paged_prefill_launch",
-              [_P] * 7 + [_I] * 10 + [_P])
+              [_P] * 8 + [_I] * 11 + [_P])
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              _ptr(k_scale), _ptr(v_scale), page_row.data_ptr(),
-             out.data_ptr(), S, KV, G, hd, ps, page_row.shape[0], int(start),
-             int(n_valid), _DTYPES[q.dtype], int(quantized),
+             out.data_ptr(), _ptr(_prefill_ws(q, splits)), S, KV, G, hd, ps,
+             page_row.shape[0], int(start), int(n_valid), _DTYPES[q.dtype],
+             int(quantized), int(splits),
              torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "paged_prefill")
     _count(paged_prefill_kernel, "int8" if quantized else "fp")
@@ -281,48 +306,62 @@ paged_prefill_kernel.launches = 0
 paged_prefill_kernel.launches_by = {}
 
 
-#: query rows and key positions per tile of the bf16 K5 kernel (RP_BM /
-#: RP_BK in csrc/paged_ring_prefill.cu)
-RING_ROW_TILE = RING_KEY_TILE = 64
-#: K5 splits its blocks' key tiles until about this many blocks per SM run
-RING_SPLIT_BLOCKS_PER_SM = 2
-RING_MAX_SPLITS = 64
+#: query rows and key positions per tile of the bf16 K2 / K5 body (RP_BM /
+#: RP_BK in csrc/paged_prefill_body.cuh)
+PREFILL_ROW_TILE = PREFILL_KEY_TILE = 64
+#: the body splits its blocks' key tiles until about this many blocks per
+#: SM run, never into more than PREFILL_MAX_SPLITS
+PREFILL_SPLIT_BLOCKS_PER_SM = 2
+PREFILL_MAX_SPLITS = 64
 
 
-def ring_prefill_key_tiles(r0: int, G: int, start: int, n_valid: int,
-                           window: int) -> int:
-    """Key tiles the bf16 K5 block of query rows ``[r0, r0 + 64)`` (rows
-    ``r = i * G + g``) walks: the positions some row of it keeps, from the
-    first row's window edge to the last valid row's own position
-    (``RingKeys`` in the source); 0 for a block of padding rows."""
-    r_hi = min(r0 + RING_ROW_TILE, n_valid * G)
+def prefill_key_tiles(r0: int, G: int, start: int, n_valid: int,
+                      window: int = 0) -> int:
+    """Key tiles the bf16 K2 / K5 block of query rows ``[r0, r0 + 64)``
+    (rows ``r = i * G + g``) walks: the positions some row of it keeps, up
+    to the last valid row's own position, from 0 on contiguous pages
+    (``window`` 0, K2) or from the first row's window edge on a ring (K5)
+    (``PrefillKeys`` in the source); 0 for a block of padding rows."""
+    r_hi = min(r0 + PREFILL_ROW_TILE, n_valid * G)
     if r0 >= r_hi:
         return 0
-    lo = max(0, start + r0 // G - window + 1)
+    lo = max(0, start + r0 // G - window + 1) if window > 0 else 0
     hi = start + (r_hi - 1) // G + 1
-    return -(-(hi - lo) // RING_KEY_TILE)
+    return -(-(hi - lo) // PREFILL_KEY_TILE)
 
 
-def ring_prefill_splits(S: int, G: int, KV: int, start: int, n_valid: int,
-                        window: int, sms: int) -> int:
-    """How many contiguous key ranges (``blockIdx.z``) the bf16 K5 launch
-    splits every block's key tiles into: 1 when KV x row tiles already
-    fill ``RING_SPLIT_BLOCKS_PER_SM`` blocks per SM, else enough to, but
-    never more than the fewest tiles of a block (no split is empty) or
-    ``RING_MAX_SPLITS``.  A function of the shapes, not a setting."""
-    row_tiles = -(-n_valid * G // RING_ROW_TILE)
-    target = RING_SPLIT_BLOCKS_PER_SM * sms
+def prefill_splits(S: int, G: int, KV: int, start: int, n_valid: int,
+                   sms: int, window: int = 0) -> int:
+    """How many contiguous key ranges (``blockIdx.z``) the bf16 K2 / K5
+    launch splits every block's key tiles into: 1 when KV x row tiles
+    already fill ``PREFILL_SPLIT_BLOCKS_PER_SM`` blocks per SM, else enough
+    to, but never more than the fewest tiles of a block (no split is
+    empty) or ``PREFILL_MAX_SPLITS``.  A function of the shapes and the
+    chunk's host-side bounds, not a setting."""
+    row_tiles = -(-n_valid * G // PREFILL_ROW_TILE)
+    target = PREFILL_SPLIT_BLOCKS_PER_SM * sms
     if row_tiles == 0 or KV * row_tiles >= target:
         return 1
-    fewest = min(ring_prefill_key_tiles(r0, G, start, n_valid, window)
-                 for r0 in range(0, n_valid * G, RING_ROW_TILE))
+    fewest = min(prefill_key_tiles(r0, G, start, n_valid, window)
+                 for r0 in range(0, n_valid * G, PREFILL_ROW_TILE))
     return max(1, min(-(-target // (KV * row_tiles)), fewest,
-                      RING_MAX_SPLITS))
+                      PREFILL_MAX_SPLITS))
+
+
+def _prefill_ws(q, splits: int):
+    """The split partials of a K2 / K5 launch: splits x KV x rows_pad x
+    (hd + 2) fp32, rows_pad = 64 * ceil(S * G / 64); None unsplit."""
+    if splits == 1:
+        return None
+    S, KV, G, hd = q.shape
+    rows_pad = -(-S * G // PREFILL_ROW_TILE) * PREFILL_ROW_TILE
+    return torch.empty(splits * KV * rows_pad * (hd + 2),
+                       dtype=torch.float32, device=q.device)
 
 
 def split_range(n_tiles: int, splits: int, z: int):
-    """Key tiles (K5) or live pages (K1 / K4) ``[lo, hi)`` of split ``z``,
-    as the kernels cut them."""
+    """Key tiles (K2 / K5) or live pages (K1 / K4, K6) ``[lo, hi)`` of split
+    ``z``, as the kernels cut them."""
     return z * n_tiles // splits, (z + 1) * n_tiles // splits
 
 
@@ -341,10 +380,10 @@ def paged_ring_prefill_kernel(q, k_pages, v_pages, chunk_k, chunk_v,
     [S, KV, hd] — the chunk's own keys / values in q's dtype; page_row:
     [n] int32 — the request's ring of cells.  Returns [S, KV, G, hd] in
     q.dtype; rows past ``n_valid`` come back 0 (never read by callers).
-    bf16 runs the tensor-core kernel, its key tiles split by
-    ``ring_prefill_splits`` (``_splits`` overrides that count, for the
-    tests that hold split and unsplit launches together); fp32 the
-    scalar kernel."""
+    bf16 runs the tensor-core body, its key tiles split by
+    ``prefill_splits`` (``_splits`` overrides that count, for the tests
+    that hold split and unsplit launches together); fp32 the scalar
+    kernel."""
     S, KV, G, hd = q.shape
     if q.device.type == "cpu":
         out = paged_ring_prefill_ref(q.reshape(S, KV * G, hd), k_pages,
@@ -356,7 +395,7 @@ def paged_ring_prefill_kernel(q, k_pages, v_pages, chunk_k, chunk_v,
         raise ValueError(f"no paged ring-prefill kernel for {q.device}")
     _check_chunk(q, page_row, start, n_valid)
     quantized = _check_pages(q, k_pages, v_pages, k_scale, v_scale,
-                             RING_PREFILL_HEAD_DIMS)
+                             PREFILL_MMA_HEAD_DIMS)
     for t, name in ((chunk_k, "chunk_k"), (chunk_v, "chunk_v")):
         _check(t, name, q.dtype, q.device, 3)
         if tuple(t.shape) != (S, KV, hd):
@@ -373,22 +412,20 @@ def paged_ring_prefill_kernel(q, k_pages, v_pages, chunk_k, chunk_v,
         raise ValueError(f"ring of {page_row.shape[0]} cells x {ps} does not "
                          f"fit window {window}")
     if q.dtype == torch.bfloat16:
-        splits = _splits or ring_prefill_splits(
-            S, G, KV, start, n_valid, window, _sm_count(q.device.index or 0))
+        splits = _splits or prefill_splits(
+            S, G, KV, start, n_valid, _sm_count(q.device.index or 0),
+            window)
     elif _splits not in (None, 1):
         raise ValueError("only the bf16 kernel splits its key tiles")
     else:
         splits = 1
-    rows_pad = -(-S * G // RING_ROW_TILE) * RING_ROW_TILE
-    ws = (torch.empty(splits * KV * rows_pad * (hd + 2), dtype=torch.float32,
-                      device=q.device) if splits > 1 else None)
     out = torch.empty_like(q)
     fn = _lib("paged_ring_prefill", "paged_ring_prefill_launch",
               [_P] * 10 + [_I] * 12 + [_P])
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              _ptr(k_scale), _ptr(v_scale), chunk_k.data_ptr(),
              chunk_v.data_ptr(), page_row.data_ptr(), out.data_ptr(),
-             _ptr(ws), S, KV, G, hd, ps, page_row.shape[0], int(start),
+             _ptr(_prefill_ws(q, splits)), S, KV, G, hd, ps, page_row.shape[0], int(start),
              int(n_valid), int(window), _DTYPES[q.dtype], int(quantized),
              int(splits), torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "paged_ring_prefill")
@@ -431,13 +468,41 @@ def _check_mla(q_lat, q_rope, ckv_pages, krope_pages):
     return H, R, rp, ps
 
 
+#: the most splits a bf16 K6 launch takes (MD_MAX_SPLITS in
+#: csrc/paged_mla.cu): a slot's splits are one cluster, of portable size
+MLA_MAX_SPLITS = 8
+
+
+def mla_decode_split_cap(n_table: int) -> int:
+    """The most splits a bf16 K6 launch over this table takes: a full
+    slot's split holds at least one page."""
+    return max(1, min(MLA_MAX_SPLITS, n_table))
+
+
+@functools.lru_cache(maxsize=None)
+def mla_decode_splits(slots: int, n_table: int, sms: int) -> int:
+    """How many page ranges (``blockIdx.y``, one cluster a slot) the bf16
+    K6 launch splits every slot's live pages into: about one block per SM
+    over the slots, capped by ``mla_decode_split_cap``, rounded down to a
+    power of two (clusters of 3 or 6 blocks ran slower on the card than 4,
+    PERF.md).  A function of the shapes, never of ``lengths`` (a device
+    value: reading it would sync the host on every layer of every decode
+    step)."""
+    want = min(max(1, sms // slots), mla_decode_split_cap(n_table))
+    return 1 << (want.bit_length() - 1)
+
+
 def paged_mla_kernel(q_lat, q_rope, ckv_pages, krope_pages, page_table,
-                     lengths, *, scale: float):
+                     lengths, *, scale: float, _splits=None):
     """K6.  q_lat: [slots, H, R]; q_rope: [slots, H, rp]; ckv_pages:
     [P, ps, R]; krope_pages: [P, ps, rp]; page_table: [slots, n_table]
     int32; lengths: [slots] int32.  ``scale`` is the qk-dimension softmax
     scale.  Returns the latent output [slots, H, R] in q_lat.dtype (0 for a
-    slot with length 0)."""
+    slot with length 0).  bf16 splits every slot's live pages over
+    ``mla_decode_splits`` blocks, one cluster a slot (``_splits``
+    overrides that count, for the tests that hold split and unsplit
+    launches together), merged in the same launch through the cluster's
+    shared memory; fp32 runs the scalar body, one block a slot."""
     if q_lat.device.type == "cpu":
         return paged_mla_attention_ref(q_lat, q_rope, ckv_pages,
                                        krope_pages, page_table, lengths,
@@ -452,13 +517,26 @@ def paged_mla_kernel(q_lat, q_rope, ckv_pages, krope_pages, page_table,
         raise ValueError(f"shape mismatch: q_lat {tuple(q_lat.shape)}, "
                          f"table {tuple(page_table.shape)}, lengths "
                          f"{tuple(lengths.shape)}")
+    for t, name in ((q_lat, "q_lat"), (q_rope, "q_rope")):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    n_table = page_table.shape[1]
+    if q_lat.dtype == torch.bfloat16:
+        splits = _splits or mla_decode_splits(
+            slots, n_table, _sm_count(q_lat.device.index or 0))
+    elif _splits not in (None, 1):
+        raise ValueError("only the bf16 kernel splits its pages")
+    else:
+        splits = 1
+    if not 1 <= splits <= MLA_MAX_SPLITS:
+        raise ValueError(f"splits {splits} outside 1..{MLA_MAX_SPLITS}")
     out = torch.empty_like(q_lat)
     fn = _lib("paged_mla", "paged_mla_launch",
-              [_P] * 7 + [_I] * 6 + [_F, _I, _P])
+              [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P])
     err = fn(q_lat.data_ptr(), q_rope.data_ptr(), ckv_pages.data_ptr(),
              krope_pages.data_ptr(), page_table.data_ptr(),
              lengths.data_ptr(), out.data_ptr(), slots, H, R, rp, ps,
-             page_table.shape[1], float(scale), _DTYPES[q_lat.dtype],
+             n_table, float(scale), _DTYPES[q_lat.dtype], int(splits),
              torch.cuda.current_stream(q_lat.device).cuda_stream)
     _raise_on(err, "paged_mla")
     paged_mla_kernel.launches += 1

@@ -5,8 +5,8 @@ The bf16 K5 kernel (``csrc/paged_ring_prefill.cu``) walks each block's
 keys by absolute position and, when the card would be short of blocks,
 splits that walk over ``blockIdx.z``; a second kernel merges the splits'
 fp32 partials.  The kernels run only on the card; what decides their work
-is Python here: ``ring_prefill_key_tiles`` (the key range of a block),
-``ring_prefill_splits`` / ``split_range`` (the split) and
+is Python here: ``prefill_key_tiles`` (the key range of a block),
+``prefill_splits`` / ``split_range`` (the split) and
 ``merge_partials_ref`` (the merge's plain version).  Tolerance: the merge
 against a one-pass softmax in fp32, 1e-6 (outputs are averages of N(0, 1)
 values; the two sum the same fp32 terms in another order).
@@ -17,8 +17,9 @@ import torch
 
 from repro_torch.kernels.common import NEG_INF
 from repro_torch.kernels.paged_attention.kernel import (
-    RING_KEY_TILE, RING_MAX_SPLITS, RING_ROW_TILE, RING_SPLIT_BLOCKS_PER_SM,
-    ring_prefill_key_tiles, ring_prefill_splits, split_range)
+    PREFILL_KEY_TILE, PREFILL_MAX_SPLITS, PREFILL_ROW_TILE,
+    PREFILL_SPLIT_BLOCKS_PER_SM,
+    prefill_key_tiles, prefill_splits, split_range)
 from repro_torch.kernels.paged_attention.ref import (merge_partials_ref,
                                                      ring_positions)
 
@@ -64,18 +65,18 @@ def test_key_walk_covers_exactly_the_kept_keys(shape):
     tiles holds a key some row keeps (no dead tile)."""
     S, G, KV, start, n_valid, window, n_cells = shape
     pairs = _plain_keys(S, G, start, n_valid, window, n_cells)
-    for r0 in range(0, S * G, RING_ROW_TILE):
-        tiles = ring_prefill_key_tiles(r0, G, start, n_valid, window)
-        rows = [r for r in range(r0, r0 + RING_ROW_TILE) if r in pairs]
+    for r0 in range(0, S * G, PREFILL_ROW_TILE):
+        tiles = prefill_key_tiles(r0, G, start, n_valid, window)
+        rows = [r for r in range(r0, r0 + PREFILL_ROW_TILE) if r in pairs]
         if not rows:
             assert tiles == 0               # all padding: no key touched
             continue
         lo = max(0, start + r0 // G - window + 1)
         kept = set().union(*(pairs[r] for r in rows))
         assert kept and min(kept) >= lo
-        assert max(kept) < lo + tiles * RING_KEY_TILE
+        assert max(kept) < lo + tiles * PREFILL_KEY_TILE
         for t in range(tiles):
-            tile = range(lo + t * RING_KEY_TILE, lo + (t + 1) * RING_KEY_TILE)
+            tile = range(lo + t * PREFILL_KEY_TILE, lo + (t + 1) * PREFILL_KEY_TILE)
             assert kept.intersection(tile), (r0, t)
 
 
@@ -83,13 +84,13 @@ def test_key_walk_covers_exactly_the_kept_keys(shape):
 @pytest.mark.parametrize("shape", SHAPES)
 def test_splits_cover_every_key_tile_once(shape, sms):
     S, G, KV, start, n_valid, window, _ = shape
-    splits = ring_prefill_splits(S, G, KV, start, n_valid, window, sms)
-    assert 1 <= splits <= RING_MAX_SPLITS
-    row_tiles = -(-n_valid * G // RING_ROW_TILE)
-    if KV * row_tiles >= RING_SPLIT_BLOCKS_PER_SM * sms:
+    splits = prefill_splits(S, G, KV, start, n_valid, sms, window)
+    assert 1 <= splits <= PREFILL_MAX_SPLITS
+    row_tiles = -(-n_valid * G // PREFILL_ROW_TILE)
+    if KV * row_tiles >= PREFILL_SPLIT_BLOCKS_PER_SM * sms:
         assert splits == 1
-    for r0 in range(0, n_valid * G, RING_ROW_TILE):
-        tiles = ring_prefill_key_tiles(r0, G, start, n_valid, window)
+    for r0 in range(0, n_valid * G, PREFILL_ROW_TILE):
+        tiles = prefill_key_tiles(r0, G, start, n_valid, window)
         covered = []
         for z in range(splits):
             lo, hi = split_range(tiles, splits, z)
@@ -102,9 +103,9 @@ def test_verify_rows_take_the_split_path():
     """A verify row on mixtral's ring (8 kv-heads, one 64-row tile) gives 8
     blocks: the split must bring it to about two blocks per SM."""
     for s in range(1, 6):
-        splits = ring_prefill_splits(s, 6, 8, 4210, s, 4096, H100_SMS)
+        splits = prefill_splits(s, 6, 8, 4210, s, H100_SMS, 4096)
         assert splits > 1
-        assert 8 * splits >= RING_SPLIT_BLOCKS_PER_SM * H100_SMS
+        assert 8 * splits >= PREFILL_SPLIT_BLOCKS_PER_SM * H100_SMS
 
 
 def _partials(scores, live, v, bounds):

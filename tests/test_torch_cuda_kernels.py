@@ -15,8 +15,9 @@ of the largest |h| (the same sequential recurrence; expf may differ in the
 last ulp); K10 (fp32) 1e-4 of the largest |out| / |s_last| (the reference
 sums each output over the state column in another order); K4 / K5 / K8
 as K1 / K2 (the same fused int8 dequant in kernel and plain version); K1
-/ K4 / K8 split over pages against unsplit as K1 (the splits' partials
-merge the same fp32 terms in another order).
+/ K4 / K8 and K6 split over pages, and K2 / K8 over key tiles, against
+unsplit as K1 (the splits' partials merge the same fp32 terms in another
+order).
 """
 import numpy as np
 import pytest
@@ -611,7 +612,7 @@ def test_cuda_ring_verify_rows_take_the_split_path(S, int8):
     case = (48, 8, 128, 16, 256, S, 4210, S)
     args, kw = _ring_prefill_args(case, "bfloat16", int8, dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    assert port_kernel.ring_prefill_splits(S, 6, 8, 4210, S, 4096, sms) > 1
+    assert port_kernel.prefill_splits(S, 6, 8, 4210, S, sms, 4096) > 1
     n0 = port_kernel.paged_ring_prefill_kernel.launches
     out = port_ops.paged_ring_prefill(*args, use_kernel=True, **kw)
     want = port_ops.paged_ring_prefill(*args, use_kernel=False, **kw)
@@ -737,4 +738,175 @@ def test_cuda_decode_split_count_does_not_sync_the_host():
     want = port_ops.paged_attention(*args, use_kernel=False, **kw)
     live = args[4] > 0
     torch.testing.assert_close(out[live].float(), want[live].float(),
+                               rtol=0, atol=TOL["bfloat16"])
+
+
+# ---------------------------------------------------------------------------
+# K2 (and its K8 branch) on the tensor cores, split over key tiles; K6 split
+# over pages
+# ---------------------------------------------------------------------------
+
+#: (S, start, n_valid) of qwen's verify rows and prefill buckets (the
+#: kernel phase's K2_CASES in chip_smoke.py) and a verify after a
+#: 480-token prefix, whose 8 key tiles take the split path
+K2_CASES = [(5, 0, 5), (5, 37, 3), (16, 0, 11), (16, 32, 16), (64, 0, 40),
+            (64, 64, 64), (256, 0, 200), (256, 48, 256), (5, 480, 5)]
+
+
+def _k2_args(S, start, n_valid, dtype, int8, dev, KV=8, G=5, hd=128, ps=16,
+             n=32, seed=13):
+    """qwen's prefill geometry on a 32-page table of distinct random pages,
+    the trash page 0 (poisoned) after the chunk's last page."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(S, KV * G, hd)).astype(np.float32)
+    k = rng.normal(size=(n + 8, ps, KV, hd)).astype(np.float32)
+    v = rng.normal(size=(n + 8, ps, KV, hd)).astype(np.float32)
+    k[0], v[0] = 1e4, -1e4
+    table = np.zeros(n, np.int32)
+    held = -(-(start + n_valid) // ps)
+    table[:held] = rng.permutation(n + 7)[:held] + 1
+    if int8:
+        (kp, ks), (vp, vs) = _int8(k, dev), _int8(v, dev)
+        kw = dict(k_scale=ks, v_scale=vs)
+    else:
+        kp, vp, kw = _t(k, dtype, dev), _t(v, dtype, dev), {}
+    return (_t(q, dtype, dev), kp, vp, torch.from_numpy(table).to(dev),
+            start, n_valid), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", K2_CASES)
+def test_cuda_prefill_kernel_at_serving_cases(case, dtype, int8):
+    """K2 (and int8 pages, K8) at every serving shape against its plain
+    version; padding rows come back 0."""
+    dev = _cuda()
+    args, kw = _k2_args(*case, dtype, int8, dev)
+    n_valid = case[2]
+    n0 = port_kernel.paged_prefill_kernel.launches
+    out = port_ops.paged_prefill(*args, use_kernel=True, **kw)
+    want = port_ops.paged_prefill(*args, use_kernel=False, **kw)
+    assert port_kernel.paged_prefill_kernel.launches == n0 + 1
+    torch.testing.assert_close(out[:n_valid].float(),
+                               want[:n_valid].float(), rtol=0,
+                               atol=TOL[dtype])
+    assert (out[n_valid:] == 0).all()
+
+
+#: (S, start, n_valid, KV, G, hd, ps, forced splits): the long-prefix
+#: verify at 8 splits (its own count) and 3, a 64-query bucket whose first
+#: row tile has 2 key tiles, and an hd-64, G-8 chunk
+PREFILL_SPLIT_CASES = [(5, 480, 5, 8, 5, 128, 16, 8),
+                       (5, 480, 5, 8, 5, 128, 16, 3),
+                       (64, 64, 64, 8, 5, 128, 16, 2),
+                       (21, 40, 19, 2, 8, 64, 8, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("case", PREFILL_SPLIT_CASES)
+def test_cuda_prefill_split_matches_unsplit(case, int8):
+    """The split launch (partials + merge) against the unsplit one and the
+    plain version, through the wrapper's internal split count."""
+    dev = _cuda()
+    S, start, n_valid, KV, G, hd, ps, splits = case
+    args, kw = _k2_args(S, start, n_valid, "bfloat16", int8, dev, KV=KV, G=G,
+                        hd=hd, ps=ps, seed=17)
+    q4 = args[0].reshape(S, KV, G, hd)
+    whole = port_kernel.paged_prefill_kernel
+    got = whole(q4, *args[1:], _splits=splits, **kw).reshape(args[0].shape)
+    one = whole(q4, *args[1:], _splits=1, **kw).reshape(args[0].shape)
+    want = port_ops.paged_prefill(*args, use_kernel=False, **kw)
+    for out in (got, one):
+        torch.testing.assert_close(out[:n_valid].float(),
+                                   want[:n_valid].float(), rtol=0,
+                                   atol=TOL["bfloat16"])
+        assert (out[n_valid:] == 0).all()
+    torch.testing.assert_close(got[:n_valid].float(), one[:n_valid].float(),
+                               rtol=0, atol=TOL["bfloat16"])
+
+
+def _mla_split_args(H, R, rp, ps, n, dtype, dev, seed=19):
+    """Eight slots of lengths 0, 1, ps, ps + 1 and a full table among
+    them, distinct pages from 1 up, the trash page 0 poisoned."""
+    rng = np.random.default_rng(seed)
+    lengths = np.asarray([0, 1, ps, ps + 1, n * ps, 3 * ps - 5, 2 * ps,
+                          n * ps - 1], np.int32)
+    table = np.zeros((8, n), np.int32)
+    pid = 1
+    for s, length in enumerate(lengths):
+        for i in range(-(-int(length) // ps)):
+            table[s, i] = pid
+            pid += 1
+    ckv, kr = _mla_pages(rng, 8 * n + 1, ps, R, rp)
+    q_lat = rng.normal(size=(8, H, R)).astype(np.float32)
+    q_rope = rng.normal(size=(8, H, rp)).astype(np.float32)
+    return (_t(q_lat, dtype, dev), _t(q_rope, dtype, dev),
+            _t(ckv, dtype, dev), _t(kr, dtype, dev),
+            torch.from_numpy(table).to(dev),
+            torch.from_numpy(lengths).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["2", "cap"])
+@pytest.mark.parametrize("H,R,rp", MLA_GEOMS)
+@pytest.mark.parametrize("ps", [16, 64])
+def test_cuda_mla_decode_split_matches_unsplit(H, R, rp, ps, which):
+    """The bf16 K6 split launch (partials merged by the last split's block)
+    against the unsplit one and the plain version: 2 splits, and as many as
+    the table has pages (short slots leave splits empty)."""
+    dev = _cuda()
+    n = 6
+    args = _mla_split_args(H, R, rp, ps, n, "bfloat16", dev)
+    splits = 2 if which == "2" else n
+    scale = 192 ** -0.5
+    whole = port_kernel.paged_mla_kernel
+    n0 = whole.launches
+    got = whole(*args, scale=scale, _splits=splits)
+    one = whole(*args, scale=scale, _splits=1)
+    assert whole.launches == n0 + 2
+    want = port_ops.paged_mla_attention(*args, scale=scale, use_kernel=False)
+    live = args[5] > 0
+    for out in (got, one):
+        torch.testing.assert_close(out[live].float(), want[live].float(),
+                                   rtol=0, atol=TOL["bfloat16"])
+        assert (out[~live] == 0).all()          # length 0 comes out 0
+    torch.testing.assert_close(got.float(), one.float(), rtol=0,
+                               atol=TOL["bfloat16"])
+    # the counters are left zero: the same launch again gives the same out
+    again = whole(*args, scale=scale, _splits=splits)
+    torch.testing.assert_close(again, got, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_prefill_and_mla_split_counts_do_not_sync_the_host():
+    """K2's and K6's split counts read shapes (and K2's host-side chunk
+    bounds) only: the wrappers run under ``set_sync_debug_mode("error")``,
+    which raises on any host sync."""
+    dev = _cuda()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert port_kernel.prefill_splits(5, 5, 8, 480, 5, sms) > 1
+    assert port_kernel.mla_decode_splits(8, 8, sms) > 1
+    k2_args, kw = _k2_args(5, 480, 5, "bfloat16", False, dev)
+    mla = _mla_split_args(16, 512, 64, 16, 8, "bfloat16", dev)
+    scale = 192 ** -0.5
+
+    def both():
+        return (port_ops.paged_prefill(*k2_args, use_kernel=True, **kw),
+                port_ops.paged_mla_attention(*mla, scale=scale,
+                                             use_kernel=True))
+    both()                                      # built, warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, out_mla = both()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = port_ops.paged_prefill(*k2_args, use_kernel=False, **kw)
+    torch.testing.assert_close(out.float(), want.float(), rtol=0,
+                               atol=TOL["bfloat16"])
+    want = port_ops.paged_mla_attention(*mla, scale=scale, use_kernel=False)
+    live = mla[5] > 0
+    torch.testing.assert_close(out_mla[live].float(), want[live].float(),
                                rtol=0, atol=TOL["bfloat16"])
