@@ -1,5 +1,6 @@
-// Device body shared by the absorbed-MLA paged kernels (K6 decode in
-// paged_mla.cu, K7 chunked prefill and verify in paged_mla_prefill.cu).
+// Device body shared by the fp32 absorbed-MLA paged kernels (K6 decode in
+// paged_mla.cu, K7 chunked prefill and verify in paged_mla_prefill.cu;
+// their bf16 kernels run on the tensor cores).
 //
 // One block attends ONE query token with all H heads against latent pages:
 // ckv pages [P, ps, R] and krope pages [P, ps, rp] in the compute dtype

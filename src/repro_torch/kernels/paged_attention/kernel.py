@@ -19,7 +19,10 @@
     thread-block cluster a slot, merged in the same launch.
   * ``paged_mla_prefill_kernel`` — K7, absorbed-MLA chunked prefill and
     verify: ``csrc/paged_mla_prefill.cu``, the port of
-    ``paged_mla_prefill_kernel``.
+    ``paged_mla_prefill_kernel``; in bf16 blocks of 4 queries on the
+    tensor cores, every block's key tiles (its last live query's causal
+    horizon, in 32-key tiles) split over ``mla_prefill_splits`` blocks,
+    one thread-block cluster a query block, merged in the same launch.
 
 K8 — int8 pages — is the ``k_scale`` / ``v_scale`` operands of K1, K2, K4
 and K5: int8 k/v pages with one bf16 scale per (page, offset, kv-head)
@@ -468,8 +471,9 @@ def _check_mla(q_lat, q_rope, ckv_pages, krope_pages):
     return H, R, rp, ps
 
 
-#: the most splits a bf16 K6 launch takes (MD_MAX_SPLITS in
-#: csrc/paged_mla.cu): a slot's splits are one cluster, of portable size
+#: the most splits a bf16 K6 / K7 launch takes (MD_MAX_SPLITS in
+#: csrc/paged_mla.cu, MP_MAX_SPLITS in csrc/paged_mla_prefill.cu): a slot's
+#: or a query block's splits are one cluster, of portable size
 MLA_MAX_SPLITS = 8
 
 
@@ -546,15 +550,60 @@ def paged_mla_kernel(q_lat, q_rope, ckv_pages, krope_pages, page_table,
 paged_mla_kernel.launches = 0
 
 
+#: queries a block of the bf16 K7 kernel holds and keys a tile (a round)
+#: of its key walk (MP_QG / MP_KEYS in csrc/paged_mla_prefill.cu)
+MLA_PREFILL_QUERIES, MLA_PREFILL_KEYS = 4, 32
+
+
+def mla_prefill_key_tiles(q0: int, start: int, n_valid: int) -> int:
+    """Key tiles the bf16 K7 block of queries ``[q0, q0 + 4)`` walks: keys
+    ``[0, start + i + 1)`` for ``i`` its last live query (``< n_valid``),
+    its causal horizon, in 32-key tiles; 0 for a block of padding
+    queries."""
+    qv = min(q0 + MLA_PREFILL_QUERIES, n_valid)
+    if qv <= q0:
+        return 0
+    return -(-(start + qv) // MLA_PREFILL_KEYS)
+
+
+#: what the bf16 K7 kernel's cluster merge costs, in key rounds (the
+#: card's forced-split sweep in chip_smoke.py: about one 32-key round)
+MLA_PREFILL_MERGE_ROUNDS = 1
+
+
+@functools.lru_cache(maxsize=None)
+def mla_prefill_splits(S: int, start: int, n_valid: int, sms: int) -> int:
+    """How many key-tile ranges (``blockIdx.y``, one cluster a query block)
+    the bf16 K7 launch splits every query block's key tiles into: the
+    fewest that bring the longest block's rounds plus the merge's
+    (``MLA_PREFILL_MERGE_ROUNDS``, 0 unsplit) to their least, within about
+    one block per SM over the blocks with live queries and
+    ``MLA_MAX_SPLITS``; a block with fewer tiles leaves splits empty.  A
+    function of the shapes and the chunk's host-side bounds (``S`` only
+    bounds ``n_valid``), not a setting, and no host sync."""
+    blocks = range(0, min(S, n_valid), MLA_PREFILL_QUERIES)
+    if not blocks:
+        return 1
+    most = max(mla_prefill_key_tiles(q0, start, n_valid) for q0 in blocks)
+    cap = max(1, min(sms // len(blocks), MLA_MAX_SPLITS))
+    return min(range(1, cap + 1), key=lambda n: (
+        -(-most // n) + (MLA_PREFILL_MERGE_ROUNDS if n > 1 else 0), n))
+
+
 def paged_mla_prefill_kernel(q_lat, q_rope, ckv_pages, krope_pages,
                              page_row, start: int, n_valid: int, *,
-                             scale: float):
+                             scale: float, _splits=None):
     """K7.  q_lat: [S, H, R] — one request's bucketed chunk absorbed
     through W_uk; q_rope: [S, H, rp]; ckv/krope_pages: the latent pool
-    AFTER the chunk's latents were written; page_row: [n] int32; start /
-    n_valid ints.  Returns the latent output [S, H, R] in q_lat.dtype; rows
-    past ``n_valid`` are padding and come back 0 from the kernel (never
-    read by callers)."""
+    AFTER the chunk's latents were written; page_row: [n] int32, ``start
+    + n_valid <= n * ps``; start / n_valid ints.  Returns the latent output
+    [S, H, R] in q_lat.dtype; rows past ``n_valid`` are padding and come
+    back 0 from the kernel (never read by callers).  bf16 runs blocks of 4
+    queries on the tensor cores, every block's key tiles split over
+    ``mla_prefill_splits`` blocks, one cluster a query block (``_splits``
+    overrides that count, for the tests that hold split and unsplit
+    launches together), merged in the same launch through the cluster's
+    shared memory; fp32 runs the scalar body, one block a query."""
     if q_lat.device.type == "cpu":
         return paged_mla_prefill_ref(q_lat, q_rope, ckv_pages, krope_pages,
                                      page_row, start, n_valid, scale=scale)
@@ -566,13 +615,28 @@ def paged_mla_prefill_kernel(q_lat, q_rope, ckv_pages, krope_pages,
     if not 0 <= n_valid <= S or start < 0:
         raise ValueError(f"bad chunk bounds start={start} n_valid={n_valid}"
                          f" for S={S}")
+    if start + n_valid > page_row.shape[0] * ps:
+        raise ValueError(f"chunk end {start + n_valid} past the table's "
+                         f"{page_row.shape[0]} x {ps} cells")
+    for t, name in ((q_lat, "q_lat"), (q_rope, "q_rope")):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    if q_lat.dtype == torch.bfloat16:
+        splits = _splits or mla_prefill_splits(
+            S, int(start), int(n_valid), _sm_count(q_lat.device.index or 0))
+    elif _splits not in (None, 1):
+        raise ValueError("only the bf16 kernel splits its key tiles")
+    else:
+        splits = 1
+    if not 1 <= splits <= MLA_MAX_SPLITS:
+        raise ValueError(f"splits {splits} outside 1..{MLA_MAX_SPLITS}")
     out = torch.empty_like(q_lat)
     fn = _lib("paged_mla_prefill", "paged_mla_prefill_launch",
-              [_P] * 6 + [_I] * 8 + [_F, _I, _P])
+              [_P] * 6 + [_I] * 8 + [_F, _I, _I, _P])
     err = fn(q_lat.data_ptr(), q_rope.data_ptr(), ckv_pages.data_ptr(),
              krope_pages.data_ptr(), page_row.data_ptr(), out.data_ptr(), S,
              H, R, rp, ps, page_row.shape[0], int(start), int(n_valid),
-             float(scale), _DTYPES[q_lat.dtype],
+             float(scale), _DTYPES[q_lat.dtype], int(splits),
              torch.cuda.current_stream(q_lat.device).cuda_stream)
     _raise_on(err, "paged_mla_prefill")
     paged_mla_prefill_kernel.launches += 1

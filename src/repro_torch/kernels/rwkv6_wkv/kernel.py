@@ -2,7 +2,9 @@
 
 ``wkv6_kernel`` launches ``csrc/wkv6.cu``, the port of the TPU kernel
 ``wkv6_padded`` / ``_wkv_kernel`` of the JAX package, in the model layout
-(the CUDA kernel reads [B, S, H, hd] rows directly).  For tensors on the
+(the CUDA kernel reads [B, S, H, hd] rows directly): every (b, h)'s state
+columns split over blocks of 16, each column's rows over threads of 8
+rows, the steps' rows staged into shared memory 32 steps at a time.  For tensors on the
 CPU — and only there — it runs the plain version (``ref.wkv6_model_ref``).  For CUDA tensors it checks device, dtype, shape
 and contiguity, allocates the outputs with ``torch.empty``, launches the
 kernel on the current stream, raises if the launch was refused, and adds
@@ -18,9 +20,12 @@ import torch
 from repro_torch.kernels.common import check_tensor, lib_fn, raise_on
 from repro_torch.kernels.rwkv6_wkv.ref import wkv6_model_ref
 
-#: head sizes the CUDA kernel is instantiated for (one thread per state
-#: column)
+#: head sizes the CUDA kernel is instantiated for
 HEAD_SIZES = (16, 32, 64)
+#: state columns a block of the CUDA kernel holds, state rows a thread
+#: holds (a column's rows split over hd / 8 threads) and steps a staged
+#: chunk (WKV_COLS, WKV_ROWS and WKV_STEPS in csrc/wkv6.cu)
+WKV_COLUMNS, WKV_ROWS, WKV_CHUNK = 16, 8, 32
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -49,6 +54,9 @@ def wkv6_kernel(r, k, v, w, u, s0):
     if hd not in HEAD_SIZES:
         raise ValueError(f"head size {hd} not in the CUDA kernel's "
                          f"{HEAD_SIZES}")
+    for t, name in ((r, "r"), (k, "k"), (v, "v"), (w, "w")):
+        if t.data_ptr() % 16:             # staged by 16-byte copies
+            raise ValueError(f"{name} must be 16-byte aligned")
     out = torch.empty_like(r)
     s_last = torch.empty_like(s0)
     fn = lib_fn("wkv6", "wkv6_launch", [_P] * 8 + [_I] * 4 + [_P])

@@ -12,12 +12,12 @@ may differ by one bf16 ulp); K3's row logsumexp rtol 1e-4 (the same fp32
 terms summed in another order); K3's gradients 1e-4 of their largest
 magnitude (fp32); K6/K7 as K1/K2 (fp32 1e-5, bf16 1e-2); K9 (fp32) 1e-5
 of the largest |h| (the same sequential recurrence; expf may differ in the
-last ulp); K10 (fp32) 1e-4 of the largest |out| / |s_last| (the reference
-sums each output over the state column in another order); K4 / K5 / K8
-as K1 / K2 (the same fused int8 dequant in kernel and plain version); K1
-/ K4 / K8 and K6 split over pages, and K2 / K8 over key tiles, against
-unsplit as K1 (the splits' partials merge the same fp32 terms in another
-order).
+last ulp); K10 (fp32) 1e-4 of the largest |out| (the reference sums each
+output over the state column in another order), its final state exact;
+K4 / K5 / K8 as K1 / K2 (the same fused int8 dequant in kernel and plain
+version); K1 / K4 / K8 and K6 split over pages, and K2 / K8 and K7 over
+key tiles, against unsplit as K1 (the splits' partials merge the same fp32
+terms in another order).
 """
 import numpy as np
 import pytest
@@ -357,10 +357,13 @@ def test_cuda_lru_scan_kernel_matches_plain(B, S, W):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,S,H,hd", [(1, 17, 32, 64), (1, 46, 32, 64),
-                                      (2, 33, 4, 16), (1, 20, 3, 32)])
+                                      (2, 33, 4, 16), (1, 20, 3, 32),
+                                      (1, 200, 32, 64), (2, 71, 3, 64)])
 def test_cuda_wkv6_kernel_matches_plain(B, S, H, hd):
-    """K10 at rwkv6-1.6b's width (H 32, hd 64, B 1) and the smoke shapes,
-    s0 != 0: outputs and the final state."""
+    """K10 at rwkv6-1.6b's width (H 32, hd 64, B 1), past several 32-step
+    staging chunks (S 200, 71), at an odd head count and the smoke shapes,
+    s0 != 0: outputs and the final state — the state bit for bit, since
+    the kernel rounds its update as the plain version does."""
     dev = _cuda()
     rng = np.random.default_rng(S * hd)
 
@@ -376,7 +379,7 @@ def test_cuda_wkv6_kernel_matches_plain(B, S, H, hd):
     assert wkv_kernel.wkv6_kernel.launches == n0 + 1
     want_out, want_s = wkv_ops.wkv6(r, k, v, w, u, s0, use_kernel=False)
     _rel_close(out, want_out, 1e-4)
-    _rel_close(s_last, want_s, 1e-4)
+    assert torch.equal(s_last, want_s)
     # state threading: two launches equal one
     h = S // 2
     o1, s1 = wkv_ops.wkv6(*(x[:, :h] for x in (r, k, v, w)), u, s0,
@@ -910,3 +913,96 @@ def test_cuda_prefill_and_mla_split_counts_do_not_sync_the_host():
     live = mla[5] > 0
     torch.testing.assert_close(out_mla[live].float(), want[live].float(),
                                rtol=0, atol=TOL["bfloat16"])
+
+
+# ---------------------------------------------------------------------------
+# K7 split over key tiles (bf16)
+# ---------------------------------------------------------------------------
+
+def _mla_prefill_args(H, R, rp, S, start, n_valid, dtype, dev, seed=23):
+    """One chunk against a 16-cell-page table whose pages are distinct and
+    random, the trash page 0 poisoned and named by the table's tail."""
+    rng = np.random.default_rng(seed)
+    ps = 16
+    n = -(-(start + n_valid) // ps) + 1
+    ckv, kr = _mla_pages(rng, n + 4, ps, R, rp)
+    table = np.zeros(n, np.int32)
+    table[:n - 1] = rng.permutation(n + 3)[:n - 1] + 1
+    q_lat = rng.normal(size=(S, H, R)).astype(np.float32)
+    q_rope = rng.normal(size=(S, H, rp)).astype(np.float32)
+    return (_t(q_lat, dtype, dev), _t(q_rope, dtype, dev),
+            _t(ckv, dtype, dev), _t(kr, dtype, dev),
+            torch.from_numpy(table).to(dev), start, n_valid)
+
+
+#: (S, start, n_valid): the verify after a 100-token prefix (4 key tiles a
+#: query block), a ragged verify, a bucket with a padded tail and a
+#: partial last query block
+MLA_PREFILL_SPLIT_CASES = [(5, 100, 5), (5, 37, 3), (16, 32, 14),
+                           (7, 200, 6)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [2, 3, 8])
+@pytest.mark.parametrize("H,R,rp", MLA_GEOMS)
+@pytest.mark.parametrize("case", MLA_PREFILL_SPLIT_CASES)
+def test_cuda_mla_prefill_split_matches_unsplit(case, H, R, rp, splits):
+    """The bf16 K7 launch at forced split counts (the splits of a query
+    block merged over the cluster's shared memory; 8 splits of 2-7 key
+    tiles leave splits empty) against the unsplit launch and the plain
+    version; padding rows come back 0."""
+    dev = _cuda()
+    args = _mla_prefill_args(H, R, rp, *case, "bfloat16", dev)
+    scale = 192 ** -0.5
+    whole = port_kernel.paged_mla_prefill_kernel
+    n0 = whole.launches
+    got = whole(*args, scale=scale, _splits=splits)
+    one = whole(*args, scale=scale, _splits=1)
+    assert whole.launches == n0 + 2
+    want = port_ops.paged_mla_prefill(*args, scale=scale, use_kernel=False)
+    n_valid = case[2]
+    for out in (got, one):
+        torch.testing.assert_close(out[:n_valid].float(),
+                                   want[:n_valid].float(), rtol=0,
+                                   atol=TOL["bfloat16"])
+        assert (out[n_valid:] == 0).all()
+    torch.testing.assert_close(got.float(), one.float(), rtol=0,
+                               atol=TOL["bfloat16"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_mla_prefill_long_verify_takes_the_split_path(dtype):
+    """The long-prefix verify through the public entry point: bf16 splits
+    (``mla_prefill_splits`` > 1, read from shapes only: the call runs under
+    ``set_sync_debug_mode("error")``), fp32 runs the scalar body; both
+    within their tolerance of the plain version."""
+    dev = _cuda()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert port_kernel.mla_prefill_splits(5, 100, 5, sms) > 1
+    args = _mla_prefill_args(16, 512, 64, 5, 100, 5, dtype, dev)
+    scale = 192 ** -0.5
+    port_ops.paged_mla_prefill(*args, scale=scale, use_kernel=True)
+    torch.cuda.synchronize()                    # built, warm
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = port_ops.paged_mla_prefill(*args, scale=scale, use_kernel=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = port_ops.paged_mla_prefill(*args, scale=scale, use_kernel=False)
+    torch.testing.assert_close(out.float(), want.float(), rtol=0,
+                               atol=TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_cuda_mla_prefill_wrapper_rejects_what_the_kernel_does_not_take():
+    dev = _cuda()
+    args = _mla_prefill_args(4, 32, 8, 5, 37, 3, "float32", dev)
+    with pytest.raises(ValueError, match="only the bf16 kernel splits"):
+        port_kernel.paged_mla_prefill_kernel(*args, scale=0.1, _splits=2)
+    bf = tuple(a.bfloat16() if torch.is_tensor(a) and a.is_floating_point()
+               else a for a in args)
+    with pytest.raises(ValueError, match="splits 9 outside"):
+        port_kernel.paged_mla_prefill_kernel(*bf, scale=0.1, _splits=9)
+    with pytest.raises(ValueError, match="past the table"):
+        port_kernel.paged_mla_prefill_kernel(*bf[:5], 60, 5, scale=0.1)
