@@ -18,22 +18,22 @@ Phases, in order; any failure exits non-zero:
    autograd Function's gradients against autograd through the plain
    version, and recurrentgemma's local attention at hd 256; K6, K7:
    deepseek serving, absorbed MLA on latent pages; K9: the RG-LRU scan at
-   recurrentgemma's width; K10: the RWKV-6 WKV recurrence at rwkv6's, with
-   s0 != 0; K4 / K5: mixtral's ring decode, lengths on both sides of its
-   4096-token window, and ring chunked prefill, a 1024-query chunk that
-   wraps the ring and a verify row (the bf16 kernel's split path), both
-   reported; K8: int8 pages in K1, K2 at qwen's shapes and K4, K5 at
-   mixtral's; in bf16, and checked in fp32 — K1 / K4 / K8 within 1e-5
-   there; K7 also at forced split counts, with a forced-split sweep of
-   its long verify), with its time beside the plain version's (K1 / K4 /
-   K8 also with their split count, CUDA launches a call and registers and
-   spills; K1, K2, K4, K6, K7, K9, K10 and the K8 branches also with their
-   device time alone, ``device_ms``, beside the library call's where
-   there is one), a
-   bytes/operations
-   bound, and, where one exists, one PyTorch library call computing the
-   same function as a yardstick (timed here only; the port never calls
-   it);
+   recurrentgemma's width, also at forced splits (1-8 warps a block, 16
+   super-chunks), bit for bit where one warp's run holds the sequence,
+   with forced-split sweeps at S 2049 and 46; K10: the RWKV-6 WKV
+   recurrence at rwkv6's, with s0 != 0; K4 / K5: mixtral's ring decode,
+   lengths on both sides of its 4096-token window, and ring chunked
+   prefill, a 1024-query chunk that wraps the ring and a verify row (the
+   bf16 kernel's split path), both reported; K8: int8 pages in K1, K2 at
+   qwen's shapes and K4, K5 at mixtral's; in bf16, and checked in fp32 —
+   K1 / K4 / K8 within 1e-5 there; K7 also at forced split counts, with a
+   forced-split sweep of its long verify), with its time beside the plain
+   version's (K1 / K4 / K8 also with their split count, CUDA launches a
+   call and registers and spills; K1, K2, K4, K6, K7, K9, K10 and the K8
+   branches also with their device time alone, ``device_ms``, beside the
+   library call's where there is one), a bytes/operations bound, and,
+   where one exists, one PyTorch library call computing the same function
+   as a yardstick (timed here only; the port never calls it);
 4. serve — full-width ``qwen2.5-14b`` (random weights from a seed) served
    through ``repro_torch.api.load(...).serve`` with the kernels on: a
    shared page-aligned prefix (prefix-cache hit) and a repetitive prompt
@@ -70,9 +70,11 @@ Phases, in order; any failure exits non-zero:
    greedy streams match or part only at fp32 near-ties;
 9. recurrent serve — full-width ``recurrentgemma-2b`` and ``rwkv6-1.6b``
    (random weights from a seed) served like qwen on the slotted pool
-   (``kv_layout="auto"``), kernels on: every count zeroed just before and
-   read just after; K9 must be launched 18 times, K3 8 times (rg) and K10
-   24 times (rwkv) per prefill; the drive again with every K3 / K9 / K10
+   (``kv_layout="auto"``), kernels on, recurrentgemma's requests with a
+   seventh of 2,100 tokens past its 2048-token local window: every count
+   zeroed just before and read just after; K9 must be launched 18 times,
+   K3 8 times (rg) and K10 24 times (rwkv) per prefill; the drive again
+   with every K3 / K9 / K10
    launch held against its plain version on that launch's inputs; the
    ``use_kernels=False`` arm, whose partings are printed; a profile of
    the drive;
@@ -1041,14 +1043,20 @@ def _rel_err(out, want):
     return err, err / max(1.0, want.float().abs().max().item())
 
 
-def k9_case(torch, gen, B, S, W):
+def k9_case(torch, gen, B, S, W, split=None, exact=False, timed=True):
     """K9 at recurrentgemma-2b's prefill shape: log_a <= 0 and x [B, S, W]
-    fp32 (the gates' outputs), h_{-1} = 0."""
+    fp32 (the gates' outputs), h_{-1} = 0; at the split the wrapper picks,
+    or checked only at a forced ``split`` (``exact``: one warp's run holds
+    the sequence, so the result must be the plain version's bit for
+    bit)."""
+    from repro_torch.kernels.rglru_scan import kernel as lk
     from repro_torch.kernels.rglru_scan import ops, ref
     la = -torch.randn((B, S, W), generator=gen, device="cuda").abs()
     x = torch.randn((B, S, W), generator=gen, device="cuda")
 
     def kern():
+        if split:
+            return lk.lru_scan_kernel(la, x, _splits=split)
         return ops.lru_scan(la, x, use_kernel=True)
 
     def plain():
@@ -1057,13 +1065,48 @@ def k9_case(torch, gen, B, S, W):
     out, want = kern(), plain()
     torch.cuda.synchronize()
     err, rel = _rel_err(out, want)
+    picked = (lk.lru_scan_splits(S) if hasattr(lk, "lru_scan_splits")
+              else None)
+    case = dict(case=f"B={B} S={S} W={W} fp32"
+                     + (f" split {tuple(split or picked)}" if picked else "")
+                     + (" (forced)" if split else "")
+                     + (", bit for bit" if exact else ""),
+                max_abs_err=err, rel_err=rel, rel_tol=0.0 if exact
+                else LRU_RTOL)
+    if not timed:
+        return case
     n = B * S * W
     b_ms, b_by = bound(12 * n, 3 * n, FP32_FLOPS_PER_S)
-    return dict(case=f"B={B} S={S} W={W} fp32", max_abs_err=err,
-                rel_err=rel, rel_tol=LRU_RTOL, ms=time_ms(torch, kern),
+    return dict(case, ms=time_ms(torch, kern),
                 plain_ms=time_ms(torch, plain), bound_ms=b_ms, bound_by=b_by,
                 library_ms=None, device_ms=device_ms(torch, kern),
                 library_device_ms=None)
+
+
+def k9_split_sweep(torch, gen, B, S, W):
+    """K9's device time at forced splits — super-chunks (the steps
+    balanced over them) and warps a block, ``K9_SWEEP`` — beside its bytes
+    bound: the data behind ``lru_scan_splits``."""
+    import itertools
+    from repro_torch.kernels.rglru_scan import kernel as lk
+    la = -torch.randn((B, S, W), generator=gen, device="cuda").abs()
+    x = torch.randn((B, S, W), generator=gen, device="cuda")
+    b_ms, _ = bound(12 * B * S * W, 3 * B * S * W, FP32_FLOPS_PER_S)
+    picked = lk.lru_scan_splits(S)
+    splits = {picked}
+    for n, w in itertools.product(*K9_SWEEP):
+        sp = lk.lru_scan_splits(S, chunks=n, warps=w)
+        if lk.lru_scan_smem(S, sp) <= lk.LRU_SMEM_MAX:
+            splits.add(sp)
+    sweep = {tuple(sp): device_ms(torch, lambda sp=sp: (
+        lk.lru_scan_kernel(la, x, _splits=sp))) for sp in sorted(splits)}
+    best = min(sweep, key=sweep.get)
+    log(f"K9 device ms by forced split (warps, steps) at "
+        f"{(B, S, W)}, bound {b_ms:.5f}; the wrapper picks {tuple(picked)} "
+        f"({sweep[tuple(picked)]:.4f}, {sweep[tuple(picked)] / b_ms:.2f}x "
+        f"bound), the fastest {best} ({sweep[best]:.4f}, "
+        f"{sweep[best] / b_ms:.2f}x bound): "
+        + ", ".join(f"{k}: {t:.4f}" for k, t in sweep.items()))
 
 
 def k10_case(torch, gen, B, S, H, hd):
@@ -1101,9 +1144,24 @@ def k10_case(torch, gen, B, S, H, hd):
 
 
 #: (B, S, W): recurrentgemma-2b's lru width at the drive's prompt lengths
-#: (17, 46; 46 reported) and past the attention window, plus a ragged W
-K9_CASES = ((1, 17, 2560), (1, 46, 2560), (1, 2049, 2560), (1, 46, 2500))
+#: (17, 46; 46 reported), past the attention window and at the drive's
+#: 2,100-token request, plus a ragged W
+K9_CASES = ((1, 17, 2560), (1, 46, 2560), (1, 2049, 2560), (1, 46, 2500),
+            (1, 2100, 2560))
 K9_REPORTED = (1, 46, 2560)
+#: forced splits K9 is checked at (every ``K9_CASES`` shape): 1, 2, 4 and
+#: 8 warps a block (the super-chunks then follow the rule), and 16
+#: super-chunks of the picked warps; and the sweep's super-chunks and
+#: warps a block
+K9_FORCED = ({"warps": 1}, {"warps": 2}, {"warps": 4}, {"warps": 8},
+             {"chunks": 16})
+K9_SWEEP = ((1, 2, 3, 4, 5, 6, 8, 10, 12, 16, 24, 32), (2, 4, 8, 12, 16))
+#: the sweep's shapes: past the window and the drive's prompts at
+#: recurrentgemma's width
+K9_SWEEP_SHAPES = ((1, 2049, 2560), (1, 46, 2560))
+#: (B, S, W) where one warp's run holds the whole sequence: checked bit for
+#: bit against the plain version
+K9_EXACT = ((1, 1, 2560), (1, 17, 2560), (1, 46, 2560))
 #: (B, S, H, hd): rwkv6-1.6b's heads at the drive's prompt lengths (46
 #: reported) and past the kernel's 32-step staging chunk
 K10_CASES = ((1, 17, 32, 64), (1, 46, 32, 64), (1, 200, 32, 64))
@@ -1217,7 +1275,21 @@ def _rows_k7(torch, F, gen):
 
 
 def _rows_k9(torch, F, gen):
-    return {"lru_scan": [k9_case(torch, gen, *c) for c in K9_CASES]}
+    """K9 timed at every ``K9_CASES`` shape; where the wrapper takes a
+    split, checked at forced splits (``K9_FORCED``) at every shape and bit
+    for bit at the one-run shapes; the forced-split sweeps
+    (``K9_SWEEP_SHAPES``)."""
+    from repro_torch.kernels.rglru_scan import kernel as lk
+    rows = [k9_case(torch, gen, *c) for c in K9_CASES]
+    if hasattr(lk, "lru_scan_splits"):
+        rows += [k9_case(torch, gen, B, S, W, timed=False,
+                         split=lk.lru_scan_splits(S, **force))
+                 for B, S, W in K9_CASES for force in K9_FORCED]
+        rows += [k9_case(torch, gen, B, S, W, split=lk.LruSplit(1, S),
+                         exact=True, timed=False) for B, S, W in K9_EXACT]
+        for c in K9_SWEEP_SHAPES:
+            k9_split_sweep(torch, gen, *c)
+    return {"lru_scan": rows}
 
 
 def _rows_k10(torch, F, gen):
@@ -1272,7 +1344,7 @@ def recurrent_summary(rows):
         for c, r in zip(cases, rows.get(key, ())):
             log(f"{name} {c}: device {r['device_ms']:.4f} ms (events "
                 f"{r['ms']:.4f}), bound {r['bound_ms']:.5f} "
-                f"({r['device_ms'] / r['bound_ms']:.0f}x)")
+                f"({r['device_ms'] / r['bound_ms']:.2f}x)")
 
 
 def kernels_only_phase(torch, F, names):
@@ -1435,10 +1507,13 @@ REPETITIVE = {"qwen2.5-14b": [11, 12, 13, 14, 15, 16] * 6,
 #: mixtral-8x22b at full width cut to 4 of its 56 layers (10.4 B
 #: parameters, 19.4 GiB in bf16); its seventh request, 4,200 tokens in
 #: 1024-token chunks, wraps the 4096-token ring in its fifth chunk and in
-#: decode, so K4 and K5 run ring arithmetic and the pool rotates cells
+#: decode, so K4 and K5 run ring arithmetic and the pool rotates cells;
+#: recurrentgemma-2b's, 2,100 tokens, runs its whole-prompt prefill past
+#: the 2048-token local window: K9 at S 2100 (the scan's long-S split) and
+#: K3 over a window shorter than the prompt
 LOAD_KW = {"mixtral-8x22b": {"num_layers": 4}}
 DRIVE_KW = {"mixtral-8x22b": {"prefill_chunk_tokens": 1024}}
-LONG_PROMPT = {"mixtral-8x22b": 4200}
+LONG_PROMPT = {"mixtral-8x22b": 4200, "recurrentgemma-2b": 2100}
 #: the drives whose first (cold) run is profiled: mixtral's long prompt
 #: goes through K5 chunk by chunk only there
 COLD_PROFILE = ("mixtral-8x22b",)

@@ -340,19 +340,35 @@ def _rel_close(got, want, rtol):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,S,W", [(1, 17, 2560), (1, 2049, 2560),
-                                   (2, 100, 129), (3, 1, 1000)])
-def test_cuda_lru_scan_kernel_matches_plain(B, S, W):
-    """K9 at recurrentgemma's width (W 2560, B 1) and ragged shapes."""
+@pytest.mark.parametrize("B,S,W,chunks,warps", [
+    (1, 17, 2560, None, None), (1, 2049, 2560, None, None),
+    (2, 100, 129, None, None), (3, 1, 1000, None, None),
+    (1, 1, 2560, None, None), (3, 2100, 2560, None, None),
+    (1, 2049, 2560, 5, 16), (1, 2049, 2560, 8, 8),
+    (1, 2049, 2560, 16, 4), (1, 2049, 2560, 32, 2),
+    (1, 2100, 2560, 6, 4), (2, 300, 129, 4, 2),
+    (1, 46, 2560, 1, 1), (2, 17, 2500, 1, 1)])
+def test_cuda_lru_scan_kernel_matches_plain(B, S, W, chunks, warps):
+    """K9 at recurrentgemma's width (W 2560, B 1) and ragged shapes, at the
+    split the wrapper picks and at forced ones: 1-16 warps a block, runs
+    whose sequence crosses 4-32 super-chunks (S 2100 in 6 of them, and W
+    129, the 4-byte staging path, in 4), a batch of 3, one step.  Where
+    one warp's run holds the whole sequence, the plain version's result
+    bit for bit."""
     dev = _cuda()
     rng = np.random.default_rng(S + W)
     la = torch.from_numpy(-np.abs(rng.normal(size=(B, S, W))).astype(
         np.float32)).to(dev)
     x = torch.from_numpy(rng.normal(size=(B, S, W)).astype(np.float32)).to(dev)
+    split = lru_kernel.lru_scan_splits(S, chunks=chunks, warps=warps)
     n0 = lru_kernel.lru_scan_kernel.launches
-    got = lru_ops.lru_scan(la, x, use_kernel=True)
+    got = (lru_ops.lru_scan(la, x, use_kernel=True) if chunks is None
+           else lru_kernel.lru_scan_kernel(la, x, _splits=split))
     assert lru_kernel.lru_scan_kernel.launches == n0 + 1
-    _rel_close(got, lru_scan_ref(la, x), 1e-5)
+    want = lru_scan_ref(la, x)
+    if split.steps >= S:
+        assert torch.equal(got, want)
+    _rel_close(got, want, 1e-5)
 
 
 @pytest.mark.cuda
