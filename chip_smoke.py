@@ -56,7 +56,24 @@ Phases, in order; any failure exits non-zero:
    steps x layers x (2 under remat, which runs each layer's forward
    again in the backward); one more step runs under the profiler for K3's
    share of device time.  Then the plain arm (``use_kernels=False``) from
-   the same init: step-1 loss and grad norm agree, and its loss falls too;
+   the same init: step-1 loss and grad norm agree, and its loss falls too.
+   In the same process group: checkpoint / resume on ``recurrentgemma-2b``
+   cut to one super-block (an uninterrupted ``train(6)``; ``train(3, ckpt_dir,
+   ckpt_every=3)``; a new Session's ``train(3, ckpt_dir, resume=True)``
+   equals its steps 4-6 within rel 1e-5; save sizes and times printed);
+   the paper's AlexNet at full size (227 x 227 x 3, 1000 classes, 62.4 M
+   parameters, fp32, TF32 off and printed) through ``TransparentTrainer``,
+   6 momentum steps of one repeated batch of 128 (the loss must fall),
+   step-1 loss on the first 8 images equal to the CPU port's (rel 1e-4),
+   the steady step against its operations bound, one profiled step; then
+   TinyCNN's 6 steps against the CPU port's curve; then the moe, hybrid
+   and ssm families through ``Session.train(3, seq_len=512,
+   global_batch=2)`` at full width cut in depth (deepseek-v2-lite-16b 27
+   -> 2 layers, recurrentgemma-2b to one super-block, rwkv6-1.6b 24 -> 4),
+   the losses fall, K9 and K10 never launch, K3 launches steps x
+   attention layers x 2 (remat), one profiled step each; recurrentgemma,
+   whose training launches K3, again with ``use_kernels=False`` from the
+   same init: step-1 loss and grad norm agree (rel 2e-3 / 1e-2);
 7. deepseek serve — full-width ``deepseek-v2-lite-16b`` (27 layers, MLA
    with kv_lora_rank 512, 64 experts top-6 + 2 shared; random weights from
    a seed) served like qwen above with the kernels on (K6 decode, K7
@@ -109,7 +126,8 @@ K10; the K8 branches come with K1, K2, K4 and K5) at the kernel phase's
 cases, from
 the package under SRC (default this checkout's ``src``): two checkouts'
 kernels side by side in one call.  ``--decode-kernels [SRC]`` is
-``--kernels K1,K4 [SRC]``.
+``--kernels K1,K4 [SRC]``.  ``--train`` builds the kernels and runs the
+train phase (6-7) alone.
 
 Exits with code 2 and prints no result when CUDA is unavailable.
 """
@@ -2179,6 +2197,13 @@ def train_phase(torch, card):
     try:
         kern = train_arm(torch, card, use_kernels=True)
         plain = train_arm(torch, card, use_kernels=False)
+        t0 = time.perf_counter()
+        checkpoint_drive(torch, card)
+        alexnet_drive(torch, card)
+        kern["launches"] += family_train_drives(torch, card)
+        log(f"train phase, added drives (checkpoint, AlexNet, TinyCNN, "
+            f"deepseek / recurrentgemma / rwkv6 train): "
+            f"{time.perf_counter() - t0:.1f} s wall [{card}]")
     finally:
         dist.destroy_process_group()
         pg_file.unlink(missing_ok=True)
@@ -2194,6 +2219,345 @@ def train_phase(torch, card):
         raise AssertionError("the kernel and plain train arms disagree at "
                              "step 1")
     return kern
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the paper's CNNs, the moe / hybrid / ssm families and
+# checkpoint / resume, trained on the card (inside phase 6's process group)
+# ---------------------------------------------------------------------------
+
+#: the device of the drives below
+DEVICE = "cuda"
+#: AlexNet (the paper's Table II network) at full size: 227 x 227 x 3
+#: images (the only size the reference's f6 takes), 1000 classes, fp32,
+#: momentum; one seeded batch, repeated, so the loss must fall
+ALEX_BATCH, ALEX_STEPS, ALEX_LR, ALEX_CHECK = 128, 6, 1e-2, 8
+#: step-1 loss on the first ALEX_CHECK images, card against the CPU port
+#: (TF32 off: the same fp32 ops, summed in other orders)
+ALEX_LOSS_RTOL = 1e-4
+#: TinyCNN (Fig. 7's network): its 6-step curve, card against CPU
+TINY_ATOL = 1e-4
+#: the moe, hybrid and ssm families at full width, cut in depth: (arch,
+#: ``load`` overrides, what the cut keeps)
+FAMILY_TRAIN = (
+    ("deepseek-v2-lite-16b", {"num_layers": 2},
+     "2 of 27 layers, both MoE"),
+    ("recurrentgemma-2b", {"num_layers": 3},
+     "one super-block (rec, rec, attn) of 26 layers"),
+    ("rwkv6-1.6b", {"num_layers": 4}, "4 of 24 layers"))
+FAMILY_STEPS, FAMILY_SEQ, FAMILY_BATCH = 3, 512, 2
+#: checkpoint drive: recurrentgemma as its family drive cuts it (a
+#: checkpoint of fp32 masters and Adam moments is 12 bytes a parameter:
+#: 10.9 GB here, 32 GB for the 4-layer qwen drive, two saves of which
+#: would nearly fill the card machine's 75 GB of free disk), and the
+#: resumed losses 4-6 against the uninterrupted run's
+CKPT_ARCH = FAMILY_TRAIN[1]
+CKPT_RTOL = 1e-5
+
+
+def alexnet_macs(hw=227):
+    """Multiply-adds of one AlexNet forward per image (convolutions and
+    dense layers; pools and ReLUs are not counted)."""
+    def conv(h, k, s, cin, cout, pad):
+        o = (h + 2 * pad - k) // s + 1
+        return o, o * o * cout * k * k * cin
+    h, c1 = conv(hw, 11, 4, 3, 96, 0)             # 55
+    h = (h - 3) // 2 + 1                           # 27
+    h, c2 = conv(h, 5, 1, 96, 256, 2)
+    h = (h - 3) // 2 + 1                           # 13
+    _, c3 = conv(h, 3, 1, 256, 384, 1)
+    _, c4 = conv(h, 3, 1, 384, 384, 1)
+    _, c5 = conv(h, 3, 1, 384, 256, 1)
+    return c1 + c2 + c3 + c4 + c5 + 9216 * 4096 + 4096 * 4096 + 4096 * 1000
+
+
+def step_profile(torch, step, what, marks=()):
+    """One more training step (``step()``) under the profiler: the
+    device's busy share of its wall time and where the device time goes."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    report_profile(device_kernels(torch, prof), wall, what, marks)
+
+
+def _cnn_trainer(torch, arch, specs, forward, classes, batch, lr, device):
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import (MeshConfig, OptimizerConfig,
+                                          RunConfig, ShapeConfig)
+    from repro_torch.core.transparent import TransparentTrainer
+    from repro_torch.models import cnn
+    run = RunConfig(model=get_config(arch),
+                    shape=ShapeConfig(arch, "train", 0, batch),
+                    mesh=MeshConfig(shape=(1, 1), axis_names=("data", "model")),
+                    optimizer=OptimizerConfig(name="momentum", lr=lr))
+    loss_fn = lambda p, b: cnn.cnn_loss(forward, p, b, classes)
+    return TransparentTrainer(run, loss_fn, specs, device=device), loss_fn
+
+
+def _image_batch(torch, n, hw, classes, seed):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return {"images": torch.from_numpy(
+        rng.normal(size=(n, hw, hw, 3)).astype(np.float32)),
+        "labels": torch.from_numpy(rng.integers(0, classes, (n,)))}
+
+
+def alexnet_drive(torch, card):
+    """AlexNet at full size through ``TransparentTrainer`` in the one-rank
+    NCCL group: step-1 loss against the CPU port on the first images, 6
+    steps on one repeated batch (the loss must fall), the steady step time
+    against its operations bound, then TinyCNN's 6 steps against the CPU
+    port's sequential steps."""
+    from repro_torch.core.transparent import _value_and_grad
+    from repro_torch.models import cnn
+    from repro_torch.models.common import init_params, tree_leaves, tree_map
+    from repro_torch.optim.optimizers import (clip_by_global_norm,
+                                              make_optimizer)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"TF32: torch.backends.cuda.matmul.allow_tf32="
+        f"{torch.backends.cuda.matmul.allow_tf32}, torch.backends.cudnn."
+        f"allow_tf32={torch.backends.cudnn.allow_tf32}")
+    specs = cnn.alexnet_specs(1000)
+    params = init_params(specs, torch.Generator().manual_seed(SEED),
+                         dtype=torch.float32)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    batch = _image_batch(torch, ALEX_BATCH, 227, 1000, SEED + 5)
+    tr, loss_fn = _cnn_trainer(torch, "alexnet", specs, cnn.alexnet_forward,
+                               1000, ALEX_BATCH, ALEX_LR, DEVICE)
+    head = {k: v[:ALEX_CHECK] for k, v in batch.items()}
+    with torch.no_grad():
+        cpu_loss = float(loss_fn(params, head))
+        card_loss = float(loss_fn(tree_map(lambda t: t.to(DEVICE), params),
+                                  {k: v.to(DEVICE) for k, v in head.items()}))
+    rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    log(f"alexnet step-1 loss on the first {ALEX_CHECK} images: card "
+        f"{card_loss:.6f}, CPU port {cpu_loss:.6f}, rel diff {rel:.3g} (tol "
+        f"{ALEX_LOSS_RTOL:g})")
+    if not rel <= ALEX_LOSS_RTOL:
+        raise AssertionError("AlexNet's loss on the card is not the CPU "
+                             "port's")
+    torch.cuda.reset_peak_memory_stats()
+    state = tr.init(params=params)
+    b = {k: v.to(DEVICE) for k, v in batch.items()}
+    losses, times = [], []
+    for _ in range(ALEX_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = tr.step(state, b)
+        losses.append(float(m["loss"]))         # waits for the step
+        times.append(time.perf_counter() - t0)
+    steady = sorted(times[1:])[len(times[1:]) // 2]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    flops = 3 * 2 * alexnet_macs() * ALEX_BATCH
+    bound_ms = flops / FP32_FLOPS_PER_S * 1e3
+    log(f"alexnet train (227x227x3, 1000 classes, {n_params} params, fp32 "
+        f"masters and compute, momentum lr {ALEX_LR}, batch {ALEX_BATCH}, "
+        f"1-rank NCCL group): losses {[round(x, 4) for x in losses]}; "
+        f"step 1 {times[0] * 1e3:.1f} ms, steady step (median of steps "
+        f"2-{ALEX_STEPS}) {steady * 1e3:.2f} ms = "
+        f"{ALEX_BATCH / steady:.0f} images/s; operations bound "
+        f"{bound_ms:.2f} ms ({flops / 1e12:.3f} TFLOP at 67 TFLOP/s fp32); "
+        f"peak {peak:.2f} GiB [{card}]")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"AlexNet's loss did not fall: {losses}")
+    step_profile(torch, lambda: tr.step(state, b), "alexnet train step")
+    del state, b
+    # TinyCNN (Fig. 7's network): the card's curve against the CPU port's
+    tspecs = cnn.tinycnn_specs(10)
+    tparams = init_params(tspecs, torch.Generator().manual_seed(SEED),
+                          dtype=torch.float32)
+    tb = _image_batch(torch, 8, 16, 10, SEED + 6)
+    ttr, tloss = _cnn_trainer(torch, "tinycnn", tspecs, cnn.tinycnn_forward,
+                              10, 8, 1e-2, DEVICE)
+    st = ttr.init(params=tparams)
+    bd = {k: v.to(DEVICE) for k, v in tb.items()}
+    on_card = [float(ttr.step(st, bd)[1]["loss"])
+               for _ in range(ALEX_STEPS)]
+    # the CPU port's sequential step, as the trainer takes it with one
+    # replica (no process group here: NCCL has no CPU backend)
+    ocfg = ttr.run_cfg.optimizer
+    opt = make_optimizer(ocfg)
+    p = tree_map(lambda t: t.clone(), tparams)
+    o, cpu = opt.init(p), []
+    for _ in range(ALEX_STEPS):
+        loss, g = _value_and_grad(tloss, p, tb)
+        if ocfg.grad_clip:
+            clip_by_global_norm(g, ocfg.grad_clip)
+        p, o = opt.update(g, o, p)
+        cpu.append(float(loss))
+    gap = max(abs(a - c) for a, c in zip(on_card, cpu))
+    log(f"tinycnn train (16x16x3, 10 classes, momentum lr 1e-2, batch 8): "
+        f"card {[round(x, 5) for x in on_card]}, CPU port max diff "
+        f"{gap:.3g} (tol {TINY_ATOL:g})")
+    if not gap <= TINY_ATOL or not on_card[-1] < on_card[0]:
+        raise AssertionError("TinyCNN on the card is not the CPU port's")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(steady_s=steady, peak=peak, losses=losses)
+
+
+def _token_batch_dataset(vocab, batch, seq, seed):
+    import numpy as np
+    from repro_torch.data.readers import DataSet
+    toks = np.random.default_rng(seed).integers(
+        0, vocab, (batch, seq + 1), dtype=np.int32)
+    return DataSet(training_data=toks[:, :-1], training_labels=toks[:, 1:])
+
+
+def family_train_arm(torch, card, arch, overrides, cut, use_kernels):
+    """``Session.train`` of one family cut in depth: 1 step, then
+    FAMILY_STEPS - 1 (the stream continues), on one repeated batch; K3 /
+    K9 / K10 counted over those steps."""
+    from repro_torch import api
+    sess = api.load(arch, device=DEVICE, seed=SEED, **overrides)
+    cfg = sess.model
+    ds = _token_batch_dataset(cfg.vocab_size, FAMILY_BATCH, FAMILY_SEQ,
+                              SEED + 7)
+    kw = dict(seq_len=FAMILY_SEQ, global_batch=FAMILY_BATCH, lr=TRAIN_LR,
+              data=ds, use_kernels=use_kernels)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    first = sess.train(1, **kw)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    rest = sess.train(FAMILY_STEPS - 1, **kw)
+    torch.cuda.synchronize()
+    steady = (time.perf_counter() - t1) / (FAMILY_STEPS - 1)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = first.losses + rest.losses
+    arm = "kernels" if use_kernels else "plain"
+    log(f"{arch} train ({arm}; full width, {cut}: {_describe(cfg)}, "
+        f"{cfg.param_count() / 1e9:.3f} B params, remat {cfg.remat}; "
+        f"{FAMILY_STEPS} steps of {FAMILY_BATCH}x{FAMILY_SEQ} tokens, adam "
+        f"lr {TRAIN_LR}, 1-rank NCCL group) in {time.perf_counter() - t0:.1f}"
+        f" s incl. init: losses {[round(x, 5) for x in losses]}, step-1 grad "
+        f"norm {first.metrics['grad_norm']:.5f}; steady step "
+        f"{steady * 1e3:.1f} ms, peak {peak:.2f} GiB; launches K3 "
+        f"{counts['flash_attention']}, K9 {counts['lru_scan']}, K10 "
+        f"{counts['wkv6']} [{card}]")
+    if len(losses) != FAMILY_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"bad loss curve {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{arch} ({arm}): the loss did not fall")
+    if counts["lru_scan"] or counts["wkv6"]:
+        raise AssertionError("K9 / K10 ran on a training path")
+    attn = cfg.num_layers // 3 if cfg.family == "hybrid" else (
+        0 if cfg.attn_kind == "mla" or cfg.family == "ssm" else cfg.num_layers)
+    want = (FAMILY_STEPS * attn * (2 if cfg.remat != "none" else 1)
+            if use_kernels else 0)
+    if counts["flash_attention"] != want:
+        raise AssertionError(f"K3 launched {counts['flash_attention']} times "
+                             f"on {arch}'s train path, expected {want}")
+    if use_kernels:
+        step_profile(torch, lambda: sess.train(1, **kw), f"{arch} train step",
+                     ("flash_fwd_kernel",))
+    out = dict(losses=losses, grad_norm1=first.metrics["grad_norm"],
+               k3=counts["flash_attention"], steady_s=steady, peak=peak)
+    del sess, first, rest
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def family_train_drives(torch, card):
+    """Each family from one init with kernels; where that arm launched K3
+    (recurrentgemma), again with ``use_kernels=False``: step-1 loss and
+    grad norm agree (the qwen drive's limits), both losses fall.  deepseek
+    (expanded MLA) and rwkv6 (the ``wkv_scan`` loop) train through no
+    kernel, so their plain arm would run the same code."""
+    k3 = 0
+    for arch, overrides, cut in FAMILY_TRAIN:
+        kern = family_train_arm(torch, card, arch, overrides, cut, True)
+        k3 += kern["k3"]
+        if not kern["k3"]:
+            continue
+        plain = family_train_arm(torch, card, arch, overrides, cut, False)
+        l_err = abs(kern["losses"][0] - plain["losses"][0]) / abs(
+            plain["losses"][0])
+        g_err = abs(kern["grad_norm1"] - plain["grad_norm1"]) / abs(
+            plain["grad_norm1"])
+        log(f"{arch} train comparison: step-1 loss rel diff {l_err:.3g} (tol "
+            f"{LOSS_RTOL:g}), grad-norm rel diff {g_err:.3g} (tol "
+            f"{GNORM_RTOL:g}); steady step kernels "
+            f"{kern['steady_s'] * 1e3:.1f} ms vs plain "
+            f"{plain['steady_s'] * 1e3:.1f} ms [{card}]")
+        if l_err > LOSS_RTOL or g_err > GNORM_RTOL:
+            raise AssertionError(f"{arch}: the train arms disagree at step 1")
+    return k3
+
+
+def checkpoint_drive(torch, card):
+    """``CKPT_ARCH`` cut as its family drive: an uninterrupted ``train(6)``;
+    then ``train(3, ckpt_dir, ckpt_every=3)`` (an async save at step 3);
+    then a new Session's ``train(3, ckpt_dir, resume=True)`` (restore, 3
+    steps, a blocking save at step 6), whose losses must equal steps 4-6
+    of the uninterrupted run.  The data set is one token row repeated
+    FAMILY_BATCH times: the pipeline shuffles rows anew each epoch, and
+    another row order sums the weight gradients in another order, which
+    training amplifies (rwkv6's 2-row batch parted by 4.7e-4 at step 5);
+    with equal rows every epoch feeds the same batch, so the resumed
+    stream's restart does not matter."""
+    import shutil
+    import numpy as np
+    from repro_torch import api
+    from repro_torch.data.readers import DataSet
+    arch, overrides, cut = CKPT_ARCH
+    ckpt = ROOT / "build" / f"chip_smoke_ckpt_{os.getpid()}"
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    def session():
+        gc.collect()
+        torch.cuda.empty_cache()
+        return api.load(arch, device=DEVICE, seed=SEED, **overrides)
+    try:
+        sess = session()
+        row = _token_batch_dataset(sess.model.vocab_size, 1, FAMILY_SEQ,
+                                   SEED + 7)
+        ds = DataSet(training_data=np.repeat(row.training_data, FAMILY_BATCH,
+                                             axis=0),
+                     training_labels=np.repeat(row.training_labels,
+                                               FAMILY_BATCH, axis=0))
+        kw = dict(seq_len=FAMILY_SEQ, global_batch=FAMILY_BATCH, lr=TRAIN_LR,
+                  data=ds, use_kernels=True)
+        whole = sess.train(6, **kw).losses
+        del sess
+        sess = session()
+        t0 = time.perf_counter()
+        first = sess.train(3, ckpt_dir=str(ckpt), ckpt_every=3, **kw)
+        t_first = time.perf_counter() - t0
+        (a,) = first.saves
+        del sess
+        sess = session()
+        t0 = time.perf_counter()
+        second = sess.train(3, ckpt_dir=str(ckpt), resume=True, **kw)
+        t_second = time.perf_counter() - t0
+        (b,) = second.saves
+        del sess
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    rel = max(abs(x - y) / abs(y)
+              for x, y in zip(first.losses + second.losses, whole))
+    log(f"checkpoint ({arch}, {cut}): train(3, ckpt_every=3) {t_first:.1f} s"
+        f"; async save at step {a.step}: {a.bytes / 1e9:.3f} GB, "
+        f"device-to-host {a.copy_s:.2f} s on the caller's thread, file I/O "
+        f"{a.write_s:.2f} s on its own; resumed train(3) {t_second:.1f} s "
+        f"incl. restore; blocking save at step {b.step}: "
+        f"{b.bytes / 1e9:.3f} GB, device-to-host {b.copy_s:.2f} s + file "
+        f"I/O {b.write_s:.2f} s; losses {[round(x, 6) for x in first.losses]}"
+        f" + {[round(x, 6) for x in second.losses]} vs uninterrupted "
+        f"{[round(x, 6) for x in whole]}: max rel diff {rel:.3g} (tol "
+        f"{CKPT_RTOL:g}) [{card}]")
+    if second.step != 6 or not rel <= CKPT_RTOL:
+        raise AssertionError("the resumed run left the uninterrupted curve")
 
 
 # ---------------------------------------------------------------------------
@@ -2450,6 +2814,8 @@ def main() -> int:
             print(f"chip_smoke: unknown kernels {sorted(unknown)}; "
                   f"choose from {sorted(KERNEL_ROWS)}", file=sys.stderr)
             return 2
+    elif args == ["--train"]:
+        names = []
     elif args:
         print(f"chip_smoke: unknown arguments {args}", file=sys.stderr)
         return 2
@@ -2470,6 +2836,10 @@ def main() -> int:
         return 0 if kernels_only_phase(torch, F, names) else 1
 
     card = env_phase(torch)
+    if names == []:                     # --train: the train phase alone
+        build_phase()
+        train_phase(torch, card)
+        return 0
     count_model_calls()
     build_phase()
     stats = kernel_phase(torch, F)
@@ -2498,8 +2868,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     counts["lru_scan"] = rg["lru_scan"]
-    # K3 runs on three paths: the train drive, qwen's slotted prefill and
-    # recurrentgemma's local-attention prefill
+    # K3 runs on three paths: the train drives (qwen's and recurrentgemma's),
+    # qwen's slotted prefill and recurrentgemma's local-attention prefill
     log(f"K3 launches: train {counts['flash_attention']}, qwen slotted "
         f"{qwen_k3}, recurrentgemma {rg['flash_attention']}")
     counts["flash_attention"] += qwen_k3 + rg["flash_attention"]

@@ -8,7 +8,9 @@ exposes
                                       trainer: broadcast init, gradient
                                       all-reduce, rank-sharded data (data
                                       parallel over the processes of the
-                                      default ``torch.distributed`` group);
+                                      default ``torch.distributed`` group),
+                                      async checkpoints and elastic
+                                      resume;
   * ``session.serve(requests)``     — the continuous-batching engine (paged
                                       pool, prefix cache, chunked prefill,
                                       n-gram speculation; the slotted pool
@@ -49,17 +51,6 @@ _SEQ_BUCKET = 64
 _MAX_ENGINES = 4
 
 
-#: what train() does not port yet (its error names the ROADMAP item)
-_CKPT_TODO = ("checkpointing and elastic resume (ckpt_dir / resume) are not "
-              "ported yet — ROADMAP queue 1 item 5 (checkpoint/checkpoint.py,"
-              " checkpoint/elastic.py, run_with_recovery)")
-_MOE_TRAIN_TODO = ("training the moe family (GShard capacity routing under "
-                   "autograd) is not ported yet — ROADMAP queue 1 item 6")
-_RECURRENT_TRAIN_TODO = ("training the hybrid and ssm families (RG-LRU / "
-                         "RWKV-6 backward; K9 / K10 are forward-only) is "
-                         "not ported yet — ROADMAP queue 1 item 14")
-
-
 class CapabilityError(ValueError):
     """A workload the loaded family does not declare (see
     ``ModelBundle.capabilities``), or one the port has not reached yet."""
@@ -68,12 +59,15 @@ class CapabilityError(ValueError):
 @dataclass
 class TrainResult:
     """What ``Session.train`` hands back: the per-step loss trajectory plus
-    the last step's metrics and the straggler-monitor summary."""
+    the last step's metrics, the straggler-monitor summary and the
+    checkpoint saves it made (``SaveHandle``: step, bytes, copy and write
+    seconds)."""
     losses: List[float]
     metrics: Dict[str, float]
     step: int
     elapsed_s: float
     straggler: Dict[str, float] = field(default_factory=dict)
+    saves: List[Any] = field(default_factory=list)
 
     @property
     def loss(self) -> float:
@@ -172,21 +166,25 @@ class Session:
 
         ``data`` is a ``repro_torch.data.readers.DataSet`` — this rank's
         shard (default: synthetic tokens seeded from the session seed).
-        ``use_kernels`` runs attention through kernel K3 (None: on CUDA
-        only).  Repeated calls with the same knobs continue from the
+        ``use_kernels`` runs attention through kernel K3's autograd
+        Function (None: on CUDA only); the recurrences (RG-LRU, WKV) train
+        through their differentiable plain versions, as the reference's
+        loss does.  Repeated calls with the same knobs continue from the
         current state and the next batches of the stream: ``train(N)`` then
         ``train(N)`` equals ``train(2N)``.  Masters and optimizer state are
         fp32; afterwards serving gets a compute-dtype copy of the trained
-        parameters.  ``ckpt_dir`` / ``resume``, the moe family and the
-        recurrent (hybrid, ssm) families raise (not ported yet).
+        parameters.
+
+        ``ckpt_dir``: an async checkpoint every ``ckpt_every`` steps and a
+        durable one at the end (``repro_torch.checkpoint``).  ``resume``
+        with a checkpoint there restores the latest one through
+        ``restore_elastic`` (any DP degree) and continues its step count;
+        the data stream starts anew, as the reference's does.
         """
         self._require("train")
-        if ckpt_dir or resume:
-            raise CapabilityError(_CKPT_TODO)
-        if self.model.moe is not None:
-            raise CapabilityError(_MOE_TRAIN_TODO)
-        if self.model.family in ("hybrid", "ssm"):
-            raise CapabilityError(_RECURRENT_TRAIN_TODO)
+        from repro_torch.checkpoint.checkpoint import (latest_step,
+                                                       save_checkpoint)
+        from repro_torch.checkpoint.elastic import restore_elastic
         from repro_torch.checkpoint.failures import StragglerMonitor
         from repro_torch.core.transparent import TransparentTrainer
         from repro_torch.data.pipeline import make_input_pipeline
@@ -234,7 +232,9 @@ class Session:
             self._stream_key = stream_key
         it, _ = self._stream
 
-        if self._train_state is None:
+        if resume and ckpt_dir and latest_step(ckpt_dir) is not None:
+            self._train_state, _ = restore_elastic(ckpt_dir, trainer)
+        elif self._train_state is None:
             self._train_state = trainer.init(self.seed,
                                              params=self._init_params)
         state = self._train_state
@@ -242,6 +242,7 @@ class Session:
         monitor = StragglerMonitor()
 
         losses: List[float] = []
+        saves: List[Any] = []
         t_start = time.time()
         step = start
         m = None
@@ -255,6 +256,12 @@ class Session:
                 if log_every and (step % log_every == 0 or step == start + 1):
                     print(f"step {step:5d}  loss {losses[-1]:.4f}  "
                           f"gnorm {float(m['grad_norm']):.3f}", flush=True)
+                if ckpt_dir and ckpt_every and step % ckpt_every == 0:
+                    if saves:
+                        saves[-1].wait()       # one save in flight at a time
+                    saves.append(save_checkpoint(
+                        ckpt_dir, trainer.canonical_state(state), step,
+                        blocking=False))
                 if step >= start + steps:
                     break
         except BaseException:
@@ -263,6 +270,12 @@ class Session:
             self._stream[1].close()
             self._stream = None
             raise
+        if saves:
+            saves[-1].wait()
+        if ckpt_dir and not (saves and saves[-1].step == step):
+            saves.append(save_checkpoint(
+                ckpt_dir, trainer.canonical_state(state), step,
+                blocking=True))
         self._train_state = state
         # serving must see the new params: drop the engines and hand them
         # a compute-dtype copy (their per-call cast stays a no-op)
@@ -276,7 +289,7 @@ class Session:
                    "step": step}
         return TrainResult(losses=losses, metrics=metrics, step=step,
                            elapsed_s=time.time() - t_start,
-                           straggler=monitor.summary())
+                           straggler=monitor.summary(), saves=saves)
 
     # -- serve / generate --------------------------------------------------
 

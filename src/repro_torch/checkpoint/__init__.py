@@ -1,1 +1,3 @@
-"""Failure handling of the PyTorch port (straggler detection)."""
+"""Checkpointing, elastic restore and failure handling of the PyTorch
+port: atomic async checkpoints, restore at another data-parallel degree,
+straggler detection and the supervised recovery loop."""

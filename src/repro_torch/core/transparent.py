@@ -24,7 +24,9 @@ shard of the flat parameter vector, all-gather.  ``dp_mode="fsdp"`` and a
 ``model`` axis above 1 raise (ROADMAP queue 1 item 10).
 
 State lives on ``device`` as fp32 masters; the optimizer updates them in
-place (see ``repro_torch.optim.optimizers``).
+place (see ``repro_torch.optim.optimizers``).  ``canonical_state`` /
+``state_structs`` are the rank-independent view a checkpoint stores
+(``repro_torch.checkpoint``), ``load_state`` its inverse on this rank.
 """
 from __future__ import annotations
 
@@ -54,7 +56,8 @@ class TrainState:
     params: Any       # fp32 masters (nested dict of tensors)
     opt: Any
     err: Any          # error-feedback tree (compressed strategy) or None
-    step: int
+    step: Any         # int on a live state; a 0-d int32 tensor in the
+                      # canonical view
 
 
 # ---------------------------------------------------------------------------
@@ -129,13 +132,16 @@ def dp_group_for(mesh: MeshConfig) -> ar.DPGroup:
 # ---------------------------------------------------------------------------
 
 def _value_and_grad(loss_fn, params, *args, **kw):
-    """(loss, fp32 grads) of ``loss_fn(params, ...)`` w.r.t. every leaf."""
+    """(loss, fp32 grads) of ``loss_fn(params, ...)`` w.r.t. every leaf.
+    The grads are contiguous, as the collectives need: the gradient of a
+    leaf used through a permuted view (a conv weight kept HWIO and
+    convolved as OIHW) comes back in the view's strides."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     with torch.enable_grad():
         loss = loss_fn(tree_unflatten(leaves, params), *args, **kw)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p, dtype=torch.float32) if g is None
-             else g.float() for p, g in zip(leaves, grads)]
+             else g.float().contiguous() for p, g in zip(leaves, grads)]
     return loss.detach(), tree_unflatten(grads, params)
 
 
@@ -233,6 +239,84 @@ class TransparentTrainer:
         else:
             opt = self.opt.init(params)
         return TrainState(params=params, opt=opt, err=err, step=0)
+
+    # -- the canonical state (what a checkpoint holds) -------------------------
+
+    def state_structs(self) -> TrainState:
+        """The canonical state's leaves as meta tensors (shape and dtype
+        only; the port's ``ShapeDtypeStruct`` tree): fp32 params, the
+        optimizer state at its global shapes, the error-feedback tree under
+        ``compressed`` (else None) and a 0-d int32 step.  Under ZeRO-1 the
+        flat optimizer leaves are ``[dp, padded / dp]``, the reference's
+        global layout.  Rank-independent: every rank returns the same."""
+        meta = lambda shape: torch.empty(shape, dtype=torch.float32,
+                                         device="meta")
+        params = tree_map(lambda s: meta(s.shape), self.param_specs)
+        opt = self.opt.init({"flat": meta((self.dp, self._padded // self.dp))}
+                            if self._zero1 else params)
+        opt = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                             device="meta"), opt)
+        err = params if self.mesh_cfg.allreduce == "compressed" else None
+        return TrainState(params=params, opt=opt, err=err,
+                          step=torch.empty((), dtype=torch.int32,
+                                           device="meta"))
+
+    def canonical_state(self, state: TrainState) -> TrainState:
+        """``state`` in the layout of ``state_structs``, the same on every
+        rank.  A collective under ``reduce_scatter`` and ``compressed``:
+        every rank calls it.
+
+        * ZeRO-1: each rank's ``[1, n/dp]`` shard of a flat optimizer leaf
+          is all-gathered into ``[dp, n/dp]`` (rank order).
+        * ``compressed``: the error-feedback tree differs per rank; the
+          view keeps the replicas' mean.  The all-reduce averages the
+          compensated gradients ``g_r + e_r``, and ``mean_r(g_r + e) =
+          mean_r(g_r + e_r)`` when every rank holds ``e = mean_r(e_r)``, so
+          the resumed step reduces the same gradient up to the bf16
+          rounding of the wire, which the strategy carries on every step
+          anyway (its tolerance against the sequential curve, 3e-2, holds).
+
+        Parameters (replicated) and everything else are returned as they
+        lie, not copied: save or copy the view before the next step."""
+        dp = self.dp_group
+
+        def gather(t):
+            if not (self._zero1 and dp.active and t.ndim == 2):
+                return t
+            out = torch.empty((self.dp, t.shape[1]), dtype=t.dtype,
+                              device=t.device)
+            dist.all_gather_into_tensor(out, t.contiguous(), group=dp.group)
+            return out
+
+        err = state.err
+        if err is not None and dp.active:
+            err = tree_map(lambda e: ar.mean_(e.clone(), dp.group, dp.size),
+                           err)
+        return TrainState(params=state.params, opt=tree_map(gather, state.opt),
+                          err=err,
+                          step=torch.tensor(int(state.step), dtype=torch.int32))
+
+    def load_state(self, canonical: TrainState) -> TrainState:
+        """The inverse of ``canonical_state`` on this rank: a live state on
+        the trainer's device whose ``step`` continues from the canonical
+        one (and with it the optimizer's bias corrections).  ZeRO-1 takes
+        this rank's row of each ``[dp, n/dp]`` leaf, so the view must be
+        at this trainer's DP degree (``checkpoint.elastic.restore_elastic``
+        re-splits one saved at another)."""
+        state = self.init(params=canonical.params)
+        for dst, src in zip(tree_leaves(state.opt), tree_leaves(canonical.opt)):
+            if self._zero1 and src.ndim == 2:
+                src = src[self.rank:self.rank + 1]
+            if tuple(src.shape) != tuple(dst.shape):
+                raise ValueError(f"optimizer leaf {tuple(src.shape)} does not "
+                                 f"fit {tuple(dst.shape)} at dp={self.dp}")
+            dst.copy_(src)
+        if state.err is not None:
+            for dst, src in zip(tree_leaves(state.err),
+                                tree_leaves(canonical.err)):
+                dst.copy_(src)
+        state.step = int(canonical.step)
+        return state
 
     # -- the transparent step ----------------------------------------------------
 

@@ -42,6 +42,21 @@ def check_tensor(t: torch.Tensor, what: str, dtype, device, ndim: int):
         raise ValueError(f"{what} must be contiguous")
 
 
+def refuse_grad(name: str, *tensors: torch.Tensor):
+    """Raise when autograd would record through a forward-only kernel.
+
+    A wrapper fills a ``torch.empty`` output through ctypes, so that output
+    has no ``grad_fn``: launched on inputs that require grad, it would cut
+    the graph and leave the parameters before it with zero gradient, and
+    no error.  Train through the differentiable plain version instead (or
+    K3's autograd Function, whose forward runs with grad mode off)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward: its inputs require grad, and its "
+            "output would silently cut the autograd graph; train through "
+            "the plain version (or call it under torch.no_grad())")
+
+
 def raise_on(err: int, name: str):
     """Raise if a launch was refused (``err`` is its cudaError_t)."""
     if err != 0:

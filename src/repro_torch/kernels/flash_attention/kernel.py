@@ -10,7 +10,10 @@ versions (``ref.attention_ref``, ``ref.attention_lse_ref``).  For CUDA
 tensors it checks device, dtype, shape and contiguity, allocates the
 outputs with ``torch.empty``, launches the kernel on the current stream,
 raises if the launch was refused, and adds one to its ``launches``
-counter; there is no fallback.  The library builds from the repo's sources
+counter; there is no fallback.  Training reaches it only through the
+autograd Function of ``models/flash_vjp.py`` (whose forward runs with
+grad mode off); called directly on inputs that require grad under grad
+mode it raises (``common.refuse_grad``).  The library builds from the repo's sources
 on the first CUDA launch (``kernels/build.py``).
 """
 from __future__ import annotations
@@ -20,7 +23,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels.common import (KERNEL_DTYPES, check_tensor, lib_fn,
-                                        raise_on)
+                                        raise_on, refuse_grad)
 from repro_torch.kernels.flash_attention.ref import (attention_lse_ref,
                                                      attention_ref)
 
@@ -41,6 +44,7 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0):
                 attention_lse_ref(q, k, causal=causal, window=window))
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention kernel for {q.device}")
+    refuse_grad("flash_attention (K3)", q, k, v)
     if q.dtype not in KERNEL_DTYPES:
         raise ValueError(f"q dtype {q.dtype} not in "
                          f"{sorted(map(str, KERNEL_DTYPES))}")

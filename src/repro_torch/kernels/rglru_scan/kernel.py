@@ -9,7 +9,8 @@ and only there — it runs the plain version (``ref.lru_scan_ref``).  For
 CUDA tensors it checks device, dtype, shape and contiguity, allocates the
 output with ``torch.empty``, launches the kernel on the current stream,
 raises if the launch was refused, and adds one to its ``launches``
-counter; there is no fallback.  The library builds from the repo's
+counter; there is no fallback.  It has no backward, so it raises on
+inputs that require grad under grad mode (``common.refuse_grad``).  The library builds from the repo's
 sources on the first CUDA launch (``kernels/build.py``).
 """
 from __future__ import annotations
@@ -19,7 +20,8 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels.common import check_tensor, lib_fn, raise_on
+from repro_torch.kernels.common import (check_tensor, lib_fn, raise_on,
+                                        refuse_grad)
 from repro_torch.kernels.rglru_scan.ref import lru_scan_ref
 
 _P = ctypes.c_void_p
@@ -80,6 +82,7 @@ def lru_scan_kernel(log_a, x, *, _splits: LruSplit | None = None):
         return lru_scan_ref(log_a, x)
     if log_a.device.type != "cuda":
         raise ValueError(f"no lru-scan kernel for {log_a.device}")
+    refuse_grad("lru_scan (K9)", log_a, x)
     check_tensor(log_a, "log_a", torch.float32, log_a.device, 3)
     check_tensor(x, "x", torch.float32, log_a.device, 3)
     if x.shape != log_a.shape:

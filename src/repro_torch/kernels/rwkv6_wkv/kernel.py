@@ -8,7 +8,9 @@ rows, the steps' rows staged into shared memory 32 steps at a time.  For tensors
 CPU — and only there — it runs the plain version (``ref.wkv6_model_ref``).  For CUDA tensors it checks device, dtype, shape
 and contiguity, allocates the outputs with ``torch.empty``, launches the
 kernel on the current stream, raises if the launch was refused, and adds
-one to its ``launches`` counter; there is no fallback.  The library builds
+one to its ``launches`` counter; there is no fallback.  It has no
+backward, so it raises on inputs that require grad under grad mode
+(``common.refuse_grad``).  The library builds
 from the repo's sources on the first CUDA launch (``kernels/build.py``).
 """
 from __future__ import annotations
@@ -17,7 +19,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.common import check_tensor, lib_fn, raise_on
+from repro_torch.kernels.common import (check_tensor, lib_fn, raise_on,
+                                        refuse_grad)
 from repro_torch.kernels.rwkv6_wkv.ref import wkv6_model_ref
 
 #: head sizes the CUDA kernel is instantiated for
@@ -40,6 +43,7 @@ def wkv6_kernel(r, k, v, w, u, s0):
         return wkv6_model_ref(r, k, v, w, u, s0)
     if r.device.type != "cuda":
         raise ValueError(f"no wkv6 kernel for {r.device}")
+    refuse_grad("wkv6 (K10)", r, k, v, w, u, s0)
     dev = r.device
     for t, name in ((r, "r"), (k, "k"), (v, "v"), (w, "w")):
         check_tensor(t, name, torch.float32, dev, 4)

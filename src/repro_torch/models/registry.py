@@ -9,8 +9,9 @@ dispatch on that set, never on ``is None`` probes.
 The port builds the ``dense`` and ``moe`` families (full, MLA and
 sliding-window attention, on contiguous, latent or ring pages) and the
 recurrent ``hybrid`` (recurrentgemma) and ``ssm`` (rwkv6) families, which
-have no ``KVLayout`` and serve on the slotted pool only.  The other families
-(encdec, vlm, cnn) raise one line naming their ROADMAP item.
+have no ``KVLayout`` and serve on the slotted pool only.  encdec and vlm
+raise one line naming their ROADMAP item; cnn has no bundle, as in the
+JAX package, and its error names the way to train it.
 """
 from __future__ import annotations
 
@@ -205,8 +206,13 @@ def _build_rwkv(cfg: ModelConfig) -> ModelBundle:
 _TODO = {
     "encdec": "encdec (whisper) — ROADMAP queue 1 item 11",
     "vlm": "vlm (pixtral) — ROADMAP queue 1 item 11",
-    "cnn": "cnn (alexnet) — ROADMAP queue 1 item 11",
 }
+
+#: the JAX registry has no CNN bundle either
+_CNN = ("family cnn (alexnet, tinycnn) has no registry bundle: train it "
+        "with repro_torch.models.cnn (cnn_loss over alexnet_forward or "
+        "tinycnn_forward, with alexnet_specs / tinycnn_specs) through "
+        "repro_torch.core.transparent.TransparentTrainer")
 
 _BUILDERS = {"dense": _build_lm, "moe": _build_lm, "hybrid": _build_rg,
              "ssm": _build_rwkv}
@@ -214,6 +220,8 @@ _BUILDERS = {"dense": _build_lm, "moe": _build_lm, "hybrid": _build_rg,
 
 def build(cfg: ModelConfig) -> ModelBundle:
     cfg.validate()
+    if cfg.family == "cnn":
+        raise NotImplementedError(_CNN)
     if cfg.family not in _BUILDERS:
         raise NotImplementedError(
             f"family {_TODO.get(cfg.family, cfg.family)} is not ported yet")

@@ -10,13 +10,14 @@ The RG-LRU recurrence (Griffin eq. 3-4):
     h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
 
 The port of ``src/repro/models/rglru.py``, same names and pytree keys.
-Train/prefill evaluates the recurrence with the reference's associative
-scan, or — ``use_kernels``, the reference's ``use_pallas`` — through kernel
-K9 (``kernels/rglru_scan``; its plain sequential version on a CPU tensor);
-decode is the one-step recurrence.  The reference's ``lax.scan`` over the
-stacked ``blocks`` / ``tail`` leaves is a loop over their slices.  Decode
-states are written in place (the slotted pool hands in views of its
-slots); their ring caches may keep one position per row.
+Prefill evaluates the recurrence with the reference's associative scan,
+or — ``use_kernels``, the reference's ``use_pallas`` — through kernel K9
+(``kernels/rglru_scan``; its plain sequential version on a CPU tensor).
+The training forward always takes the scan, which autograd differentiates
+(K9 has no backward); decode is the one-step recurrence.  The reference's
+``lax.scan`` over the stacked ``blocks`` / ``tail`` leaves is a loop over
+their slices.  Decode states are written in place (the slotted pool hands
+in views of its slots); their ring caches may keep one position per row.
 """
 from __future__ import annotations
 
@@ -212,11 +213,15 @@ def attention_block_apply(cfg, p, x, positions, cache=None,
 
 
 def super_block_apply(cfg, p, x, positions, states=None, use_kernels=False):
+    """One decode step (``states``) or the training forward (None).
+    ``use_kernels`` is the attention's; the RG-LRU runs its one-step
+    recurrence or the differentiable ``associative_scan`` (K9 has no
+    backward, and runs only in ``rg_prefill``)."""
     s1 = states["rec1"] if states else None
     s2 = states["rec2"] if states else None
     sa = states["attn"] if states else None
-    x, n1 = recurrent_block_apply(cfg, p["rec1"], x, s1, use_kernels)
-    x, n2 = recurrent_block_apply(cfg, p["rec2"], x, s2, use_kernels)
+    x, n1 = recurrent_block_apply(cfg, p["rec1"], x, s1)
+    x, n2 = recurrent_block_apply(cfg, p["rec2"], x, s2)
     x, na = attention_block_apply(cfg, p["attn"], x, positions, sa,
                                   use_kernels)
     if states is None:
@@ -229,6 +234,10 @@ def super_block_apply(cfg, p, x, positions, states=None, use_kernels=False):
 # ---------------------------------------------------------------------------
 
 def rg_forward(cfg, params, tokens, use_kernels=False):
+    """-> final-normed hidden [B,S,d], the training forward: attention
+    through K3's autograd Function with ``use_kernels``, the RG-LRU always
+    through ``associative_scan``, which is what the reference trains with
+    (its loss runs with ``use_pallas`` False)."""
     cd = torch_dtype(cfg.compute_dtype)
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
@@ -239,13 +248,15 @@ def rg_forward(cfg, params, tokens, use_kernels=False):
         x = block_fn(stack_slice(params["blocks"], i), x)
     if "tail" in params:
         tail_fn = _remat(cfg, lambda tp, x: recurrent_block_apply(
-            cfg, tp, x, use_kernels=use_kernels)[0])
+            cfg, tp, x)[0])
         for i in range(stack_len(params["tail"])):
             x = tail_fn(stack_slice(params["tail"], i), x)
     return apply_norm(cfg, params["final_norm"], x)
 
 
 def rg_loss(cfg, params, batch, *, use_kernels=False):
+    """batch: {"tokens", "labels"} [B,S] -> scalar fp32 loss, through
+    ``rg_forward``."""
     params = cast_tree(params, cfg.compute_dtype)
     x = rg_forward(cfg, params, batch["tokens"], use_kernels=use_kernels)
     logits = lm_head(cfg, params, x)

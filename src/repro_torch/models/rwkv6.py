@@ -12,7 +12,8 @@ The port of ``src/repro/models/rwkv6.py``, same names and pytree keys.
 Without kernels the recurrence is the reference's sequential loop over
 time; ``use_kernels`` (the reference's ``use_pallas``) runs it through
 kernel K10 (``kernels/rwkv6_wkv``; its plain version on a CPU tensor);
-decode is the one-step form.  The reference's ``lax.scan`` over the
+the training loss always takes the loop, which autograd differentiates
+(K10 has no backward); decode is the one-step form.  The reference's ``lax.scan`` over the
 stacked ``layers`` leaves is a loop over their slices; decode states are
 written in place (the slotted pool hands in views of its slots).
 """
@@ -210,6 +211,8 @@ def layer_apply(cfg, p, x, state=None, use_kernels=False):
 # ---------------------------------------------------------------------------
 
 def rwkv_forward(cfg, params, tokens, use_kernels=False):
+    """-> final-normed hidden [B,S,d]; ``use_kernels`` runs every WKV
+    recurrence through K10, which has no backward (see ``rwkv_loss``)."""
     cd = torch_dtype(cfg.compute_dtype)
     x = embed_lookup(cfg, params, tokens, cd)
     fn = _remat(cfg, lambda lp, x: layer_apply(cfg, lp, x,
@@ -220,8 +223,14 @@ def rwkv_forward(cfg, params, tokens, use_kernels=False):
 
 
 def rwkv_loss(cfg, params, batch, *, use_kernels=False):
+    """batch: {"tokens", "labels"} [B,S] -> scalar fp32 loss.  The WKV
+    recurrence runs as ``wkv_scan``'s sequential loop, which autograd
+    differentiates: what the reference trains with (its loss runs with
+    ``use_pallas`` False); K10, like its Pallas kernel, has no backward.
+    The family has no attention, so ``use_kernels`` (the train contract's
+    K3 switch) changes nothing."""
     params = cast_tree(params, cfg.compute_dtype)
-    x = rwkv_forward(cfg, params, batch["tokens"], use_kernels=use_kernels)
+    x = rwkv_forward(cfg, params, batch["tokens"])
     logits = lm_head(cfg, params, x)
     return cross_entropy(logits, batch["labels"], cfg.vocab_size)
 

@@ -1022,3 +1022,91 @@ def test_cuda_mla_prefill_wrapper_rejects_what_the_kernel_does_not_take():
         port_kernel.paged_mla_prefill_kernel(*bf, scale=0.1, _splits=9)
     with pytest.raises(ValueError, match="past the table"):
         port_kernel.paged_mla_prefill_kernel(*bf[:5], 60, 5, scale=0.1)
+
+
+# ---------------------------------------------------------------------------
+# Training: forward-only kernels stay off the autograd path; AlexNet's step
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_cuda_forward_only_kernels_raise_on_inputs_that_require_grad():
+    """K9, K10 and the raw K3 fill ``torch.empty`` outputs (no
+    ``grad_fn``): on inputs that require grad under grad mode they raise
+    instead of cutting the graph; under ``no_grad`` they run.  K3 under
+    grad goes through the autograd Function, whose gradients flow."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(0)
+    rnd = lambda *s: torch.randn(s, generator=g, device=dev)
+    la, x = -torch.rand((1, 17, 64), generator=g, device=dev), rnd(1, 17, 64)
+    r, k, v = rnd(1, 9, 2, 16), rnd(1, 9, 2, 16), rnd(1, 9, 2, 16)
+    w, u, s0 = torch.rand((1, 9, 2, 16), generator=g, device=dev), \
+        rnd(2, 16), rnd(1, 2, 16, 16)
+    q3, k3 = rnd(2, 64, 64), rnd(2, 64, 64)
+    calls = {
+        "K9": lambda a, b: lru_kernel.lru_scan_kernel(a, b),
+        "K10": lambda a, b: wkv_kernel.wkv6_kernel(a, k, v, w, u, b),
+        "K3": lambda a, b: flash_kernel.flash_attention_kernel(a, b, b),
+    }
+    args = {"K9": (la, x), "K10": (r, s0), "K3": (q3, k3)}
+    for name, fn in calls.items():
+        a, b = args[name]
+        with pytest.raises(RuntimeError, match="no backward"):
+            fn(a.clone().requires_grad_(), b)
+        with torch.no_grad():
+            fn(a.clone().requires_grad_(), b)
+        fn(a, b)                       # nothing requires grad: runs
+    q = rnd(1, 64, 2, 64).requires_grad_()
+    kk, vv = rnd(1, 64, 2, 64), rnd(1, 64, 2, 64)
+    before = flash_kernel.flash_attention_kernel.launches
+    out = flash_attention_vjp(q, kk, vv, causal=True, use_kernel=True)
+    (gq,) = torch.autograd.grad(out.square().sum(), q)
+    assert flash_kernel.flash_attention_kernel.launches == before + 1
+    assert float(gq.abs().max()) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_alexnet_step_matches_cpu_autograd():
+    """One momentum (lr 1e-2) step of full-size AlexNet (227 x 227, 1000
+    classes) at batch 2 through ``TransparentTrainer`` on the card against
+    the same step on the CPU, from the same weights, TF32 off: the loss
+    within rel 1e-4, every gradient leaf within 1e-3 of its largest
+    |grad| (cuDNN's and the CPU's convolutions sum fp32 terms in other
+    orders), every updated weight within lr x that (1e-5 of the leaf's
+    largest |grad|: the reference's fan-in init on N(0, 1) images gives
+    logits near 1e3 and weight gradients up to ~1e4)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import (MeshConfig, OptimizerConfig,
+                                          RunConfig, ShapeConfig)
+    from repro_torch.core.transparent import TransparentTrainer, \
+        _value_and_grad
+    from repro_torch.models import cnn
+    from repro_torch.models.common import init_params, tree_leaves
+    dev = _cuda()
+    specs = cnn.alexnet_specs()
+    params = init_params(specs, torch.Generator().manual_seed(0),
+                         dtype=torch.float32)
+    rng = np.random.default_rng(5)
+    batch = {"images": torch.from_numpy(rng.normal(
+        size=(2, 227, 227, 3)).astype(np.float32)),
+        "labels": torch.from_numpy(rng.integers(0, 1000, (2,)))}
+    loss_fn = lambda p, b: cnn.cnn_loss(cnn.alexnet_forward, p, b, 1000)
+    run = RunConfig(model=get_config("alexnet"),
+                    shape=ShapeConfig("t", "train", 227, 2),
+                    mesh=MeshConfig(shape=(1, 1), axis_names=("data", "model")),
+                    optimizer=OptimizerConfig(name="momentum", lr=1e-2))
+    out = {}
+    for d in ("cpu", dev):
+        tr = TransparentTrainer(run, loss_fn, specs, device=d)
+        state = tr.init(params=params)
+        b = {k: t.to(d) for k, t in batch.items()}
+        loss, grads = _value_and_grad(loss_fn, state.params, b)
+        state, m = tr.step(state, b)
+        out[str(d)] = (float(loss), float(m["loss"]),
+                       [t.cpu() for t in tree_leaves(grads)],
+                       [t.cpu() for t in tree_leaves(state.params)])
+    (cl, cm, cg, cp), (gl, gm, gg, gp) = out["cpu"], out[str(dev)]
+    assert abs(gl - cl) <= 1e-4 * abs(cl) and abs(gm - cm) <= 1e-4 * abs(cm)
+    for a, b, p, q in zip(gg, cg, gp, cp):
+        scale = max(1.0, float(b.abs().max()))
+        assert float((a - b).abs().max()) <= 1e-3 * scale
+        assert float((p - q).abs().max()) <= 1e-5 * scale

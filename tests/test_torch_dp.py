@@ -19,12 +19,10 @@ timeout and killed on expiry, so a hang fails the tests instead of eating
 the suite's time.
 """
 import functools
-import queue
 
 import jax
 import numpy as np
 import pytest
-import torch.multiprocessing as mp
 
 import torch_dp_worker
 from repro.configs import get_config
@@ -67,37 +65,11 @@ def _sequential(optimizer):
 @pytest.fixture(scope="module")
 def dp_run(tmp_path_factory):
     _, params, batches = _setup()
-    np_params = jax.tree.map(np.asarray, params)
-    ctx = mp.get_context("spawn")
-    out = ctx.Queue()
-    init_file = tmp_path_factory.mktemp("pg") / "pg"
-    procs = [ctx.Process(target=torch_dp_worker.run,
-                         args=(r, WORLD, str(init_file), JOBS, np_params,
-                               batches, out))
-             for r in range(WORLD)]
-    for p in procs:
-        p.start()
-    try:
-        result = out.get(timeout=TIMEOUT)
-    except queue.Empty:
-        result = ("error", f"no result within {TIMEOUT} s")
-    finally:
-        extra = []
-        for p in procs:
-            p.join(timeout=30)
-            if p.is_alive():
-                p.kill()
-                p.join(timeout=30)
-        try:
-            while True:
-                extra.append(out.get_nowait())
-        except queue.Empty:
-            pass
+    result = torch_dp_worker.spawn_world(
+        torch_dp_worker.run, WORLD, tmp_path_factory.mktemp("pg") / "pg",
+        (JOBS, jax.tree.map(np.asarray, params), batches), TIMEOUT)
     if isinstance(result, tuple):
-        pytest.fail("data-parallel workers failed: " + result[1] + "".join(
-            e[1] for e in extra if isinstance(e, tuple)))
-    assert all(not p.is_alive() and p.exitcode == 0 for p in procs), \
-        [p.exitcode for p in procs]
+        pytest.fail("data-parallel workers failed: " + result[1])
     return result
 
 

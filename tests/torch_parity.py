@@ -15,15 +15,20 @@ from repro.models import registry as jax_registry
 from repro.optim import optimizers as jax_opt
 
 
-def jax_sequential_curve(cfg, params, batches, opt_cfg):
+def jax_sequential_curve(cfg, params, batches, opt_cfg, *, loss_fn=None,
+                         opt_state=None):
     """Losses and grad norms of ``len(batches)`` sequential steps from
-    ``params`` (the JAX init tree) with ``opt_cfg``."""
-    bundle = jax_registry.build(cfg)
+    ``params`` (the JAX init tree) with ``opt_cfg``.  ``loss_fn(params,
+    batch)`` replaces the bundle's loss (the cnn family has no bundle;
+    ``cfg`` is then unused); ``opt_state`` starts the optimizer from a
+    given state (a resumed run) instead of ``opt.init(params)``."""
+    if loss_fn is None:
+        loss_fn = jax_registry.build(cfg).loss_fn
     opt = jax_opt.make_optimizer(opt_cfg)
 
     @jax.jit
     def step(params, state, batch):
-        loss, g = jax.value_and_grad(bundle.loss_fn)(params, batch)
+        loss, g = jax.value_and_grad(loss_fn)(params, batch)
         g = jax.tree.map(lambda x: x.astype(jnp.float32), g)
         if opt_cfg.grad_clip:
             g, gn = jax_opt.clip_by_global_norm(g, opt_cfg.grad_clip)
@@ -32,7 +37,7 @@ def jax_sequential_curve(cfg, params, batches, opt_cfg):
         params, state = opt.update(g, state, params)
         return params, state, loss, gn
 
-    state = opt.init(params)
+    state = opt.init(params) if opt_state is None else opt_state
     losses, norms = [], []
     for b in batches:
         params, state, loss, gn = step(params, state,
