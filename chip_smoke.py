@@ -116,7 +116,25 @@ Phases, in order; any failure exits non-zero:
    launch, page bytes against a bf16 page and the partings from the bf16-
    page streams printed, every K8 launch of a checked drive held against
    its plain version;
-12. a JSON ``kernels`` line, then as the last line
+12. encdec / vlm — ``whisper-tiny`` at full config (4 + 4 layers,
+   d_model 384, hd 64, 1,500 frames) and ``pixtral-12b`` at full width and
+   depth (40 layers, 12.27 B params, its seeded bf16 weights only) through
+   the registry bundles' ``prefill_fn`` / ``decode_fn``: whisper 4
+   requests of seeded frames and a 16-token prompt, 32 greedy steps, K3
+   counted at 4 encoder + 4 self + 4 cross launches in prefill and 4
+   cross a step (bidirectional, and Sq 1 against 1,500 keys); pixtral 2
+   requests of 1,024 seeded patch embeddings and 32 tokens, 16 steps, K3
+   once a layer (causal over 1,056); each drive again with every K3
+   launch held against its plain version, profiled; pixtral's
+   ``use_kernels=False`` arm parting only at bf16 near-ties; fp32 arms
+   (pixtral cut to 8 layers), teacher-forced logits within 1e-3; then
+   training through ``TransparentTrainer.from_bundle`` on batches that
+   carry frames / patches, in a one-rank NCCL group: whisper 6 steps of 8
+   x 448 tokens, pixtral cut to 2 layers 3 steps of 2 x 512, K3 steps x
+   attention layers x 2 (remat), kernel and plain arms agreeing at step 1;
+   then ``python -m repro_torch.launch.serve --arch qwen2.5-14b
+   --requests 8`` in a process of its own must exit 0;
+13. a JSON ``kernels`` line, then as the last line
    ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --kernels K2,K6[,...] [SRC]
@@ -127,7 +145,7 @@ cases, from
 the package under SRC (default this checkout's ``src``): two checkouts'
 kernels side by side in one call.  ``--decode-kernels [SRC]`` is
 ``--kernels K1,K4 [SRC]``.  ``--train`` builds the kernels and runs the
-train phase (6-7) alone.
+train phase (6-7) alone, ``--encdec`` phase 12 alone.
 
 Exits with code 2 and prints no result when CUDA is unavailable.
 """
@@ -1637,6 +1655,11 @@ def serve_once(torch, sess, prompts, **overrides):
     return outs, wall, read_counts(), sess.engine.metrics.summary()
 
 
+def bf16_tie(top):
+    """The near-tie tolerance at a top logit ``top``: TIE_ULPS bf16 ulps."""
+    return TIE_ULPS * 2.0 ** (math.floor(math.log2(max(abs(top), 1e-30))) - 7)
+
+
 def logit_gap(torch, sess, prompt, tokens, j):
     """Top-two logit gap of the plain forward (the family's serving
     prefill without kernels; MoE routed per token, as serving routes it)
@@ -1647,8 +1670,7 @@ def logit_gap(torch, sess, prompt, tokens, j):
         logits, _ = sess.bundle.serve_prefill_fn(
             sess.params, seq, cache_len=seq.shape[1], use_kernels=False)
     top = torch.topk(logits[0].float(), 2).values.tolist()
-    ulp = 2.0 ** (math.floor(math.log2(max(abs(top[0]), 1e-30))) - 7)
-    return top[0] - top[1], TIE_ULPS * ulp
+    return top[0] - top[1], bf16_tie(top[0])
 
 
 def compare_streams(torch, sess, prompts, outs, plain, *, asserted):
@@ -1690,6 +1712,7 @@ def checked_launches(torch, names):
     it saw them; K7 on its ``n_valid`` real rows; K10's outputs and final
     state).  Yields {name: [(max |kernel - plain|, that over its limit)
     of each launch, as device scalars]}."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.kernels.paged_attention import ref as pa_ref
@@ -1735,7 +1758,9 @@ def checked_launches(torch, names):
           prefill(7, pa_ref.paged_ring_prefill_ref))
     k14 = (pa_ops, "paged_attention_kernel", decode)
 
-    # name -> (module the path looks the wrapper up in, attribute, check)
+    # name -> (module the path looks the wrapper up in, attribute, check);
+    # K3 is looked up in two modules: the flash autograd Function's and
+    # the model-layout entry point's (whisper's cross-attention)
     sites = {
         "paged_attention": k14, "paged_ring_decode": k14,
         "paged_attention_int8": k14, "paged_ring_decode_int8": k14,
@@ -1744,7 +1769,7 @@ def checked_launches(torch, names):
         "paged_mla": (pa_ops, "paged_mla_kernel", lambda out, a, kw: bf16(
             out, pa_ref.paged_mla_attention_ref(*a, **kw))),
         "paged_mla_prefill": (pa_ops, "paged_mla_prefill_kernel", k7),
-        "flash_attention": (flash_vjp, "flash_attention_kernel",
+        "flash_attention": ((flash_vjp, fa_ops), "flash_attention_kernel",
                             lambda out, a, kw: bf16(
                                 out[0], fa_ref.attention_ref(*a, **kw))),
         "lru_scan": (lru_ops, "lru_scan_kernel", lambda out, a, kw: fp32(
@@ -1753,7 +1778,6 @@ def checked_launches(torch, names):
             out, wkv_ref.wkv6_model_ref(*a), WKV_RTOL)),
     }
     errs = {n: [] for n in names}
-    saved = {n: getattr(sites[n][0], sites[n][1]) for n in names}
 
     def checked(name, fn, check):
         def run(*args, **kw):
@@ -1762,13 +1786,17 @@ def checked_launches(torch, names):
             return out
         return run
 
+    saved = []
     for n in names:
-        setattr(sites[n][0], sites[n][1], checked(n, saved[n], sites[n][2]))
+        mods, attr, check = sites[n]
+        for mod in (mods if isinstance(mods, tuple) else (mods,)):
+            saved.append((mod, attr, getattr(mod, attr)))
+            setattr(mod, attr, checked(n, saved[-1][2], check))
     try:
         yield errs
     finally:
-        for n in names:
-            setattr(sites[n][0], sites[n][1], saved[n])
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
 
 
 def checked_drive(torch, sess, prompts, outs, names, **overrides):
@@ -1779,6 +1807,14 @@ def checked_drive(torch, sess, prompts, outs, names, **overrides):
     with checked_launches(torch, names) as errs:
         checked, wall, _, _ = serve_once(torch, sess, prompts,
                                          use_kernels=True, **overrides)
+    report_checked(torch, errs, wall)
+    log(f"checked drive: greedy streams "
+        f"{'equal' if checked == outs else 'differ from'} the kernel arm's")
+
+
+def report_checked(torch, errs, wall):
+    """Print and assert what ``checked_launches`` gathered: each kernel
+    launched, each launch within its limit."""
     for name, e in errs.items():
         if not e:
             raise AssertionError(f"checked drive: {name} never launched")
@@ -1791,8 +1827,6 @@ def checked_drive(torch, sess, prompts, outs, names, **overrides):
         if ratio > 1.0:
             raise AssertionError(f"{name} disagrees with its plain version "
                                  f"on the drive's inputs: {worst}")
-    log(f"checked drive: greedy streams "
-        f"{'equal' if checked == outs else 'differ from'} the kernel arm's")
 
 
 def device_kernels(torch, prof):
@@ -2207,17 +2241,7 @@ def train_phase(torch, card):
     finally:
         dist.destroy_process_group()
         pg_file.unlink(missing_ok=True)
-    l_err = abs(kern["losses"][0] - plain["losses"][0]) / abs(
-        plain["losses"][0])
-    g_err = abs(kern["grad_norm1"] - plain["grad_norm1"]) / abs(
-        plain["grad_norm1"])
-    log(f"train comparison: step-1 loss rel diff {l_err:.3g} (tol "
-        f"{LOSS_RTOL:.3g}), grad-norm rel diff {g_err:.3g} (tol "
-        f"{GNORM_RTOL:.3g}); steady step kernels {kern['steady_s'] * 1e3:.1f}"
-        f" ms vs plain {plain['steady_s'] * 1e3:.1f} ms [{card}]")
-    if l_err > LOSS_RTOL or g_err > GNORM_RTOL:
-        raise AssertionError("the kernel and plain train arms disagree at "
-                             "step 1")
+    compare_train_arms("qwen2.5-14b", kern, plain, card)
     return kern
 
 
@@ -2409,10 +2433,78 @@ def _token_batch_dataset(vocab, batch, seq, seed):
     return DataSet(training_data=toks[:, :-1], training_labels=toks[:, 1:])
 
 
+def train_k3_layers(cfg):
+    """Attention layers whose training forward launches K3 (through the
+    flash autograd Function): one in three of the hybrid family's, none
+    of MLA's (expanded) or the ssm family's, whisper's encoder and
+    decoder self-attention (its cross-attention trains plain)."""
+    if cfg.family == "hybrid":
+        return cfg.num_layers // 3
+    if cfg.attn_kind == "mla" or cfg.family == "ssm":
+        return 0
+    if cfg.encdec:
+        return cfg.encdec.num_encoder_layers + cfg.num_layers
+    return cfg.num_layers
+
+
+def train_arm_run(torch, card, arch, cfg, step, steps, use_kernels, what):
+    """One train arm: ``step(n)`` runs n steps and returns (their losses,
+    the first one's grad norm).  1 step, then ``steps - 1`` (the stream
+    continues); the loss must fall, and K3 alone runs, steps x
+    ``train_k3_layers`` (x2 under remat) times on the kernel arm, never on
+    the plain one; one more step profiled on the kernel arm."""
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    losses, gn1 = step(1)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    losses = losses + step(steps - 1)[0]
+    torch.cuda.synchronize()
+    steady = (time.perf_counter() - t1) / (steps - 1)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    arm = "kernels" if use_kernels else "plain"
+    want = (steps * train_k3_layers(cfg) * (2 if cfg.remat != "none" else 1)
+            if use_kernels else 0)
+    log(f"{arch} train ({arm}; {what}, {cfg.param_count():,} params, remat "
+        f"{cfg.remat}; {steps} steps, adam lr {TRAIN_LR}, 1-rank NCCL group)"
+        f" in {time.perf_counter() - t0:.1f} s: losses "
+        f"{[round(x, 5) for x in losses]}, step-1 grad norm {gn1:.5f}; "
+        f"steady step {steady * 1e3:.1f} ms, peak {peak:.2f} GiB; K3 "
+        f"launches {counts['flash_attention']} (expected {want}) [{card}]")
+    if len(losses) != steps or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{arch} ({arm}): bad loss curve {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{arch} ({arm}): the loss did not fall")
+    if counts["flash_attention"] != want or sum(counts.values()) != want:
+        raise AssertionError(f"{arch} ({arm}): launches {counts}, K3 "
+                             f"expected {want}")
+    if use_kernels:
+        step_profile(torch, lambda: step(1), f"{arch} train step",
+                     ("flash_fwd_kernel",))
+    return dict(losses=losses, grad_norm1=gn1, k3=counts["flash_attention"],
+                steady_s=steady, peak=peak)
+
+
+def compare_train_arms(arch, kern, plain, card):
+    """The kernel and plain arms from one init agree at step 1: loss and
+    grad norm within rel LOSS_RTOL / GNORM_RTOL."""
+    l_err = abs(kern["losses"][0] - plain["losses"][0]) / abs(
+        plain["losses"][0])
+    g_err = abs(kern["grad_norm1"] - plain["grad_norm1"]) / abs(
+        plain["grad_norm1"])
+    log(f"{arch} train comparison: step-1 loss rel diff {l_err:.3g} (tol "
+        f"{LOSS_RTOL:g}), grad-norm rel diff {g_err:.3g} (tol "
+        f"{GNORM_RTOL:g}); steady step kernels {kern['steady_s'] * 1e3:.1f} "
+        f"ms vs plain {plain['steady_s'] * 1e3:.1f} ms [{card}]")
+    if l_err > LOSS_RTOL or g_err > GNORM_RTOL:
+        raise AssertionError(f"{arch}: the train arms disagree at step 1")
+
+
 def family_train_arm(torch, card, arch, overrides, cut, use_kernels):
-    """``Session.train`` of one family cut in depth: 1 step, then
-    FAMILY_STEPS - 1 (the stream continues), on one repeated batch; K3 /
-    K9 / K10 counted over those steps."""
+    """``Session.train`` of one family cut in depth, FAMILY_STEPS steps on
+    one repeated batch."""
     from repro_torch import api
     sess = api.load(arch, device=DEVICE, seed=SEED, **overrides)
     cfg = sess.model
@@ -2420,47 +2512,15 @@ def family_train_arm(torch, card, arch, overrides, cut, use_kernels):
                               SEED + 7)
     kw = dict(seq_len=FAMILY_SEQ, global_batch=FAMILY_BATCH, lr=TRAIN_LR,
               data=ds, use_kernels=use_kernels)
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    t0 = time.perf_counter()
-    first = sess.train(1, **kw)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    rest = sess.train(FAMILY_STEPS - 1, **kw)
-    torch.cuda.synchronize()
-    steady = (time.perf_counter() - t1) / (FAMILY_STEPS - 1)
-    counts = read_counts()
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    losses = first.losses + rest.losses
-    arm = "kernels" if use_kernels else "plain"
-    log(f"{arch} train ({arm}; full width, {cut}: {_describe(cfg)}, "
-        f"{cfg.param_count() / 1e9:.3f} B params, remat {cfg.remat}; "
-        f"{FAMILY_STEPS} steps of {FAMILY_BATCH}x{FAMILY_SEQ} tokens, adam "
-        f"lr {TRAIN_LR}, 1-rank NCCL group) in {time.perf_counter() - t0:.1f}"
-        f" s incl. init: losses {[round(x, 5) for x in losses]}, step-1 grad "
-        f"norm {first.metrics['grad_norm']:.5f}; steady step "
-        f"{steady * 1e3:.1f} ms, peak {peak:.2f} GiB; launches K3 "
-        f"{counts['flash_attention']}, K9 {counts['lru_scan']}, K10 "
-        f"{counts['wkv6']} [{card}]")
-    if len(losses) != FAMILY_STEPS or not all(map(math.isfinite, losses)):
-        raise AssertionError(f"bad loss curve {losses}")
-    if not losses[-1] < losses[0]:
-        raise AssertionError(f"{arch} ({arm}): the loss did not fall")
-    if counts["lru_scan"] or counts["wkv6"]:
-        raise AssertionError("K9 / K10 ran on a training path")
-    attn = cfg.num_layers // 3 if cfg.family == "hybrid" else (
-        0 if cfg.attn_kind == "mla" or cfg.family == "ssm" else cfg.num_layers)
-    want = (FAMILY_STEPS * attn * (2 if cfg.remat != "none" else 1)
-            if use_kernels else 0)
-    if counts["flash_attention"] != want:
-        raise AssertionError(f"K3 launched {counts['flash_attention']} times "
-                             f"on {arch}'s train path, expected {want}")
-    if use_kernels:
-        step_profile(torch, lambda: sess.train(1, **kw), f"{arch} train step",
-                     ("flash_fwd_kernel",))
-    out = dict(losses=losses, grad_norm1=first.metrics["grad_norm"],
-               k3=counts["flash_attention"], steady_s=steady, peak=peak)
-    del sess, first, rest
+
+    def step(n):                          # the first call inits the params
+        r = sess.train(n, **kw)
+        return r.losses, r.metrics["grad_norm"]
+
+    out = train_arm_run(torch, card, arch, cfg, step, FAMILY_STEPS,
+                        use_kernels, f"full width, {cut}: {_describe(cfg)}; "
+                        f"batch {FAMILY_BATCH}x{FAMILY_SEQ} tokens")
+    del sess, step
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -2479,17 +2539,7 @@ def family_train_drives(torch, card):
         if not kern["k3"]:
             continue
         plain = family_train_arm(torch, card, arch, overrides, cut, False)
-        l_err = abs(kern["losses"][0] - plain["losses"][0]) / abs(
-            plain["losses"][0])
-        g_err = abs(kern["grad_norm1"] - plain["grad_norm1"]) / abs(
-            plain["grad_norm1"])
-        log(f"{arch} train comparison: step-1 loss rel diff {l_err:.3g} (tol "
-            f"{LOSS_RTOL:g}), grad-norm rel diff {g_err:.3g} (tol "
-            f"{GNORM_RTOL:g}); steady step kernels "
-            f"{kern['steady_s'] * 1e3:.1f} ms vs plain "
-            f"{plain['steady_s'] * 1e3:.1f} ms [{card}]")
-        if l_err > LOSS_RTOL or g_err > GNORM_RTOL:
-            raise AssertionError(f"{arch}: the train arms disagree at step 1")
+        compare_train_arms(arch, kern, plain, card)
     return k3
 
 
@@ -2795,6 +2845,318 @@ def fp32_phase(torch, arch="deepseek-v2-lite-16b"):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the encdec (whisper) and vlm (pixtral) families through the
+# registry, and the serve launcher
+# ---------------------------------------------------------------------------
+
+#: whisper-tiny at full config: 4 requests of seeded frames [4, 1500, 384]
+#: and a 16-token prompt, 32 greedy steps; training 6 steps of one
+#: repeated batch of 8 x 448 target tokens
+WHISPER, W_BATCH, W_TEXT, W_STEPS = "whisper-tiny", 4, 16, 32
+W_TRAIN_STEPS, W_TRAIN_BATCH, W_TRAIN_TEXT = 6, 8, 448
+#: pixtral-12b at full width and depth: 2 requests of 1,024 seeded patch
+#: embeddings and 32 text tokens, 16 greedy steps; its fp32 arm cut to 8
+#: layers (14 GB); training cut to 2 layers (1.91 B params, 30.6 GB of
+#: fp32 masters, gradients and Adam moments), 512 text tokens, batch 2,
+#: 3 steps
+PIXTRAL, P_BATCH, P_TEXT, P_STEPS = "pixtral-12b", 2, 32, 16
+P_FP32_LAYERS = 8
+P_TRAIN_LAYERS, P_TRAIN_STEPS, P_TRAIN_BATCH, P_TRAIN_TEXT = 2, 3, 2, 512
+#: the launcher's drive on the card: the full config (the smoke configs'
+#: head_dim 16 is not one the CUDA kernels take, and the wrappers raise)
+LAUNCHER = ["-m", "repro_torch.launch.serve", "--arch", "qwen2.5-14b",
+            "--requests", "8"]
+
+
+def modal_batch(torch, cfg, batch, n_text, seed):
+    """Seeded tokens, next-token labels and the family's modality input
+    (frames [B, T_enc, d] or patches [B, n_img, d], fp32) on the card."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (batch, n_text + 1),
+                         generator=gen, device=DEVICE)
+    if cfg.family == "encdec":
+        key, n = "frames", cfg.encdec.encoder_seq_len
+    else:
+        key, n = "patches", cfg.vlm.num_image_tokens
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+            key: torch.randn((batch, n, cfg.d_model), generator=gen,
+                             device=DEVICE)}
+
+
+def modal_stream(torch, sess, batch, steps, use_kernels, force=None):
+    """The bundle's prefill over the batch, then ``steps`` decode steps
+    fed the greedy tokens (or ``force`` [B, steps + 1]'s): (tokens [B,
+    steps + 1], fp32 logits [B, steps + 1, V]).  Row i of the logits
+    predicts token i."""
+    cfg, b = sess.model, sess.bundle
+    args = ((batch["frames"], batch["tokens"]) if cfg.family == "encdec"
+            else (batch["tokens"], batch["patches"]))
+    # whisper's decode runs its cross-attention through K3; pixtral's is
+    # the dense lm_decode, which runs no kernel
+    dkw = {"use_kernels": use_kernels} if cfg.family == "encdec" else {}
+    with torch.no_grad():
+        logits, state = b.prefill_fn(sess.params, *args,
+                                     use_kernels=use_kernels)
+        rows, toks = [logits.float()], [logits.argmax(-1)]
+        for i in range(steps):
+            feed = toks[-1] if force is None else force[:, i]
+            logits, state = b.decode_fn(sess.params, feed[:, None], state,
+                                        **dkw)
+            rows.append(logits.float())
+            toks.append(logits.argmax(-1))
+    return torch.stack(toks, 1), torch.stack(rows, 1)
+
+
+def modal_k3_launches(cfg, steps):
+    """K3 in one prefill and ``steps`` decode steps: whisper's encoder
+    layers, decoder self- and cross-attention in prefill, and the cross-
+    attention of every decode step; pixtral one a layer in prefill."""
+    if cfg.family == "encdec":
+        return cfg.encdec.num_encoder_layers + cfg.num_layers * (2 + steps)
+    return cfg.num_layers
+
+
+def modal_load(torch, arch, **overrides):
+    from repro_torch import api
+    t0 = time.perf_counter()
+    sess = api.load(arch, device=DEVICE, seed=SEED, **overrides)
+    cfg = sess.model
+    torch.cuda.reset_peak_memory_stats()
+    _ = sess.params                          # init on the card, timed apart
+    torch.cuda.synchronize()
+    enc = (f"encoder {cfg.encdec.num_encoder_layers} layers over "
+           f"{cfg.encdec.encoder_seq_len} frames, " if cfg.encdec else
+           f"{cfg.vlm.num_image_tokens} image tokens, ")
+    log(f"model {cfg.name} ({cfg.compute_dtype}): {cfg.num_layers} layers, "
+        f"d_model {cfg.d_model}, {enc}{_describe(cfg)}, vocab "
+        f"{cfg.vocab_size}, {cfg.param_count():,} params; weights: init "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB peak")
+    return sess
+
+
+def modal_partings(torch, toks, other, logits, tol, what):
+    """Rows where ``other``'s stream parts from ``toks``'s: at the first
+    parting index, ``logits`` [B, n, V] (the other arm's own, or the plain
+    path teacher-forced along ``toks``) must hold ``toks``'s token within
+    ``tol(top logit)`` of its top.  Returns the identical rows' count."""
+    identical = 0
+    for r in range(toks.shape[0]):
+        diff = (toks[r] != other[r]).nonzero()
+        if not len(diff):
+            identical += 1
+            continue
+        j = int(diff[0])
+        row = logits[r, j]
+        gap = (row.max() - row[toks[r, j]]).item()
+        log(f"{what} request {r}: streams part at index {j} "
+            f"({int(toks[r, j])} vs {int(other[r, j])}); logit gap {gap:.4g} "
+            f"(tolerance {tol(row.max().item()):.4g})")
+        if gap > tol(row.max().item()):
+            raise AssertionError(f"{what} request {r} diverges at {j}")
+    log(f"{what}: {identical}/{toks.shape[0]} greedy streams identical, the "
+        "rest part only at near-ties")
+    return identical
+
+
+def modal_serve(torch, card, arch, batch_size, n_text, steps, *, plain_arm,
+                **overrides):
+    """One family's serve drive at the session's width: K3 counted over
+    the kernel arm (zeroed just before, read just after), the drive again
+    with every K3 launch held against its plain version on that launch's
+    inputs, a profile of the drive, and (``plain_arm``) the
+    ``use_kernels=False`` arm, whose streams may part only at bf16
+    near-ties.  Returns (session, batch, tokens, K3 launches)."""
+    sess = modal_load(torch, arch, **overrides)
+    cfg = sess.model
+    batch = modal_batch(torch, cfg, batch_size, n_text, SEED + 11)
+    modal_stream(torch, sess, batch, 1, True)          # warm-up
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, _ = modal_stream(torch, sess, batch, steps, True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    want = modal_k3_launches(cfg, steps)
+    n_tok = batch_size * (steps + 1)
+    log(f"serve {cfg.name} (kernels; bundle prefill_fn / decode_fn): "
+        f"{batch_size} requests of {n_text} tokens"
+        f"{' + frames' if cfg.encdec else ' + patches'}, {steps} greedy "
+        f"steps in {wall:.3f} s ({n_tok / wall:.1f} tok/s); launches "
+        f"{ {n: c for n, c in counts.items() if c} }, K3 expected {want}; "
+        f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    if counts["flash_attention"] != want or sum(counts.values()) != want:
+        raise AssertionError(f"{arch}: launches {counts}, K3 expected {want}")
+    if not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"{arch}: token ids out of range")
+    with checked_launches(torch, ["flash_attention"]) as errs:
+        t0 = time.perf_counter()
+        checked, _ = modal_stream(torch, sess, batch, steps, True)
+        cwall = time.perf_counter() - t0
+    report_checked(torch, errs, cwall)
+    if len(errs["flash_attention"]) != want:
+        raise AssertionError(f"checked run: {len(errs['flash_attention'])} "
+                             f"K3 launches, expected {want}")
+    log(f"checked run: greedy streams "
+        f"{'equal' if torch.equal(checked, toks) else 'differ from'} the "
+        f"kernel arm's")
+    step_profile(torch, lambda: modal_stream(torch, sess, batch, steps, True),
+                 f"{arch} serve drive, warm", ("flash_fwd_kernel",))
+    if plain_arm:
+        reset_counts()
+        t0 = time.perf_counter()
+        ptoks, plogits = modal_stream(torch, sess, batch, steps, False)
+        torch.cuda.synchronize()
+        pcounts = read_counts()
+        log(f"serve {cfg.name} (plain, use_kernels=False): "
+            f"{time.perf_counter() - t0:.3f} s; launches "
+            f"{ {n: c for n, c in pcounts.items() if c} }")
+        if any(pcounts.values()):
+            raise AssertionError(f"plain arm launched kernels: {pcounts}")
+        modal_partings(torch, toks, ptoks, plogits, bf16_tie,
+                       f"{arch} kernel vs plain arm (bf16)")
+    return sess, batch, toks, counts["flash_attention"]
+
+
+def modal_fp32(torch, card, arch, batch_size, n_text, steps, **overrides):
+    """``arch`` in fp32, kernels on and off: the plain path teacher-forced
+    along the kernel arm's streams gives logits within FP32_LOGIT_ATOL of
+    the kernel path's; the plain arm's own greedy streams part from the
+    kernel arm's only where the plain path holds the kernel arm's token
+    within 2 x FP32_LOGIT_ATOL of its top."""
+    sess = modal_load(torch, arch, compute_dtype="float32", **overrides)
+    batch = modal_batch(torch, sess.model, batch_size, n_text, SEED + 11)
+    reset_counts()
+    toks, lk = modal_stream(torch, sess, batch, steps, True)
+    torch.cuda.synchronize()
+    k3 = read_counts()["flash_attention"]
+    _, lp = modal_stream(torch, sess, batch, steps, False, force=toks)
+    ptoks, _ = modal_stream(torch, sess, batch, steps, False)
+    d = (lk - lp).abs().max().item()
+    log(f"{arch} fp32 ({sess.model.num_layers} layers; K3 launches {k3}): "
+        f"teacher-forced logits, max |kernel - plain| {d:.3g} over "
+        f"{batch_size} x {steps + 1} positions (|logit| <= "
+        f"{lp.abs().max().item():.3g}; tol {FP32_LOGIT_ATOL:g}) [{card}]")
+    if k3 != modal_k3_launches(sess.model, steps):
+        raise AssertionError(f"{arch} fp32: K3 launched {k3} times")
+    modal_partings(torch, toks, ptoks, lp, lambda _: 2 * FP32_LOGIT_ATOL,
+                   f"{arch} fp32 kernel vs plain arm")
+    if d > FP32_LOGIT_ATOL:
+        raise AssertionError(f"{arch} fp32: kernel and plain paths disagree: "
+                             f"{d}")
+    del sess
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def modal_train_arm(torch, card, arch, overrides, batch_size, n_text, steps,
+                    use_kernels):
+    """``TransparentTrainer.from_bundle`` (adam, in the one-rank NCCL
+    group) on one repeated batch that carries the family's frames /
+    patches (``Session.train``'s synthetic data carries tokens only)."""
+    from repro_torch import api
+    from repro_torch.configs.base import (MeshConfig, OptimizerConfig,
+                                          RunConfig, ShapeConfig)
+    from repro_torch.core.transparent import TransparentTrainer
+    bundle = api.load(arch, device=DEVICE, seed=SEED, **overrides).bundle
+    cfg = bundle.cfg
+    run = RunConfig(model=cfg, shape=ShapeConfig(arch, "train", n_text,
+                                                 batch_size),
+                    mesh=MeshConfig(shape=(1, 1),
+                                    axis_names=("data", "model")),
+                    optimizer=OptimizerConfig(name="adam", lr=TRAIN_LR),
+                    seed=SEED)
+    tr = TransparentTrainer.from_bundle(run, bundle, device=DEVICE,
+                                        use_kernels=use_kernels)
+    held = {"state": tr.init(SEED)}
+    batch = modal_batch(torch, cfg, batch_size, n_text, SEED + 13)
+
+    def step(n):
+        losses, gn1 = [], None
+        for _ in range(n):
+            held["state"], m = tr.step(held["state"], batch)
+            losses.append(float(m["loss"]))
+            gn1 = float(m["grad_norm"]) if gn1 is None else gn1
+        return losses, gn1
+
+    out = train_arm_run(torch, card, arch, cfg, step, steps, use_kernels,
+                        f"{cfg.num_layers} decoder layers; batch "
+                        f"{batch_size} x {n_text} text tokens")
+    del tr, held, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def modal_train(torch, card, arch, overrides, batch_size, n_text, steps):
+    """The kernel and plain arms from one init, compared at step 1.
+    Returns the kernel arm's K3 launches."""
+    kern = modal_train_arm(torch, card, arch, overrides, batch_size, n_text,
+                           steps, True)
+    plain = modal_train_arm(torch, card, arch, overrides, batch_size, n_text,
+                            steps, False)
+    compare_train_arms(arch, kern, plain, card)
+    return kern["k3"]
+
+
+def launcher_drive(card):
+    """``python -m repro_torch.launch.serve`` as a user runs it on the
+    card: it must exit 0 having served every request."""
+    t0 = time.perf_counter()
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    r = subprocess.run([sys.executable, *LAUNCHER], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=600)
+    for line in (r.stdout + r.stderr).strip().splitlines()[-14:]:
+        log(f"  | {line}")
+    log(f"launcher: python {' '.join(LAUNCHER)} -> rc {r.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+    if r.returncode != 0 or "served 8/8 requests" not in r.stdout:
+        raise AssertionError(f"the serve launcher failed: rc {r.returncode}")
+
+
+def encdec_vlm_phase(torch, card):
+    """whisper-tiny at full config and pixtral-12b at full width and depth
+    through the registry bundles (serve: prefill_fn / decode_fn; train:
+    ``TransparentTrainer.from_bundle`` in a one-rank NCCL group), their
+    fp32 arms, then the serve launcher.  Returns K3's launches on these
+    drives (the kernel arms' serve and train runs)."""
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    sess, _, _, k3 = modal_serve(torch, card, WHISPER, W_BATCH, W_TEXT,
+                                 W_STEPS, plain_arm=False)
+    del sess
+    modal_fp32(torch, card, WHISPER, W_BATCH, W_TEXT, W_STEPS)
+    sess, _, _, n = modal_serve(torch, card, PIXTRAL, P_BATCH, P_TEXT,
+                                P_STEPS, plain_arm=True)
+    k3 += n
+    del sess
+    gc.collect()
+    torch.cuda.empty_cache()
+    modal_fp32(torch, card, PIXTRAL, P_BATCH, P_TEXT, P_STEPS,
+               num_layers=P_FP32_LAYERS)
+    pg_file = ROOT / "build" / f"chip_smoke_pg_modal_{os.getpid()}"
+    pg_file.parent.mkdir(parents=True, exist_ok=True)
+    pg_file.unlink(missing_ok=True)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{pg_file}",
+                            world_size=1, rank=0)
+    try:
+        k3 += modal_train(torch, card, WHISPER, {}, W_TRAIN_BATCH,
+                          W_TRAIN_TEXT, W_TRAIN_STEPS)
+        k3 += modal_train(torch, card, PIXTRAL,
+                          {"num_layers": P_TRAIN_LAYERS}, P_TRAIN_BATCH,
+                          P_TRAIN_TEXT, P_TRAIN_STEPS)
+    finally:
+        dist.destroy_process_group()
+        pg_file.unlink(missing_ok=True)
+    launcher_drive(card)
+    log(f"encdec / vlm phase: {time.perf_counter() - t0:.1f} s wall, K3 "
+        f"launches {k3} [{card}]")
+    return k3
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2804,7 +3166,7 @@ def main() -> int:
     # kernels of the package under SRC (default this checkout's src/)
     # alone, built and timed
     args = sys.argv[1:]
-    names = None
+    names = only = None
     if args[:1] == ["--decode-kernels"]:
         names, args = ["K1", "K4"], args[1:]
     elif args[:1] == ["--kernels"] and len(args) > 1:
@@ -2814,8 +3176,8 @@ def main() -> int:
             print(f"chip_smoke: unknown kernels {sorted(unknown)}; "
                   f"choose from {sorted(KERNEL_ROWS)}", file=sys.stderr)
             return 2
-    elif args == ["--train"]:
-        names = []
+    elif args in (["--train"], ["--encdec"]):
+        names, only = [], args[0]
     elif args:
         print(f"chip_smoke: unknown arguments {args}", file=sys.stderr)
         return 2
@@ -2836,9 +3198,13 @@ def main() -> int:
         return 0 if kernels_only_phase(torch, F, names) else 1
 
     card = env_phase(torch)
-    if names == []:                     # --train: the train phase alone
+    if names == []:                     # --train / --encdec: one phase alone
         build_phase()
-        train_phase(torch, card)
+        if only == "--train":
+            train_phase(torch, card)
+        else:
+            count_model_calls()
+            encdec_vlm_phase(torch, card)
         return 0
     count_model_calls()
     build_phase()
@@ -2880,6 +3246,9 @@ def main() -> int:
     gc.collect()                        # the bf16 mixtral session
     torch.cuda.empty_cache()
     fp32_phase(torch, "mixtral-8x22b")
+    modal_k3 = encdec_vlm_phase(torch, card)
+    log(f"K3 launches: whisper / pixtral {modal_k3}")
+    counts["flash_attention"] += modal_k3
 
     sources = {"paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                                    "src/repro/kernels/paged_attention/kernel.py:199"),

@@ -22,7 +22,11 @@ correction factor exp(NEG_INF - m) = 0 (forward) or contributes
 exp(NEG_INF - L) = 0 (backward).
 
 Layout [B, S, KV, G, hd] internally; ``flash_attention_vjp`` takes the
-model layout and pads S to the tile size by the JAX package's rule.
+model layout and pads S to the tile size by the JAX package's rule.  The
+mask keeps keys below the unpadded length ``n`` (the JAX package masks
+below the padded one, which only its causal callers reach); K3 runs on
+the ``n`` real rows, so a bidirectional (``causal=False``) encoder never
+attends a padding key.
 """
 from __future__ import annotations
 
@@ -33,10 +37,10 @@ from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
 from repro_torch.kernels.flash_attention.ops import from_bhsd, to_bhsd
 
 
-def _mask(q0, k0, bq, bk, S, causal, window, device):
+def _mask(q0, k0, bq, bk, n, causal, window, device):
     qp = q0 + torch.arange(bq, device=device)[:, None]
     kp = k0 + torch.arange(bk, device=device)[None, :]
-    m = kp < S
+    m = kp < n
     if causal:
         m = m & (kp <= qp)
     if window:
@@ -52,9 +56,11 @@ def _skip(q0, k0, bq, bk, causal, window) -> bool:
     return bool(window) and k0 + bk - 1 <= q0 - window
 
 
-def _fwd(q, k, v, causal, window, bq, bk):
-    """Returns (out fp32 [B,S,KV,G,hd], L [B,S,KV,G])."""
+def _fwd(q, k, v, causal, window, bq, bk, n=None):
+    """Keys below ``n`` only (default: all S).  Returns (out fp32
+    [B,S,KV,G,hd], L [B,S,KV,G])."""
     B, S, KV, G, hd = q.shape
+    n = S if n is None else n
     nq, nk = S // bq, S // bk
     scale = hd ** -0.5
     dev = q.device
@@ -71,7 +77,7 @@ def _fwd(q, k, v, causal, window, bq, bk):
             kblk = k[:, ik * bk:(ik + 1) * bk]
             vblk = v[:, ik * bk:(ik + 1) * bk]
             s = torch.einsum("bqkgh,btkh->bkgqt", qblk, kblk.float()) * scale
-            msk = _mask(iq * bq, ik * bk, bq, bk, S, causal, window, dev)
+            msk = _mask(iq * bq, ik * bk, bq, bk, n, causal, window, dev)
             s = torch.where(msk, s, neg)
             m_n = torch.maximum(m, s.amax(dim=-1))
             corr = torch.exp(m - m_n)
@@ -86,9 +92,10 @@ def _fwd(q, k, v, causal, window, bq, bk):
     return torch.cat(outs, dim=1), torch.cat(lses, dim=1)
 
 
-def _bwd(res, do, causal, window, bq, bk):
+def _bwd(res, do, causal, window, bq, bk, n=None):
     q, k, v, o, L = res
     B, S, KV, G, hd = q.shape
+    n = S if n is None else n
     nq, nk = S // bq, S // bk
     scale = hd ** -0.5
     dev = q.device
@@ -110,7 +117,7 @@ def _bwd(res, do, causal, window, bq, bk):
             Lblk = L[:, qs].permute(0, 2, 3, 1)[..., None]     # [B,KV,G,bq,1]
             Dblk = D[:, qs].permute(0, 2, 3, 1)[..., None]
             s = torch.einsum("bqkgh,btkh->bkgqt", qblk, kblk) * scale
-            msk = _mask(iq * bq, ik * bk, bq, bk, S, causal, window, dev)
+            msk = _mask(iq * bq, ik * bk, bq, bk, n, causal, window, dev)
             s = torch.where(msk, s, neg)
             p = torch.exp(s - Lblk)                            # [B,KV,G,bq,bk]
             dov = torch.einsum("bqkgh,btkh->bkgqt", doblk, vblk)
@@ -133,28 +140,37 @@ def _kernel_fwd(q, k, v, causal, window):
 
 
 class FlashAttention(torch.autograd.Function):
-    """(q [B,S,KV,G,hd], k/v [B,S,KV,hd]) -> O [B,S,KV,G,hd] in q.dtype.
+    """(q [B,S,KV,G,hd], k/v [B,S,KV,hd], padded past their ``n`` real
+    rows) -> O [B,S,KV,G,hd] in q.dtype.
 
-    Forward: kernel K3 for a CUDA tensor when ``use_kernel``, else
-    ``_fwd``.  Backward: ``_bwd`` from the saved (q, k, v, O, L)."""
+    Forward: kernel K3 on the ``n`` real rows of CUDA tensors when
+    ``use_kernel`` (O and L padded back with zeros), else ``_fwd``.
+    Backward: ``_bwd`` from the saved (q, k, v, O, L); a padded query row
+    gets no output gradient, so its L of 0 adds nothing."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, bq, bk, use_kernel):
+    def forward(ctx, q, k, v, causal, window, bq, bk, use_kernel, n):
         if use_kernel and q.is_cuda:
-            out, L = _kernel_fwd(q, k, v, causal, window)
+            out, L = _kernel_fwd(q[:, :n], k[:, :n], v[:, :n], causal,
+                                 window)
+            pad = q.shape[1] - n
+            if pad:
+                out = torch.nn.functional.pad(
+                    out, (0, 0, 0, 0, 0, 0, 0, pad))
+                L = torch.nn.functional.pad(L, (0, 0, 0, 0, 0, pad))
             o = out
         else:
-            o, L = _fwd(q, k, v, causal, window, bq, bk)
+            o, L = _fwd(q, k, v, causal, window, bq, bk, n)
             out = o.to(q.dtype)
         ctx.save_for_backward(q, k, v, o, L)
-        ctx.cfg = (causal, window, bq, bk)
+        ctx.cfg = (causal, window, bq, bk, n)
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, L = ctx.saved_tensors
         dq, dk, dv = _bwd((q, k, v, o, L), do, *ctx.cfg)
-        return dq, dk, dv, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_attention_vjp(q, k, v, *, causal: bool = True, window: int = 0,
@@ -179,5 +195,6 @@ def flash_attention_vjp(q, k, v, *, causal: bool = True, window: int = 0,
         q5 = torch.nn.functional.pad(q5, (0, 0, 0, 0, 0, 0, 0, pad))
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
-    out = FlashAttention.apply(q5, k, v, causal, window, bq, bk, use_kernel)
+    out = FlashAttention.apply(q5, k, v, causal, window, bq, bk, use_kernel,
+                               S)
     return out[:, :S].reshape(B, S, H, hd)

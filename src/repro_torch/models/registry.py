@@ -6,12 +6,13 @@ entry points the runtime dispatches on.  Decode-path contracts are typed
 them a family declares; the serving engine and ``repro_torch.api``
 dispatch on that set, never on ``is None`` probes.
 
-The port builds the ``dense`` and ``moe`` families (full, MLA and
-sliding-window attention, on contiguous, latent or ring pages) and the
-recurrent ``hybrid`` (recurrentgemma) and ``ssm`` (rwkv6) families, which
-have no ``KVLayout`` and serve on the slotted pool only.  encdec and vlm
-raise one line naming their ROADMAP item; cnn has no bundle, as in the
-JAX package, and its error names the way to train it.
+The port builds all six registry families: ``dense`` and ``moe`` (full,
+MLA and sliding-window attention, on contiguous, latent or ring pages),
+the recurrent ``hybrid`` (recurrentgemma) and ``ssm`` (rwkv6), which have
+no ``KVLayout`` and serve on the slotted pool only, and ``encdec``
+(whisper) and ``vlm`` (pixtral), which train and declare no serve
+contract: their prefill takes per-request frames or patches.  cnn has no
+bundle, as in the JAX package, and its error names the way to train it.
 """
 from __future__ import annotations
 
@@ -24,7 +25,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import common, rglru, rwkv6, transformer
+from repro_torch.models import (common, pixtral, rglru, rwkv6, transformer,
+                                whisper)
 from repro_torch.serving.layouts import KVLayout, layout_for
 
 
@@ -203,10 +205,41 @@ def _build_rwkv(cfg: ModelConfig) -> ModelBundle:
     )
 
 
-_TODO = {
-    "encdec": "encdec (whisper) — ROADMAP queue 1 item 11",
-    "vlm": "vlm (pixtral) — ROADMAP queue 1 item 11",
-}
+def _build_whisper(cfg: ModelConfig) -> ModelBundle:
+    e = cfg.encdec
+    cd = common.torch_dtype(cfg.compute_dtype)
+
+    def init_state(b, s, device="cpu"):
+        return {"self": transformer.init_decode_caches(cfg, b, s,
+                                                       device=device),
+                "enc": torch.zeros((b, e.encoder_seq_len, cfg.d_model),
+                                   dtype=cd, device=device)}
+
+    return ModelBundle(
+        cfg=cfg,
+        specs=whisper.whisper_specs(cfg),
+        loss_fn=functools.partial(whisper.whisper_loss, cfg),
+        prefill_fn=lambda params, frames, tokens, *, use_kernels=False:
+            whisper.whisper_prefill(cfg, params, frames, tokens,
+                                    use_kernels=use_kernels),
+        decode_fn=functools.partial(whisper.whisper_decode, cfg),
+        init_decode_state=init_state,
+    )
+
+
+def _build_pixtral(cfg: ModelConfig) -> ModelBundle:
+    return ModelBundle(
+        cfg=cfg,
+        specs=pixtral.pixtral_specs(cfg),
+        loss_fn=functools.partial(pixtral.pixtral_loss, cfg),
+        prefill_fn=lambda params, tokens, patches, *, use_kernels=False:
+            pixtral.pixtral_prefill(cfg, params, tokens, patches,
+                                    use_kernels=use_kernels),
+        decode_fn=functools.partial(transformer.lm_decode, cfg),
+        init_decode_state=lambda b, s, device="cpu":
+            transformer.init_decode_caches(cfg, b, s, device=device),
+    )
+
 
 #: the JAX registry has no CNN bundle either
 _CNN = ("family cnn (alexnet, tinycnn) has no registry bundle: train it "
@@ -215,16 +248,14 @@ _CNN = ("family cnn (alexnet, tinycnn) has no registry bundle: train it "
         "repro_torch.core.transparent.TransparentTrainer")
 
 _BUILDERS = {"dense": _build_lm, "moe": _build_lm, "hybrid": _build_rg,
-             "ssm": _build_rwkv}
+             "ssm": _build_rwkv, "encdec": _build_whisper,
+             "vlm": _build_pixtral}
 
 
 def build(cfg: ModelConfig) -> ModelBundle:
     cfg.validate()
     if cfg.family == "cnn":
         raise NotImplementedError(_CNN)
-    if cfg.family not in _BUILDERS:
-        raise NotImplementedError(
-            f"family {_TODO.get(cfg.family, cfg.family)} is not ported yet")
     return _BUILDERS[cfg.family](cfg)
 
 

@@ -184,10 +184,20 @@ def lm_forward(cfg, params, tokens, *, collect_cache: bool = False,
     truncation — the serving engine's routing; training keeps GShard
     capacity semantics.
     """
-    cd = torch_dtype(cfg.compute_dtype)
-    B, S = tokens.shape
-    positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
-    x = embed_lookup(cfg, params, tokens, cd)
+    x = embed_lookup(cfg, params, tokens, torch_dtype(cfg.compute_dtype))
+    return layers_forward(cfg, params, x, collect_cache=collect_cache,
+                          cache_len=cache_len, n_valid=n_valid,
+                          use_kernels=use_kernels, moe_dropless=moe_dropless)
+
+
+def layers_forward(cfg, params, x, *, collect_cache: bool = False,
+                   cache_len: int = 0, n_valid=None, use_kernels: bool = False,
+                   moe_dropless: bool = False):
+    """``lm_forward`` from the input embeddings x [B,S,d] on (pixtral
+    prepends its image patches to the token embeddings)."""
+    cd = x.dtype
+    B, S = x.shape[:2]
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)
     kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []

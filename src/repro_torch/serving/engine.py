@@ -225,8 +225,10 @@ class ServingEngine:
         self.bundle = registry.build(model_cfg)
         caps = self.bundle.capabilities()
         if "serve" not in caps:
-            raise ValueError(f"{model_cfg.name} ({model_cfg.family}) "
-                             "declares no serve contract")
+            raise ValueError(
+                f"{model_cfg.name} ({model_cfg.family}) has no serving "
+                "decode-path contract (ServeContract); encdec/vlm "
+                "frontends need per-request modality inputs")
         cd = torch_dtype(model_cfg.compute_dtype)
         if params is None:
             # ``seed`` initialises parameters ONLY; sampling randomness is

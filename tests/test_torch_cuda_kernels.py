@@ -155,7 +155,13 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
     # every head dim, window edges inside a key tile
     (160, 100, 8, 2, 64, True, 0), (77, 300, 4, 2, 128, True, 0),
     (129, 129, 4, 1, 256, True, 64), (65, 200, 4, 4, 256, False, 0),
-    (333, 333, 8, 8, 128, True, 65), (50, 64, 4, 2, 64, False, 20)])
+    (333, 333, 8, 8, 128, True, 65), (50, 64, 4, 2, 64, False, 20),
+    # whisper-tiny: the bidirectional encoder over 1500 frames (a 28-key
+    # tail tile), the cross-attention of a 16-token prompt and of one
+    # decode query against them; pixtral-12b: causal over 1,024 image
+    # tokens and 32 text tokens at hd 128
+    (1500, 1500, 6, 6, 64, False, 0), (16, 1500, 6, 6, 64, False, 0),
+    (1, 1500, 6, 6, 64, False, 0), (1056, 1056, 32, 8, 128, True, 0)])
 def test_cuda_flash_kernel_matches_plain(dtype, Sq, Sk, H, KV, hd, causal,
                                          window):
     dev = _cuda()
@@ -194,6 +200,36 @@ def test_cuda_flash_function_grads_match_plain(S, window):
     got = torch.autograd.grad(out, xs, do)
     ys = [torch.from_numpy(a).to(dev).requires_grad_() for a in arrs[:3]]
     ref_out = flash_ops.flash_attention(*ys, window=window, use_kernel=False)
+    want = torch.autograd.grad(ref_out, ys, do)
+    torch.testing.assert_close(out, ref_out, rtol=0, atol=1e-5)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0,
+                                   atol=1e-4 * float(w.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,q_block,kv_block", [(200, 64, 128),
+                                                (1500, 512, 1024)])
+def test_cuda_flash_function_bidirectional_over_padding(S, q_block,
+                                                        kv_block):
+    """whisper's encoder in training: the autograd Function with
+    ``causal=False`` over a length its tiles pad (200 -> 256, 1500 ->
+    2048); K3 runs on the real rows only, so no padding key is attended.
+    Against autograd through the plain version (fp32)."""
+    dev = _cuda()
+    rng = np.random.default_rng(9)
+    B, H, KV, hd = 2, 6, 6, 64
+    arrs = [rng.normal(size=shape).astype(np.float32) for shape in
+            ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd), (B, S, H, hd))]
+    do = torch.from_numpy(arrs[3]).to(dev)
+    xs = [torch.from_numpy(a).to(dev).requires_grad_() for a in arrs[:3]]
+    n0 = flash_kernel.flash_attention_kernel.launches
+    out = flash_attention_vjp(*xs, causal=False, q_block=q_block,
+                              kv_block=kv_block, use_kernel=True)
+    assert flash_kernel.flash_attention_kernel.launches == n0 + 1
+    got = torch.autograd.grad(out, xs, do)
+    ys = [torch.from_numpy(a).to(dev).requires_grad_() for a in arrs[:3]]
+    ref_out = flash_ops.flash_attention(*ys, causal=False, use_kernel=False)
     want = torch.autograd.grad(ref_out, ys, do)
     torch.testing.assert_close(out, ref_out, rtol=0, atol=1e-5)
     for g, w in zip(got, want):

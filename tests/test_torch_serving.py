@@ -313,8 +313,10 @@ def test_unported_engine_paths_raise(knobs):
 
 def test_unported_families_and_train_raise():
     """What the port still leaves out raises, naming its ROADMAP item:
-    the encdec family (whisper) and fsdp placement.  The moe, hybrid and
-    ssm families and checkpoint / resume train (``tests/test_torch_train_
+    fsdp placement.  The encdec family (whisper) loads with the
+    reference's capabilities and refuses to serve, as the reference does
+    (``tests/test_torch_encdec_vlm.py``).  The moe, hybrid and ssm
+    families and checkpoint / resume train (``tests/test_torch_train_
     families.py``, ``tests/test_torch_checkpoint.py``)."""
     # mixtral (swa + MoE) serves on ring pages with the reference's
     # capabilities
@@ -322,8 +324,11 @@ def test_unported_families_and_train_raise():
     assert mx.capabilities() == _jax_session(
         "mixtral-8x22b").bundle.capabilities()
     assert mx.bundle.kv_layout.ring
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_api.load("whisper-tiny", smoke=True, device="cpu")
+    wh = port_api.load("whisper-tiny", smoke=True, device="cpu")
+    assert wh.capabilities() == _jax_session(
+        "whisper-tiny").bundle.capabilities() == {"train"}
+    with pytest.raises(port_api.CapabilityError, match="doesn't serve"):
+        wh.serve([[1, 2, 3]])
     # the recurrent families serve (slotted) and train
     for arch in ("rwkv6-1.6b", "recurrentgemma-2b"):
         rec = port_api.load(arch, smoke=True, device="cpu")
