@@ -3157,6 +3157,346 @@ def encdec_vlm_phase(torch, card):
     return k3
 
 
+# ---------------------------------------------------------------------------
+# phase 13: mesh transparency — ranks of one gloo group sharing the card
+# ---------------------------------------------------------------------------
+
+#: the mesh arms' depth cuts (full width): qwen's bf16 serve arm and its
+#: fp32 arm, recurrentgemma's serve arm (two super-blocks), the train arms
+#: (one step: the fsdp arm moves its 6.2 GB of fp32 embedding and head
+#: through the host twice a step over gloo)
+MESH_QWEN_LAYERS, MESH_FP32_LAYERS, MESH_RG_LAYERS = 8, 4, 6
+MESH_TRAIN_LAYERS, MESH_TRAIN_SEQ, MESH_TRAIN_STEPS = 2, 1024, 1
+#: the two train meshes, after the one-process arm
+MESH_TRAIN = (("1x2", "replicated"), ("2x1", "fsdp"))
+#: a whole mesh run (both ranks, every arm) must end within this
+MESH_TIMEOUT = 420
+#: the collectives each arm runs over gloo, on CUDA tensors
+MESH_NEEDS = {"qwen": ("all_reduce/float32", "all_gather/bfloat16"),
+              "qwen_fp32": ("all_reduce/float32", "all_gather/float32"),
+              "recurrentgemma": ("all_gather/int32", "broadcast/int32"),
+              "train": ("all_reduce/float32", "all_gather/float32",
+                        "all_gather/bfloat16", "broadcast/float32")}
+
+
+def mesh_probe(torch, dist):
+    """Which collectives gloo carries on CUDA tensors here: name ->
+    "ok" or the error (NCCL refuses two ranks on one card, so the mesh
+    phase's ranks share it over gloo)."""
+    dev = torch.device("cuda")
+    out = {}
+    for op in ("all_reduce", "all_gather", "broadcast"):
+        for dt in (torch.float32, torch.bfloat16, torch.int32):
+            name = f"{op}/{str(dt).split('.')[-1]}"
+            x = torch.full((8,), dist.get_rank() + 1, dtype=dt, device=dev)
+            try:
+                if op == "all_reduce":
+                    dist.all_reduce(x)
+                    ok = int(x[0].item()) == 3
+                elif op == "all_gather":
+                    parts = [torch.empty_like(x) for _ in range(2)]
+                    dist.all_gather(parts, x)
+                    ok = [int(p[0].item()) for p in parts] == [1, 2]
+                else:
+                    dist.broadcast(x, src=0)
+                    ok = int(x[0].item()) == 1
+                out[name] = "ok" if ok else "wrong result"
+            except Exception as e:        # reported, and the arm skipped
+                out[name] = f"{type(e).__name__}: {str(e)[:120]}"
+    return out
+
+
+def _teacher_forced_on(torch, eng, seq, n_prompt):
+    """``teacher_forced_logits`` through a meshed engine's own shards
+    (kernels on), under its model axis: every rank calls it."""
+    import types
+    from repro_torch.models.common import model_axis
+    view = types.SimpleNamespace(model=eng.model_cfg, device=eng.device,
+                                 params=eng.params, bundle=eng.bundle)
+    with model_axis(eng.model_axis):
+        return teacher_forced_logits(torch, view, seq, n_prompt, True)
+
+
+def _mesh_serve_arm(torch, card, rank, arch, mesh, ref, names, **load_kw):
+    """Rank ``rank``'s meshed drive of ``arch``: the six requests (the
+    qwen drive's), kernels on, every count zeroed before and read after
+    (each of ``names`` must launch on this rank); the drive again with
+    every launch of ``names`` held against its plain version; the streams
+    against the one-process ``ref``, parting only at bf16 near-ties."""
+    from repro_torch import api
+    sess = api.load(arch, device="cuda", seed=SEED, mesh=mesh, **load_kw)
+    cfg = sess.model
+    prompts = make_prompts(cfg.vocab_size, REPETITIVE[arch],
+                           LONG_PROMPT.get(arch, 0))
+    sess.serve([prompts[1][:8]], max_new=2)
+    torch.cuda.reset_peak_memory_stats()
+    outs, wall, counts, m = serve_once(torch, sess, prompts)
+    mine = {n: counts[n] for n in names}
+    log(f"[{card}] mesh {mesh} rank {rank} {arch} ({cfg.num_layers} "
+        f"layers, {cfg.compute_dtype}): {wall:.2f} s, tok/s "
+        f"{m['tokens_per_sec']:.2f}, drafted {m['drafted_tokens']} "
+        f"accepted {m['accepted_tokens']}, launches {mine}, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    if not all(v > 0 for v in mine.values()):
+        raise AssertionError(f"rank {rank}: kernels not launched: {mine}")
+    checked_drive(torch, sess, prompts, outs, names)
+    compare_streams(torch, sess, prompts, outs, ref, asserted=True)
+    return {"outs": outs, "launches": mine, "wall": wall,
+            "tok_s": m["tokens_per_sec"]}
+
+
+def _train_batch(vocab):
+    import numpy as np
+    toks = np.random.default_rng(SEED + 5).integers(
+        0, vocab, (TRAIN_BATCH, MESH_TRAIN_SEQ + 1), dtype=np.int32)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def _mesh_trainer(torch, mesh_shape, dp_mode):
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import (MeshConfig, OptimizerConfig,
+                                          RunConfig, ShapeConfig)
+    from repro_torch.core.transparent import TransparentTrainer
+    from repro_torch.models import registry
+    cfg = get_config("qwen2.5-14b").replace(num_layers=MESH_TRAIN_LAYERS)
+    run = RunConfig(model=cfg,
+                    shape=ShapeConfig("mesh", "train", MESH_TRAIN_SEQ,
+                                      TRAIN_BATCH),
+                    mesh=MeshConfig(shape=mesh_shape,
+                                    axis_names=("data", "model"),
+                                    dp_mode=dp_mode),
+                    optimizer=OptimizerConfig(name="adam", lr=TRAIN_LR))
+    return TransparentTrainer.from_bundle(run, registry.build(cfg),
+                                          device="cuda"), cfg
+
+
+def mesh_train_run(torch, card, mesh_shape, dp_mode, rank=0):
+    """MESH_TRAIN_STEPS steps of qwen cut to MESH_TRAIN_LAYERS layers from
+    the seeded init on one global batch, each rank on its data-parallel
+    slice: [(loss, grad norm)], K3 launches, peak GiB."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    torch.cuda.reset_peak_memory_stats()
+    tr, cfg = _mesh_trainer(torch, mesh_shape, dp_mode)
+    state = tr.init(SEED)
+    batch = _train_batch(cfg.vocab_size)
+    n = TRAIN_BATCH // tr.dp
+    local = {k: v[tr.rank * n:(tr.rank + 1) * n] for k, v in batch.items()}
+    fk.flash_attention_kernel.launches = 0
+    curve = []
+    t0 = time.perf_counter()
+    for _ in range(MESH_TRAIN_STEPS):
+        state, m = tr.step(state, local)
+        curve.append((float(m["loss"]), float(m["grad_norm"])))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k3 = fk.flash_attention_kernel.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    mesh = "x".join(map(str, mesh_shape))
+    log(f"[{card}] train qwen2.5-14b ({MESH_TRAIN_LAYERS} layers, "
+        f"{TRAIN_BATCH} x {MESH_TRAIN_SEQ}) mesh {mesh} {dp_mode} rank "
+        f"{rank}: losses {[round(l, 5) for l, _ in curve]}, grad norms "
+        f"{[round(g, 4) for _, g in curve]}, {wall:.2f} s for "
+        f"{MESH_TRAIN_STEPS} steps, K3 {k3} launches, peak {peak:.1f} GiB")
+    del tr, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"curve": curve, "k3": k3, "peak_gib": peak}
+
+
+def _mesh_rank(rank, world, port, refs, q):
+    """One rank of the mesh phase: gloo over TCP on this host, the card
+    shared with the other rank; the arms in order, each rank's results
+    (or its traceback) on ``q``."""
+    import traceback
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    try:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                                world_size=world, rank=rank)
+        card = refs["card"]
+        probe = mesh_probe(torch, dist)
+        res = {"probe": probe}
+        runs = [a for a, needs in MESH_NEEDS.items()
+                if all(probe[n] == "ok" for n in needs)]
+        if "qwen" in runs:
+            res["qwen"] = _mesh_serve_arm(
+                torch, card, rank, "qwen2.5-14b", "1x2", refs["qwen"],
+                SERVE_KERNELS["qwen2.5-14b"], num_layers=MESH_QWEN_LAYERS)
+            gc.collect()
+            torch.cuda.empty_cache()
+        if "qwen_fp32" in runs:
+            from repro_torch import api
+            sess = api.load("qwen2.5-14b", device="cuda", seed=SEED,
+                            mesh="1x2", num_layers=MESH_FP32_LAYERS,
+                            compute_dtype="float32")
+            prompts = make_prompts(sess.model.vocab_size,
+                                   REPETITIVE["qwen2.5-14b"])
+            outs, _, counts, _ = serve_once(torch, sess, prompts)
+            eng = sess.engine
+            # numpy, not tensors: a CPU tensor on the queue is shared
+            # through a file descriptor that dies with this process
+            logits = [_teacher_forced_on(torch, eng, list(p) + list(a),
+                                         len(p)).cpu().numpy()
+                      for p, a in zip(prompts, refs["qwen_fp32"])]
+            res["qwen_fp32"] = {"outs": outs, "logits": logits,
+                                "launches": {n: counts[n] for n in
+                                             SERVE_KERNELS["qwen2.5-14b"]}}
+            del sess, eng
+            gc.collect()
+            torch.cuda.empty_cache()
+        if "recurrentgemma" in runs:
+            res["recurrentgemma"] = _mesh_serve_arm(
+                torch, card, rank, "recurrentgemma-2b", "2x1",
+                refs["recurrentgemma"],
+                SERVE_KERNELS["recurrentgemma-2b"],
+                num_layers=MESH_RG_LAYERS)
+            gc.collect()
+            torch.cuda.empty_cache()
+        if "train" in runs:
+            res["train"] = {
+                f"{mesh}/{mode}": mesh_train_run(
+                    torch, card, tuple(int(x) for x in mesh.split("x")),
+                    mode, rank)
+                for mesh, mode in MESH_TRAIN}
+        q.put((rank, res))
+    except BaseException:
+        q.put((rank, {"error": traceback.format_exc()}))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mesh_spawn(refs, world=2):
+    """Start the ranks (spawned processes), collect every rank's results;
+    a rank that fails, or none within MESH_TIMEOUT, fails the phase.
+    Every process started is joined or killed."""
+    import multiprocessing as mp
+    import queue
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_mesh_rank, args=(r, world, port, refs, q))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        deadline = time.time() + MESH_TIMEOUT
+        while len(got) < world:
+            try:
+                rank, res = q.get(timeout=max(deadline - time.time(), 1))
+            except queue.Empty:
+                raise AssertionError(f"mesh ranks {sorted(set(range(world)) - set(got))} "
+                                     f"gave no result within {MESH_TIMEOUT} s")
+            if "error" in res:
+                raise AssertionError(f"mesh rank {rank} failed:\n"
+                                     f"{res['error']}")
+            got[rank] = res
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=30)
+    return [got[r] for r in range(world)]
+
+
+def _one_process_refs(torch, card):
+    """The one-process arms the mesh ranks are held against, run here
+    first (the card freed after each): qwen's and recurrentgemma's bf16
+    streams, qwen's fp32 streams and teacher-forced logits, the train
+    curve."""
+    from repro_torch import api
+    refs = {"card": card}
+    for arch, layers in (("qwen2.5-14b", MESH_QWEN_LAYERS),
+                         ("recurrentgemma-2b", MESH_RG_LAYERS)):
+        sess = api.load(arch, device="cuda", seed=SEED, num_layers=layers)
+        prompts = make_prompts(sess.model.vocab_size, REPETITIVE[arch],
+                               LONG_PROMPT.get(arch, 0))
+        sess.serve([prompts[1][:8]], max_new=2)
+        outs, wall, counts, m = serve_once(torch, sess, prompts)
+        log(f"[{card}] one process {arch} ({layers} layers): {wall:.2f} s, "
+            f"tok/s {m['tokens_per_sec']:.2f}, launches "
+            f"{ {n: counts[n] for n in SERVE_KERNELS[arch]} }")
+        refs["qwen" if arch.startswith("qwen") else "recurrentgemma"] = outs
+        del sess
+        gc.collect()
+        torch.cuda.empty_cache()
+    sess = api.load("qwen2.5-14b", device="cuda", seed=SEED,
+                    num_layers=MESH_FP32_LAYERS, compute_dtype="float32")
+    prompts = make_prompts(sess.model.vocab_size, REPETITIVE["qwen2.5-14b"])
+    outs, _, _, _ = serve_once(torch, sess, prompts)
+    refs["qwen_fp32"] = outs
+    refs["qwen_fp32_logits"] = [
+        teacher_forced_logits(torch, sess, list(p) + list(a), len(p),
+                              True).cpu().numpy()
+        for p, a in zip(prompts, outs)]
+    del sess
+    gc.collect()
+    torch.cuda.empty_cache()
+    refs["train"] = mesh_train_run(torch, card, (1, 1), "replicated")
+    return refs
+
+
+def mesh_phase(torch, card):
+    """Phase 13: the one-process arms, then two ranks of one gloo group
+    on the card: qwen2.5-14b (full width, MESH_QWEN_LAYERS layers) served
+    tensor-parallel on 1x2, its fp32 arm (MESH_FP32_LAYERS layers),
+    recurrentgemma-2b (full width, MESH_RG_LAYERS layers) with its slots
+    over data on 2x1, and qwen trained on 1x2 and on 2x1 with fsdp; every
+    rank's counts, checked launches, streams and step-1 numbers against
+    the one-process arms."""
+    t0 = time.perf_counter()
+    refs = _one_process_refs(torch, card)
+    mesh_ref = {k: v for k, v in refs.items() if k != "qwen_fp32_logits"}
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = mesh_spawn(mesh_ref)
+    probe = ranks[0]["probe"]
+    log(f"[{card}] gloo collectives on CUDA tensors: {probe}")
+    for arm, needs in MESH_NEEDS.items():
+        missing = [n for n in needs if probe[n] != "ok"]
+        if missing:
+            log(f"mesh arm {arm} not run: gloo cannot carry {missing} here")
+    for rank, res in enumerate(ranks):
+        if "qwen_fp32" in res:
+            r = res["qwen_fp32"]
+            if not all(v > 0 for v in r["launches"].values()):
+                raise AssertionError(f"fp32 mesh rank {rank}: {r['launches']}")
+            worst = max(float(abs(a - b).max()) for a, b in
+                        zip(r["logits"], refs["qwen_fp32_logits"]))
+            same = sum(a == b for a, b in zip(r["outs"], refs["qwen_fp32"]))
+            log(f"[{card}] fp32 mesh 1x2 rank {rank}: teacher-forced logits "
+                f"within {worst:.3g} of one process (tol "
+                f"{FP32_LOGIT_ATOL:.3g}); {same}/{len(r['outs'])} streams "
+                f"identical; launches {r['launches']}")
+            if worst > FP32_LOGIT_ATOL or same != len(r["outs"]):
+                raise AssertionError(f"fp32 mesh arm: {worst}, {same}")
+        for name, run in res.get("train", {}).items():
+            (l1, g1), (l0, g0) = run["curve"][0], refs["train"]["curve"][0]
+            dl, dg = abs(l1 - l0) / abs(l0), abs(g1 - g0) / abs(g0)
+            log(f"[{card}] train {name} rank {rank}: step-1 loss {l1:.6f} vs "
+                f"one process {l0:.6f} (rel {dl:.2e}, tol {LOSS_RTOL:g}), "
+                f"grad norm {g1:.5f} vs {g0:.5f} (rel {dg:.2e}, tol "
+                f"{GNORM_RTOL:g}); K3 {run['k3']}; peak {run['peak_gib']:.1f} "
+                f"GiB (one process {refs['train']['peak_gib']:.1f})")
+            if dl > LOSS_RTOL or dg > GNORM_RTOL or run["k3"] <= 0:
+                raise AssertionError(f"mesh train {name} rank {rank}: "
+                                     f"{dl}, {dg}, K3 {run['k3']}")
+    log(f"mesh phase: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3176,7 +3516,7 @@ def main() -> int:
             print(f"chip_smoke: unknown kernels {sorted(unknown)}; "
                   f"choose from {sorted(KERNEL_ROWS)}", file=sys.stderr)
             return 2
-    elif args in (["--train"], ["--encdec"]):
+    elif args in (["--train"], ["--encdec"], ["--mesh"]):
         names, only = [], args[0]
     elif args:
         print(f"chip_smoke: unknown arguments {args}", file=sys.stderr)
@@ -3202,6 +3542,8 @@ def main() -> int:
         build_phase()
         if only == "--train":
             train_phase(torch, card)
+        elif only == "--mesh":
+            mesh_phase(torch, card)
         else:
             count_model_calls()
             encdec_vlm_phase(torch, card)
@@ -3249,6 +3591,9 @@ def main() -> int:
     modal_k3 = encdec_vlm_phase(torch, card)
     log(f"K3 launches: whisper / pixtral {modal_k3}")
     counts["flash_attention"] += modal_k3
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_phase(torch, card)
 
     sources = {"paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                                    "src/repro/kernels/paged_attention/kernel.py:199"),

@@ -8,8 +8,10 @@
     session.serve(list_of_prompts, max_new=8)         # closed batch
 
 ``api.load(arch, smoke=True, device="cpu")`` runs the same script on the
-CPU with the kernels' plain PyTorch versions.
+CPU with the kernels' plain PyTorch versions; ``api.load(arch,
+mesh="2x2")`` runs it over a mesh of four processes.
 """
-from repro_torch.api.session import CapabilityError, Session, TrainResult, load
+from repro_torch.api.session import (CapabilityError, Session, TrainResult,
+                                     load, parse_mesh)
 
-__all__ = ["CapabilityError", "Session", "TrainResult", "load"]
+__all__ = ["CapabilityError", "Session", "TrainResult", "load", "parse_mesh"]

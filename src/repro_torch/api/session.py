@@ -22,6 +22,13 @@ exposes
 The device is explicit: ``"cuda"`` by default, raising when CUDA is
 absent; ``device="cpu"`` runs the port on the CPU with the kernels' plain
 PyTorch versions.
+
+``mesh=`` (``"DxM"`` / ``"PxDxM"`` / a shape / a ``MeshConfig``) is the
+only distribution knob a user script needs: the caller starts one
+process per mesh device and calls ``torch.distributed.init_process_group``
+in each, and the same script then trains and serves over the mesh
+(``launch.mesh``: tensor parallelism over "model", data parallelism over
+"data" / "pod").
 """
 from __future__ import annotations
 
@@ -29,7 +36,7 @@ import dataclasses
 import time
 import warnings
 from dataclasses import dataclass, field
-from typing import Any, Dict, Iterable, List, Optional, Sequence
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -43,6 +50,12 @@ from repro_torch.models import registry
 from repro_torch.models.common import tree_map, torch_dtype
 from repro_torch.serving.engine import resolve_device
 
+MeshLike = Union[None, str, Tuple[int, ...], MeshConfig]
+
+#: axis names by mesh rank: "4" -> 4x1 data x model, "4x2" -> data x model,
+#: "2x4x2" -> pod x data x model (the paper's two-pod layout)
+_AXES_BY_RANK = {2: ("data", "model"), 3: ("pod", "data", "model")}
+
 #: auto-sized serve capacity rounds up to this bucket (bounds the engine
 #: cache's cardinality under varying prompt lengths)
 _SEQ_BUCKET = 64
@@ -54,6 +67,39 @@ _MAX_ENGINES = 4
 class CapabilityError(ValueError):
     """A workload the loaded family does not declare (see
     ``ModelBundle.capabilities``), or one the port has not reached yet."""
+
+
+def parse_mesh(spec: MeshLike) -> Optional[MeshConfig]:
+    """``"2x2"`` / ``(2, 2)`` / ``MeshConfig`` / ``None`` -> ``MeshConfig``.
+
+    Strings are ``D``, ``DxM`` or ``PxDxM`` (data / model / pod extents);
+    this is the single parser behind ``--mesh`` in every launcher and the
+    ``mesh=`` argument of ``repro_torch.api.load``.
+    """
+    if spec is None or spec == "":
+        return None
+    if isinstance(spec, MeshConfig):
+        spec.validate()
+        return spec
+    if isinstance(spec, str):
+        try:
+            shape = tuple(int(x) for x in spec.lower().split("x"))
+        except ValueError:
+            raise ValueError(
+                f"mesh spec {spec!r} is not of the form 'D', 'DxM' or "
+                "'PxDxM' (e.g. '2x2' = 2-way data x 2-way model)") from None
+    else:
+        shape = tuple(int(x) for x in spec)
+    if len(shape) == 1:
+        # pure DP (the paper's setting): a 2-D mesh with a size-1 model
+        # axis — the sharding rules always name "model"
+        shape = shape + (1,)
+    axes = _AXES_BY_RANK.get(len(shape))
+    if axes is None or any(s < 1 for s in shape):
+        raise ValueError(
+            f"mesh shape {shape} must be 1-3 positive extents "
+            "(data | data x model | pod x data x model)")
+    return MeshConfig(shape=shape, axis_names=axes)
 
 
 @dataclass
@@ -80,11 +126,14 @@ class Session:
     through :func:`load`.  Lazy: nothing touches the device until the
     first ``train`` / ``serve`` / ``generate`` call."""
 
-    def __init__(self, model_cfg: ModelConfig, *, seed: int = 0,
+    def __init__(self, model_cfg: ModelConfig,
+                 mesh_cfg: Optional[MeshConfig] = None, *, seed: int = 0,
                  device=None, dp_mode: Optional[str] = None,
                  allreduce: Optional[str] = None):
         model_cfg.validate()
         self.model = model_cfg
+        self.mesh_cfg = mesh_cfg
+        self._mesh = None
         self.seed = seed
         self.device = resolve_device(device)
         self.bundle = registry.build(model_cfg)
@@ -144,12 +193,25 @@ class Session:
     # -- train -------------------------------------------------------------
 
     def _train_mesh_cfg(self) -> MeshConfig:
-        """One data-parallel replica per process of the default process
-        group (one without a group), no model axis."""
-        world = dist.get_world_size() if dist.is_initialized() else 1
-        base = MeshConfig(shape=(world, 1), axis_names=("data", "model"))
+        """The session's mesh; without one, one data-parallel replica per
+        process of the default process group (one without a group)."""
+        base = self.mesh_cfg
+        if base is None:
+            world = dist.get_world_size() if dist.is_initialized() else 1
+            base = MeshConfig(shape=(world, 1), axis_names=("data", "model"))
         return dataclasses.replace(base, **self._mesh_overrides) \
             if self._mesh_overrides else base
+
+    @property
+    def mesh(self):
+        """The process mesh (``launch.mesh.ProcessMesh``, built on first
+        use; None when meshless)."""
+        if self.mesh_cfg is None:
+            return None
+        if self._mesh is None:
+            from repro_torch.launch.mesh import build_mesh
+            self._mesh = build_mesh(self._train_mesh_cfg())
+        return self._mesh
 
     def train(self, steps: int = 50, *, data=None, seq_len: int = 64,
               global_batch: int = 8,
@@ -278,12 +340,15 @@ class Session:
                 blocking=True))
         self._train_state = state
         # serving must see the new params: drop the engines and hand them
-        # a compute-dtype copy (their per-call cast stays a no-op)
+        # a compute-dtype copy (their per-call cast stays a no-op) — whole
+        # (gathered on a sharded mesh: each engine keeps its block)
         for k in list(self._engines):
             self._drop_engine(k)
         cd = torch_dtype(self.model.compute_dtype)
+        from repro_torch.launch.sharding import full_tree
+        params = full_tree(state.params, trainer.placements, trainer.mesh)
         self._params = tree_map(lambda p: p.detach().to(cd, copy=True),
-                                state.params)
+                                params)
         metrics = {"loss": losses[-1] if losses else float("nan"),
                    "grad_norm": float(m["grad_norm"]) if losses else 0.0,
                    "step": step}
@@ -338,8 +403,12 @@ class Session:
             self._drop_engine(key)
         eng = self._engines.pop(serve_cfg, None)
         if eng is None:
-            eng = ServingEngine(self.model, serve_cfg, params=self.params,
-                                seed=self.seed, device=self.device)
+            # on a mesh each engine draws its own blocks of the seeded init
+            # (the same values) unless there are weights to cut
+            params = self.params if self.mesh_cfg is None else self._params
+            eng = ServingEngine(self.model, serve_cfg, params=params,
+                                mesh_cfg=self.mesh_cfg, seed=self.seed,
+                                device=self.device)
         self._engines[serve_cfg] = eng          # re-insert = LRU touch
         while len(self._engines) > _MAX_ENGINES:
             self._drop_engine(next(iter(self._engines)))
@@ -398,17 +467,25 @@ class Session:
         return outs[0] if single else outs
 
     def __repr__(self):
-        return (f"Session({self.model.name}, device={self.device}, "
+        mesh = "x".join(map(str, self.mesh_cfg.shape)) if self.mesh_cfg \
+            else "single-device"
+        return (f"Session({self.model.name}, mesh={mesh}, "
+                f"device={self.device}, "
                 f"capabilities={sorted(self.capabilities())})")
 
 
-def load(arch: str, *, smoke: bool = False, seed: int = 0, device=None,
-         dp_mode: Optional[str] = None, allreduce: Optional[str] = None,
-         require: Iterable[str] = (), **overrides) -> Session:
+def load(arch: str, *, smoke: bool = False, mesh: MeshLike = None,
+         seed: int = 0, device=None, dp_mode: Optional[str] = None,
+         allreduce: Optional[str] = None, require: Iterable[str] = (),
+         **overrides) -> Session:
     """The one supported entrypoint: ``load(arch) -> Session``.
 
     ``arch``      any registry architecture of a ported family;
     ``smoke``     the small config variant;
+    ``mesh``      ``"DxM"`` string / shape tuple / ``MeshConfig`` / None —
+                  the only distribution knob a user script needs (one
+                  process per mesh device, each in the default process
+                  group);
     ``device``    ``"cuda"`` (default; raises without CUDA) or ``"cpu"``;
     ``dp_mode`` / ``allreduce``  training placement / gradient-reduction
                   strategy (``MeshConfig`` fields);
@@ -418,8 +495,8 @@ def load(arch: str, *, smoke: bool = False, seed: int = 0, device=None,
     cfg = get_config(arch, smoke=smoke)
     if overrides:
         cfg = cfg.replace(**overrides)
-    sess = Session(cfg, seed=seed, device=device, dp_mode=dp_mode,
-                   allreduce=allreduce)
+    sess = Session(cfg, parse_mesh(mesh), seed=seed, device=device,
+                   dp_mode=dp_mode, allreduce=allreduce)
     for cap in require:
         sess._require(cap)
     return sess

@@ -3,12 +3,13 @@
 The port of ``src/repro/checkpoint/elastic.py``.  The paper's §III-B
 argument — "by using data parallelism the critical data structures are
 automatically replicated for fault tolerance" — as a mechanism: the
-trainer's canonical state (replicated params, ZeRO-1 optimizer state in
-its global ``[dp, shard]`` layout) restores onto a trainer of another DP
-degree, re-padding and re-splitting the flat ZeRO-1 leaves when the degree
-changed.  In the port the DP degree is the process group's world size
-(``core.transparent.dp_group_for``), so "a smaller mesh" is fewer
-processes, started anew, each calling ``restore_elastic``.  With
+trainer's canonical state (whole params and optimizer trees — gathered
+from their model- and fsdp-shards — and ZeRO-1 optimizer state in its
+global ``[dp, shard]`` layout) restores onto a trainer of another mesh,
+each rank keeping its blocks (``TransparentTrainer.load_state``), the flat
+ZeRO-1 leaves re-padded and re-split when the DP degree changed.  In the
+port a mesh device is a process (``launch.mesh``), so "a smaller mesh"
+is fewer processes, started anew, each calling ``restore_elastic``.  With
 checkpoint.py this is ULFM-style continued execution: lose a replica,
 restart smaller, restore, keep training (``failures.run_with_recovery``).
 """

@@ -125,10 +125,13 @@ def bucketed_allreduce(grads, dp: DPGroup, bucket_bytes: int):
 def hierarchical_allreduce(grads, dp: DPGroup):
     """Mean over the intra-pod subgroup first, then across pods — the MPI
     analogue is a node-local reduce followed by an inter-node allreduce.
-    Without a pod axis it is one all-reduce over all DP ranks."""
-    inner = dp.inner if dp.inner is not None else dp.group
+    Without a pod axis it is one all-reduce over all DP ranks; with one
+    replica a pod (no intra-pod subgroup) only the cross-pod one."""
+    inner = dp.inner if dp.inner is not None or dp.outer is not None \
+        else dp.group
     for l in tree_leaves(grads):
-        mean_(l, inner, _group_size(inner))
+        if inner is not None:
+            mean_(l, inner, _group_size(inner))
         if dp.outer is not None:
             mean_(l, dp.outer, _group_size(dp.outer))
     return grads

@@ -101,7 +101,11 @@ def make_input_pipeline(ds: DataSet, global_batch: int, device, *,
     """Full pipeline: shuffle -> batch -> prefetch -> device tensors.
 
     ``ds`` is this rank's shard; ``world`` (default: the process group's
-    size, 1 without one) splits ``global_batch`` into local batches.
+    size, 1 without one) splits ``global_batch`` into local batches.  On a
+    mesh with a model axis ``world`` is the data-parallel degree
+    (``TransparentTrainer.dp``): each data-parallel rank feeds its share,
+    and the model ranks of one replica feed the same rows (their shard
+    of the data is the replica's, ``TransparentTrainer.rank``).
     Returns (iterator of device batches, prefetcher — close it when done).
     """
     if world is None:

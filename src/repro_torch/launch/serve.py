@@ -11,10 +11,11 @@ the bundle's declared capabilities.
 On an H100 drop ``--device cpu`` and ``--smoke``: the hand-written CUDA
 kernels run, on full configs only (the smoke configs' head_dim 16 is not
 one the kernels take, and their wrappers raise), so ``--smoke`` needs
-``--device cpu``.  Serving over a process group (the reference's ``--mesh
-DxM``: data-parallel slots, tensor-parallel decode) is not ported yet: a
-``--mesh`` above 1 raises, naming its ROADMAP item.  Prompt lengths are
-jittered to exercise ragged continuous batching.
+``--device cpu``.  ``--mesh DxM`` serves over ``D·M`` processes
+(tensor-parallel decode over the model axis, data-parallel slots on the
+slotted pool), started with ``torch.distributed.run --nproc-per-node
+D·M``; every rank serves the same requests and rank 0 prints.  Prompt
+lengths are jittered to exercise ragged continuous batching.
 """
 from __future__ import annotations
 
@@ -102,10 +103,6 @@ def main():
                          "runs)")
     args = ap.parse_args()
 
-    if cli.data_parallel_degree(args.mesh) > 1:
-        raise NotImplementedError(
-            "serving over a process group (data-parallel slots, "
-            f"tensor-parallel decode) is not ported yet — {cli.MESH_TODO}")
     # require the serve capability at load time: a family the engine cannot
     # serve fails in one line here, not mid-run
     session = cli.make_session(args, require=("serve",))
@@ -153,6 +150,12 @@ def main():
         num_pages=args.num_pages, trace=bool(args.trace),
         spec_tokens=args.spec_tokens, enable_spec=not args.no_spec,
         sampling=sampling, **page_kw)
+    import torch.distributed as dist
+    if dist.is_initialized():
+        rank = dist.get_rank()
+        dist.destroy_process_group()
+        if rank:
+            return                    # every rank served the same streams
     engine = session.engine
     s = engine.metrics.summary()
     if args.json:

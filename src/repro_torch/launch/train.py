@@ -8,10 +8,12 @@ this file only turns flags into a ``Session.train`` call).
 
 The user-visible script is sequential, per the paper's thesis: the mesh /
 allreduce flags select the distribution, they never change the training
-code path.  Data-parallel over D processes of one process group:
+code path.  Over a mesh of D·M processes of one process group (D
+data-parallel replicas, each tensor-parallel over M; ``--dp-mode fsdp``
+shards the weights over the replicas too):
 
     PYTHONPATH=src python -m torch.distributed.run --standalone \\
-        --nproc-per-node 2 -m repro_torch.launch.train --smoke --mesh 2
+        --nproc-per-node 4 -m repro_torch.launch.train --smoke --mesh 2x2
 
 On the CPU use --smoke (reduced configs) and --device cpu; on an H100 the
 same launcher runs the full configs.  encdec and vlm (whisper, pixtral)

@@ -28,6 +28,12 @@ Execution paths:
     plain version).  Prefill is absorbed through kernel K7 with
     ``use_kernels`` and expanded without, as the JAX package's
     ``use_pallas`` chooses — two different computations of one function.
+
+Tensor parallelism (a ``models.common.model_axis`` context): every path
+runs on this rank's whole query heads (and KV heads, where they shard;
+a single KV head is read by every rank's query heads), so each kernel is
+called at the local head count; ``wo`` is row-parallel and its partial
+sums meet in ``from_model``.
 """
 from __future__ import annotations
 
@@ -36,7 +42,9 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.common import NEG_INF
-from repro_torch.models.common import ParamSpec, apply_rope, dot, rms_norm
+from repro_torch.models.common import (ParamSpec, apply_rope, dot,
+                                       from_model, local_extent, rms_norm,
+                                       to_model)
 from repro_torch.models.flash_vjp import flash_attention_vjp
 
 
@@ -89,6 +97,29 @@ def _split_heads(x, n, hd):
     return x.reshape(*x.shape[:-1], n, hd)
 
 
+def local_heads(cfg):
+    """(query heads, KV heads) on this rank: whole heads, as the rules
+    shard them (``models.common.rules_for``)."""
+    return (local_extent(cfg.num_heads, "heads"),
+            local_extent(cfg.num_kv_heads, "kv_heads"))
+
+
+def _kv_leaf(cfg, p, name):
+    """A K/V projection leaf.  KV heads that replicate while the query
+    heads shard are read by a part of the heads on each rank: their
+    gradient is partial there and sums over the model axis."""
+    w = p[name]
+    if local_extent(cfg.num_kv_heads, "kv_heads") == cfg.num_kv_heads:
+        w = to_model(w, "heads")
+    return w
+
+
+def _out_proj(p, out, cd):
+    """The row-parallel output projection: local heads' partial sums
+    all-reduced over the model axis."""
+    return from_model(dot(out, p["wo"], cd), "heads")
+
+
 def _project_qkv_rope(cfg, p, x, positions):
     """Shared GQA front half: q/k/v projections (+bias), head split, rope.
 
@@ -96,15 +127,16 @@ def _project_qkv_rope(cfg, p, x, positions):
     (``attention_apply``) and paged (``paged_*_apply``) paths alike.
     """
     hd = cfg.resolved_head_dim
-    H, KV = cfg.num_heads, cfg.num_kv_heads
+    H, KV = local_heads(cfg)
     cd = x.dtype
+    x = to_model(x, "heads")
     q = dot(x, p["wq"], cd)
-    k = dot(x, p["wk"], cd)
-    v = dot(x, p["wv"], cd)
+    k = dot(x, _kv_leaf(cfg, p, "wk"), cd)
+    v = dot(x, _kv_leaf(cfg, p, "wv"), cd)
     if cfg.qkv_bias:
         q = q + p["bq"].to(cd)
-        k = k + p["bk"].to(cd)
-        v = v + p["bv"].to(cd)
+        k = k + _kv_leaf(cfg, p, "bk").to(cd)
+        v = v + _kv_leaf(cfg, p, "bv").to(cd)
     q = _split_heads(q, H, hd)
     k = _split_heads(k, KV, hd)
     v = _split_heads(v, KV, hd)
@@ -419,7 +451,7 @@ def paged_prefill_apply(cfg, p, x, positions, kv, page_ids, start: int,
     from repro_torch.serving.layouts import SCALE_SUFFIX
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
-    H = cfg.num_heads
+    H = local_extent(cfg.num_heads, "heads")
     cd = x.dtype
     ps = kv["k"].shape[1]
     n = page_ids.shape[0]
@@ -460,7 +492,7 @@ def paged_prefill_apply(cfg, p, x, positions, kv, page_ids, start: int,
                                    n_valid, use_kernel=use_kernels,
                                    **scales)[None]
     out = out.reshape(B, S, H * hd)
-    return dot(out, p["wo"], cd), kv
+    return _out_proj(p, out, cd), kv
 
 
 def paged_attention_apply(cfg, p, x, positions, kv, page_table, lengths, *,
@@ -479,7 +511,7 @@ def paged_attention_apply(cfg, p, x, positions, kv, page_table, lengths, *,
     from repro_torch.serving.layouts import SCALE_SUFFIX
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
-    H = cfg.num_heads
+    H = local_extent(cfg.num_heads, "heads")
     cd = x.dtype
     window = _paged_window(cfg)
     q, k, v = _project_qkv_rope(cfg, p, x, positions)
@@ -491,7 +523,7 @@ def paged_attention_apply(cfg, p, x, positions, kv, page_table, lengths, *,
                                  v_scale=kv.get("v" + SCALE_SUFFIX),
                                  use_kernel=use_kernels)
     out = out[:, None].reshape(B, S, H * hd)
-    return dot(out, p["wo"], cd), kv
+    return _out_proj(p, out, cd), kv
 
 
 # ---------------------------------------------------------------------------
@@ -513,7 +545,7 @@ def attention_apply(cfg, p, x, positions, *, cache=None,
     """
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
-    H = cfg.num_heads
+    H = local_extent(cfg.num_heads, "heads")
     cd = x.dtype
     q, k, v = _project_qkv_rope(cfg, p, x, positions)
     window = cfg.window if cfg.attn_kind in ("swa", "local") else 0
@@ -535,7 +567,7 @@ def attention_apply(cfg, p, x, positions, *, cache=None,
         new_cache = cache_update(cache, k, v)
         out = decode_attend(q, new_cache, window=window)
     out = out.reshape(B, S, H * hd)
-    return dot(out, p["wo"], cd), new_cache
+    return _out_proj(p, out, cd), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -573,7 +605,7 @@ def mla_latents(cfg, p, x, positions):
 def _mla_q(cfg, p, x, positions, cd):
     """(q_nope [B,S,H,nope], q_rope [B,S,H,rp] roped)."""
     m = cfg.mla
-    H = cfg.num_heads
+    H = local_extent(cfg.num_heads, "heads")
     qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
     if m.q_lora_rank:
         cq = rms_norm(dot(x, p["w_dq"], cd), p["q_norm"], cfg.norm_eps)
@@ -597,7 +629,7 @@ def _absorb_q(cfg, p, q_nope, cd):
     """Latent-space queries q' = q_nope @ W_uk^T [..., H, R]: fp32
     products of the compute-dtype operands, cast to the compute dtype."""
     m = cfg.mla
-    w_uk = p["w_uk"].reshape(m.kv_lora_rank, cfg.num_heads,
+    w_uk = p["w_uk"].reshape(m.kv_lora_rank, -1,
                              m.qk_nope_head_dim).to(cd)
     return torch.einsum("bshn,rhn->bshr", q_nope.float(),
                         w_uk.float()).to(cd)
@@ -607,7 +639,7 @@ def _up_v(cfg, p, o_lat, cd):
     """Latent output o_lat [..., H, R] (compute dtype) through W_uv ->
     [..., H, v_head_dim] in the compute dtype (fp32 products)."""
     m = cfg.mla
-    w_uv = p["w_uv"].reshape(m.kv_lora_rank, cfg.num_heads,
+    w_uv = p["w_uv"].reshape(m.kv_lora_rank, -1,
                              m.v_head_dim).to(cd)
     return torch.einsum("...hr,rhv->...hv", o_lat.to(cd).float(),
                         w_uv.float()).to(cd)
@@ -620,7 +652,7 @@ def _mla_expanded(cfg, p, q_nope, q_rope, ckv, krope, q_pos, k_pos, *,
     [B,S,H,v_head_dim]."""
     m = cfg.mla
     B, T, _ = ckv.shape
-    H = cfg.num_heads
+    H = local_extent(cfg.num_heads, "heads")
     cd = q_nope.dtype
     k_nope = dot(ckv, p["w_uk"], cd).reshape(B, T, H, m.qk_nope_head_dim)
     vv = dot(ckv, p["w_uv"], cd).reshape(B, T, H, m.v_head_dim)
@@ -638,16 +670,17 @@ def mla_apply(cfg, p, x, positions, *, cache=None):
     place).  Returns (out [B,S,D], cache_or_None)."""
     m = cfg.mla
     B, S, _ = x.shape
-    H = cfg.num_heads
+    H = local_extent(cfg.num_heads, "heads")
     cd = x.dtype
     ckv, krope = mla_latents(cfg, p, x, positions)
-    q_nope, q_rope = _mla_q(cfg, p, x, positions, cd)
+    q_nope, q_rope = _mla_q(cfg, p, to_model(x, "heads"), positions, cd)
 
     if cache is None:
-        out = _mla_expanded(cfg, p, q_nope, q_rope, ckv, krope, positions,
-                            positions)
+        # the latents are replicated; each rank's heads read them
+        out = _mla_expanded(cfg, p, q_nope, q_rope, to_model(ckv, "heads"),
+                            to_model(krope, "heads"), positions, positions)
         out = out.reshape(B, S, H * m.v_head_dim)
-        return dot(out, p["wo"], cd), None
+        return _out_proj(p, out, cd), None
 
     # absorbed decode: score in the latent space (cache stays compressed)
     new_cache = ring_append(cache, {"ckv": ckv[:, 0], "krope": krope[:, 0]})
@@ -664,7 +697,7 @@ def mla_apply(cfg, p, x, positions, *, cache=None):
     o_lat = torch.einsum("bhst,btr->bshr", pr.to(cd).float(),
                          new_cache["ckv"].float()).to(cd)
     out = _up_v(cfg, p, o_lat, cd).reshape(B, 1, H * m.v_head_dim)
-    return dot(out, p["wo"], cd), new_cache
+    return _out_proj(p, out, cd), new_cache
 
 
 def paged_latent_update(kv, ckv_new, krope_new, page_table, pos):
@@ -707,7 +740,7 @@ def paged_mla_attention_apply(cfg, p, x, positions, kv, page_table, lengths,
     from repro_torch.kernels.paged_attention import ops as pa_ops
     m = cfg.mla
     B, S, _ = x.shape
-    H = cfg.num_heads
+    H = local_extent(cfg.num_heads, "heads")
     cd = x.dtype
     ckv, krope = mla_latents(cfg, p, x, positions)
     q_nope, q_rope = _mla_q(cfg, p, x, positions, cd)
@@ -718,7 +751,7 @@ def paged_mla_attention_apply(cfg, p, x, positions, kv, page_table, lengths,
         kv["krope"], page_table, (lengths + 1).to(torch.int32),
         scale=_mla_scale(cfg), use_kernel=use_kernels)
     out = _up_v(cfg, p, o_lat[:, None], cd).reshape(B, S, H * m.v_head_dim)
-    return dot(out, p["wo"], cd), kv
+    return _out_proj(p, out, cd), kv
 
 
 def paged_mla_prefill_apply(cfg, p, x, positions, kv, page_ids, start: int,
@@ -737,7 +770,7 @@ def paged_mla_prefill_apply(cfg, p, x, positions, kv, page_ids, start: int,
     from repro_torch.kernels.paged_attention import ops as pa_ops
     m = cfg.mla
     B, S, _ = x.shape
-    H = cfg.num_heads
+    H = local_extent(cfg.num_heads, "heads")
     cd = x.dtype
     ps = kv["ckv"].shape[1]
     n = page_ids.shape[0]
@@ -761,4 +794,4 @@ def paged_mla_prefill_apply(cfg, p, x, positions, kv, page_ids, start: int,
                             positions, k_pos,
                             kv_valid=(k_pos < start + n_valid)[None, :])
     out = out.reshape(B, S, H * m.v_head_dim)
-    return dot(out, p["wo"], cd), kv
+    return _out_proj(p, out, cd), kv

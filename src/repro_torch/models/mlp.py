@@ -1,7 +1,13 @@
-"""Feed-forward substrate: SwiGLU / GEGLU / plain MLP."""
+"""Feed-forward substrate: SwiGLU / GEGLU / plain MLP.
+
+Tensor parallelism: ``w_gate`` / ``w_up`` are column-parallel over the
+hidden dim ("mlp"), ``w_down`` row-parallel; the partial sums meet in
+``from_model`` before ``b_down`` is added once.
+"""
 from __future__ import annotations
 
-from repro_torch.models.common import ParamSpec, activation, dot
+from repro_torch.models.common import (ParamSpec, activation, dot,
+                                       from_model, to_model)
 
 GATED = ("swiglu", "geglu")
 
@@ -26,8 +32,9 @@ def mlp_specs(cfg, d_ff: int = 0):
 def mlp_apply(cfg, p, x):
     act = activation(cfg.act)
     cd = x.dtype
+    x = to_model(x, "mlp")
     if cfg.act in GATED:
         h = act(dot(x, p["w_gate"], cd)) * dot(x, p["w_up"], cd)
-        return dot(h, p["w_down"], cd)
+        return from_model(dot(h, p["w_down"], cd), "mlp")
     h = act(dot(x, p["w_up"], cd) + p["b_up"].to(cd))
-    return dot(h, p["w_down"], cd) + p["b_down"].to(cd)
+    return from_model(dot(h, p["w_down"], cd), "mlp") + p["b_down"].to(cd)

@@ -20,6 +20,13 @@ router; softmax, then top-k (ties to the lower expert index); gates
 renormalised by ``max(sum, 1e-9)`` and cast to the compute dtype before
 they weight an expert's output; the top-k contributions summed in fp32 in
 ascending expert order and cast once; shared experts added after.
+
+Tensor parallelism: expert-parallel where the expert count divides the
+model axis (each rank runs its own experts: the router's expert columns
+are gathered so every rank routes alike), else each expert's hidden dim
+over the model axis (``expert_mlp``); either way the routed outputs are
+partial sums that meet in ``from_model`` (the expert-parallel combine),
+and the shared experts' row-parallel down projection likewise.
 """
 from __future__ import annotations
 
@@ -28,7 +35,9 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import ParamSpec, activation, dot
+from repro_torch.models.common import (ParamSpec, activation, dot,
+                                       from_model, gather_model,
+                                       local_offset, to_model)
 
 
 def moe_specs(cfg):
@@ -62,7 +71,8 @@ def _route(router, xf, K: int):
     """xf [N, D] -> (probs [N, E] fp32, gates [N, K] fp32, experts [N, K]).
     ``torch.sort`` with ``stable=True`` keeps the lower expert index first
     among equal probabilities, as ``lax.top_k`` does."""
-    logits = torch.matmul(xf.float(), router.float())
+    logits = gather_model(torch.matmul(xf.float(), router.float()),
+                          "expert")
     probs = torch.softmax(logits, dim=-1)
     vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gates, sel = vals[:, :K], idx[:, :K]
@@ -74,6 +84,16 @@ def _expert(act, w_gate, w_up, w_down, x, cd):
     return dot(act(dot(x, w_gate, cd)) * dot(x, w_up, cd), w_down, cd)
 
 
+def _into_experts(x):
+    """Entry of the routed region (tokens, gates) over whichever model
+    axis the experts shard on — at most one of the two is."""
+    return to_model(to_model(x, "expert"), "expert_mlp")
+
+
+def _from_experts(y):
+    return from_model(from_model(y, "expert"), "expert_mlp")
+
+
 def _per_token(cfg, p, xf, gates, sel, keep, cd):
     """Drop-free routing: [N, D] in the compute dtype.  Padding tokens
     (``keep`` False) route nowhere."""
@@ -81,6 +101,8 @@ def _per_token(cfg, p, xf, gates, sel, keep, cd):
     E, K = m.num_experts, m.top_k
     N = xf.shape[0]
     act = activation(cfg.act)
+    first = local_offset(E, "expert")   # this rank's experts: first + i
+    n_local = p["w_gate"].shape[0]
     flat_e = torch.where(keep[:, None], sel, E).reshape(-1)   # E = nowhere
     order = torch.argsort(flat_e, stable=True)
     counts = torch.bincount(flat_e, minlength=E + 1)[:E].tolist()  # sync
@@ -90,14 +112,14 @@ def _per_token(cfg, p, xf, gates, sel, keep, cd):
                       device=xf.device)
     lo = 0
     for e, c in enumerate(counts):      # ascending expert order
-        if not c:
-            continue
-        t = tok[lo:lo + c]
-        ye = _expert(act, p["w_gate"][e], p["w_up"][e], p["w_down"][e],
-                     xf[t], cd)
-        acc.index_add_(0, t, ye.float() * gate[lo:lo + c, None].float())
+        if c and first <= e < first + n_local:
+            t = tok[lo:lo + c]
+            i = e - first
+            ye = _expert(act, p["w_gate"][i], p["w_up"][i], p["w_down"][i],
+                         xf[t], cd)
+            acc.index_add_(0, t, ye.float() * gate[lo:lo + c, None].float())
         lo += c
-    return acc.to(cd)
+    return _from_experts(acc).to(cd)
 
 
 def _capacity(cfg, p, xf, gates, onehot, G: int, g: int, cd):
@@ -115,13 +137,17 @@ def _capacity(cfg, p, xf, gates, onehot, G: int, g: int, cd):
     combine = torch.einsum(
         "gtke,gtkec->gtec",
         (gates.reshape(G, g, K)[..., None] * oh.float()).to(cd), slot)
+    # this rank's experts (all of them unless expert-parallel)
+    first, n_local = local_offset(E, "expert"), p["w_gate"].shape[0]
+    combine = combine[:, :, first:first + n_local]
     dispatch = (combine > 0).to(cd)
     act = activation(cfg.act)
     xe = torch.einsum("gtd,gtec->gecd", xf.reshape(G, g, -1), dispatch)
     h = act(torch.einsum("gecd,edf->gecf", xe, p["w_gate"].to(cd))) * \
         torch.einsum("gecd,edf->gecf", xe, p["w_up"].to(cd))
     ye = torch.einsum("gecf,efd->gecd", h, p["w_down"].to(cd))
-    return torch.einsum("gecd,gtec->gtd", ye, combine).reshape(G * g, -1)
+    y = torch.einsum("gecd,gtec->gtd", ye, combine).reshape(G * g, -1)
+    return _from_experts(y)
 
 
 def moe_apply(cfg, p, x, *, n_valid: Optional[int] = None,
@@ -141,7 +167,8 @@ def moe_apply(cfg, p, x, *, n_valid: Optional[int] = None,
     cd = x.dtype
     N = B * S
     xf = x.reshape(N, D)
-    probs, gates, sel = _route(p["router"], xf, K)
+    # expert-parallel: the router's columns are this rank's experts
+    probs, gates, sel = _route(p["router"], to_model(xf, "expert"), K)
     keep = torch.ones((N,), dtype=torch.bool, device=x.device)
     if n_valid is not None:
         keep = (torch.arange(S, device=x.device) < n_valid).repeat(B)
@@ -149,16 +176,18 @@ def moe_apply(cfg, p, x, *, n_valid: Optional[int] = None,
 
     g = 1 if per_token else _choose_group_size(N, E)
     G = N // g
+    xe, ge = _into_experts(xf), _into_experts(gates)
     if per_token:
-        y = _per_token(cfg, p, xf, gates, sel, keep, cd)
+        y = _per_token(cfg, p, xe, ge, sel, keep, cd)
     else:
-        y = _capacity(cfg, p, xf, gates, onehot, G, g, cd)
+        y = _capacity(cfg, p, xe, ge, onehot, G, g, cd)
     y = y.reshape(B, S, D)
 
     if m.num_shared_experts:
         sh = p["shared"]
-        y = y + _expert(activation(cfg.act), sh["w_gate"], sh["w_up"],
-                        sh["w_down"], x, cd)
+        y = y + from_model(_expert(activation(cfg.act), sh["w_gate"],
+                                   sh["w_up"], sh["w_down"],
+                                   to_model(x, "mlp"), cd), "mlp")
 
     # Switch load-balance auxiliary loss, per dispatch group
     frac = onehot.float().reshape(G, g * K, E).mean(dim=1)        # [G,E]

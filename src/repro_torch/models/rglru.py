@@ -26,9 +26,11 @@ import torch
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.common import (ParamSpec, activation, apply_norm,
-                                       cast_tree, dot, norm_specs,
-                                       stack_len, stack_slice, stack_specs,
-                                       stack_trees, torch_dtype, write_tree_)
+                                       cast_tree, dot, from_model,
+                                       gather_model, local_extent,
+                                       norm_specs, stack_len, stack_slice,
+                                       stack_specs, stack_trees, to_model,
+                                       torch_dtype, write_tree_)
 from repro_torch.models.transformer import (_fill_cache, _remat,
                                             cross_entropy, embed_lookup,
                                             embed_specs, head_specs, lm_head)
@@ -41,11 +43,12 @@ C_EXP = 8.0
 # ---------------------------------------------------------------------------
 
 def _lru_width(cfg) -> int:
-    return cfg.rglru.lru_width or cfg.d_model
+    """The RG-LRU width on this rank (its channels over the model axis)."""
+    return local_extent(cfg.rglru.lru_width or cfg.d_model, "lru")
 
 
 def recurrent_block_specs(cfg):
-    d, w = cfg.d_model, _lru_width(cfg)
+    d, w = cfg.d_model, cfg.rglru.lru_width or cfg.d_model
     cw = cfg.rglru.conv1d_width
     return {
         "ln": norm_specs(cfg),
@@ -94,10 +97,13 @@ def rg_specs(cfg):
 # ---------------------------------------------------------------------------
 
 def _lru_gates(p, x):
-    """x: [B,S,W] -> (log_a, gated_input) both [B,S,W] fp32."""
+    """x: [B,S,W] -> (log_a, gated_input) both [B,S,W] fp32.  The gate
+    matrices read the whole width: with the channels over the model axis
+    their input is gathered (and their output is this rank's channels)."""
     x32 = x.float()
-    r = torch.sigmoid(x32 @ p["lru_wa"].float() + p["lru_ba"].float())
-    i = torch.sigmoid(x32 @ p["lru_wx"].float() + p["lru_bx"].float())
+    xin = to_model(gather_model(x32, "lru"), "lru")
+    r = torch.sigmoid(xin @ p["lru_wa"].float() + p["lru_ba"].float())
+    i = torch.sigmoid(xin @ p["lru_wx"].float() + p["lru_bx"].float())
     lam = p["lru_lambda"].float()
     softplus = torch.logaddexp(lam, torch.zeros_like(lam))  # jax.nn.softplus
     log_a = -C_EXP * softplus * r
@@ -184,7 +190,7 @@ def recurrent_block_apply(cfg, p, x, state=None, use_kernels=False):
     """state: {"conv": [B,cw-1,W], "h": [B,W] fp32} or None (train/prefill
     from zero state).  Returns (x, new_state)."""
     cd = x.dtype
-    h_in = apply_norm(cfg, p["ln"], x)
+    h_in = to_model(apply_norm(cfg, p["ln"], x), "lru")
     u = dot(h_in, p["w_x"], cd)
     gate = _gelu(dot(h_in, p["w_gate"], cd))
     conv_state = state["conv"] if state is not None else None
@@ -195,7 +201,7 @@ def recurrent_block_apply(cfg, p, x, state=None, use_kernels=False):
         y, h_last = rg_lru_step(p, u[:, 0], state["h"])
         y = y[:, None, :]
     new_state = {"conv": new_conv, "h": h_last}
-    x = x + dot(y * gate, p["w_out"], cd)
+    x = x + from_model(dot(y * gate, p["w_out"], cd), "lru")
     h2 = apply_norm(cfg, p["ln2"], x)
     x = x + mlp_mod.mlp_apply(cfg, p["mlp"], h2)
     return x, new_state
@@ -276,7 +282,8 @@ def rg_init_states(cfg, batch: int, seq_len: int, device="cpu"):
     n_super, n_tail = divmod(cfg.num_layers, 3)
     cd = torch_dtype(cfg.compute_dtype)
     win = cfg.rglru.attention_window
-    cache = attn.init_cache(batch, min(seq_len, win), cfg.num_kv_heads,
+    cache = attn.init_cache(batch, min(seq_len, win),
+                            attn.local_heads(cfg)[1],
                             cfg.resolved_head_dim, cd, device)
     one = {"rec1": _rec_state_init(cfg, batch, device),
            "rec2": _rec_state_init(cfg, batch, device), "attn": cache}
@@ -327,7 +334,7 @@ def rg_prefill(cfg, params, tokens, *, cache_len: int = 0,
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
     win = cfg.rglru.attention_window
-    KV = cfg.num_kv_heads
+    KV = attn.local_heads(cfg)[1]
     x = embed_lookup(cfg, params, tokens, cd)
 
     def attn_prefill(p, x):

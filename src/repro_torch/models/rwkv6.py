@@ -23,17 +23,20 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import (ParamSpec, apply_norm, cast_tree, dot,
+                                       from_model, local_chunk, local_extent,
                                        norm_specs, stack_len, stack_slice,
-                                       stack_specs, stack_trees, torch_dtype,
-                                       write_tree_)
+                                       stack_specs, stack_trees, to_model,
+                                       torch_dtype, write_tree_)
 from repro_torch.models.transformer import (_remat, cross_entropy,
                                             embed_lookup, embed_specs,
                                             head_specs, lm_head)
 
 
 def _heads(cfg):
+    """(heads on this rank, head size): the WKV heads over the model
+    axis."""
     hd = cfg.rwkv.head_size
-    return cfg.d_model // hd, hd
+    return local_extent(cfg.d_model // hd, "heads"), hd
 
 
 # ---------------------------------------------------------------------------
@@ -42,7 +45,8 @@ def _heads(cfg):
 
 def time_mix_specs(cfg):
     d = cfg.d_model
-    h, hd = _heads(cfg)
+    hd = cfg.rwkv.head_size
+    h = d // hd
     r = cfg.rwkv.decay_lora
     return {
         "ln": norm_specs(cfg),
@@ -149,18 +153,28 @@ def _decay(p, xw):
 
 
 def time_mix_apply(cfg, p, x, state=None, use_kernels=False):
-    """state: {"x": [B,D], "s": [B,H,hd,hd]} or None. -> (y, new_state)."""
+    """state: {"x": [B,D], "s": [B,H,hd,hd]} or None. -> (y, new_state).
+
+    Tensor parallelism: r/k/v/g are column-parallel over the WKV heads,
+    ``w_o`` row-parallel; the per-channel decay, the bonus and the group
+    norm's affine are whole on every rank and read at this rank's heads
+    (``local_chunk``), so the recurrence (K10) runs on the local heads."""
     cd = x.dtype
     B, S, D = x.shape
     H, hd = _heads(cfg)
     xin = apply_norm(cfg, p["ln"], x)
     z = _shift(xin, state["x"] if state is not None else None)
-    r = dot(_lerp(xin, z, p["mu_r"]), p["w_r"], cd).reshape(B, S, H, hd)
-    k = dot(_lerp(xin, z, p["mu_k"]), p["w_k"], cd).reshape(B, S, H, hd)
-    v = dot(_lerp(xin, z, p["mu_v"]), p["w_v"], cd).reshape(B, S, H, hd)
-    g = F.silu(dot(_lerp(xin, z, p["mu_g"]), p["w_g"], cd))
-    w = _decay(p, _lerp(xin, z, p["mu_w"])).reshape(B, S, H, hd)
-    u = p["bonus_u"].float()
+
+    def col(mu, w):                     # a column-parallel projection
+        return dot(to_model(_lerp(xin, z, p[mu]), "heads"), p[w], cd)
+
+    r = col("mu_r", "w_r").reshape(B, S, H, hd)
+    k = col("mu_k", "w_k").reshape(B, S, H, hd)
+    v = col("mu_v", "w_v").reshape(B, S, H, hd)
+    g = F.silu(col("mu_g", "w_g"))
+    w = local_chunk(to_model(_decay(p, _lerp(xin, z, p["mu_w"])), "heads"),
+                    "heads").reshape(B, S, H, hd)
+    u = local_chunk(to_model(p["bonus_u"].float(), "heads"), "heads", 0)
 
     if state is None:
         out, s_last = wkv_scan(r, k, v, w, u, use_kernels=use_kernels)
@@ -175,9 +189,11 @@ def time_mix_apply(cfg, p, x, state=None, use_kernels=False):
     mu = torch.mean(out, dim=-1, keepdim=True)
     var = torch.var(out, dim=-1, keepdim=True, unbiased=False)
     out = (out - mu) * torch.rsqrt(var + 64e-5)
-    out = out.reshape(B, S, D).to(cd)
-    out = out * p["gn_scale"].to(cd) + p["gn_bias"].to(cd)
-    y = dot(out * g, p["w_o"], cd)
+    out = out.reshape(B, S, H * hd).to(cd)
+    gn = {n: local_chunk(to_model(p[n], "heads"), "heads")
+          for n in ("gn_scale", "gn_bias")}
+    out = out * gn["gn_scale"].to(cd) + gn["gn_bias"].to(cd)
+    y = from_model(dot(out * g, p["w_o"], cd), "heads")
     return x + y, new_state
 
 
@@ -185,9 +201,9 @@ def channel_mix_apply(cfg, p, x, state=None):
     cd = x.dtype
     xin = apply_norm(cfg, p["ln"], x)
     z = _shift(xin, state)
-    k = dot(_lerp(xin, z, p["mu_k"]), p["w_k"], cd)
+    k = dot(to_model(_lerp(xin, z, p["mu_k"]), "mlp"), p["w_k"], cd)
     k = torch.square(F.relu(k))
-    kv = dot(k, p["w_v"], cd)
+    kv = from_model(dot(k, p["w_v"], cd), "mlp")
     rr = torch.sigmoid(dot(_lerp(xin, z, p["mu_r"]), p["w_r"], cd))
     return x + rr * kv, xin[:, -1]
 

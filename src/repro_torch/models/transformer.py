@@ -24,6 +24,10 @@ ring per slot (``serving/layouts.py``).
 ``use_kernels`` on ``lm_forward`` / ``lm_loss`` / ``lm_prefill`` runs every
 layer's attention through kernel K3 (the JAX package's ``use_pallas``);
 ``cfg.remat`` checkpoints each layer as the JAX scan does.
+
+Under a ``models.common.model_axis`` context every entry point runs on
+this rank's shards (attention, MLP and MoE place their collectives), the
+caches hold the local KV heads, and the head gathers vocab-sharded logits.
 """
 from __future__ import annotations
 
@@ -36,7 +40,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (ParamSpec, apply_norm, cast_tree, dot,
-                                       norm_specs, stack_specs, torch_dtype)
+                                       gather_model, norm_specs, stack_specs,
+                                       to_model, torch_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -163,8 +168,14 @@ def embed_lookup(cfg, params, tokens, compute_dtype):
 
 
 def lm_head(cfg, params, x):
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return dot(x, w, x.dtype)
+    """Logits over the whole vocabulary: an untied head shards the vocab
+    over the model axis (column-parallel), and its logits are gathered
+    before argmax, sampling or the loss — every rank then holds the same
+    logits, so first-index ties break as on one device."""
+    if cfg.tie_embeddings:
+        return dot(x, params["embed"].T, x.dtype)
+    logits = dot(to_model(x, "vocab"), params["lm_head"], x.dtype)
+    return gather_model(logits, "vocab")
 
 
 # ---------------------------------------------------------------------------
@@ -198,7 +209,7 @@ def layers_forward(cfg, params, x, *, collect_cache: bool = False,
     cd = x.dtype
     B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
-    kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    kv, hd = attn.local_heads(cfg)[1], cfg.resolved_head_dim
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
     layer_fn = _remat(cfg, lambda lp, x: decoder_layer_apply(
@@ -474,7 +485,7 @@ def init_decode_caches(cfg, batch: int, seq_len: int, device="cpu"):
     if cfg.attn_kind == "mla":
         one = attn.mla_init_cache(batch, Lc, cfg, cd, device)
     else:
-        one = attn.init_cache(batch, Lc, cfg.num_kv_heads,
+        one = attn.init_cache(batch, Lc, attn.local_heads(cfg)[1],
                               cfg.resolved_head_dim, cd, device)
     return {k: v[None].expand((cfg.num_layers,) + v.shape).clone()
             for k, v in one.items()}

@@ -55,10 +55,11 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, *, norm=None):
     """Scale ``grads`` (fp32, in place) so their global norm is at most
-    ``max_norm``; returns (grads, norm before clipping)."""
-    gn = global_norm(grads)
+    ``max_norm``; returns (grads, norm before clipping).  ``norm`` is
+    that norm when the caller has it (gradients sharded over a mesh)."""
+    gn = global_norm(grads) if norm is None else norm
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0)
     for g in tree_leaves(grads):
         g.mul_(scale)

@@ -53,22 +53,38 @@ Differences from the JAX engine, all forced by eager PyTorch:
   * Sampled rows draw from a counter-keyed Philox stream
     (``serving/sampling.py``), not JAX's threefry.
 
-Not ported yet: mesh placement (``mesh_cfg``), raising a one-line
-``ValueError`` naming its ROADMAP item.  ``kv_dtype="int8"`` quantizes the
-per-head pages (contiguous and ring); MLA's latent pages and the slotted
-pool reject it with the JAX package's errors.
+``kv_dtype="int8"`` quantizes the per-head pages (contiguous and ring);
+MLA's latent pages and the slotted pool reject it with the JAX package's
+errors.
+
+Mesh placement (``mesh_cfg``): one process per mesh device, every rank
+running this same engine on the same request stream — the host
+scheduler's decisions depend on the stream and on tokens every rank
+holds, never on a clock or on rank-local state, so the ranks stay in
+lockstep through every collective.  Parameters are placed by the rules
+(``launch.sharding.param_rules``; replicated over the data axes) and the
+model runs on this rank's shards under its ``models.common.ModelAxis``:
+tensor-parallel decode over "model", the vocab-sharded logits gathered
+before argmax or sampling.  The paged pool holds this rank's KV heads and
+replicates over the data axes (every data rank runs every slot); the
+slotted pool puts its slots over the data axes — each data-parallel rank
+prefills and decodes its own run of slots, a prefill's first token is
+broadcast from its owner, and every decode step's tokens are gathered.
 """
 from __future__ import annotations
 
+import dataclasses
 import itertools
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig, ServeConfig
 from repro_torch.models import registry
-from repro_torch.models.common import torch_dtype
+from repro_torch.models.common import (logical_to_mesh, model_axis,
+                                       torch_dtype)
 from repro_torch.obs import (INFLIGHT_COUNTER, NULL_TRACER, Tracer,
                              request_track, write_chrome_trace)
 from repro_torch.serving.kvcache import SlotKVCachePool
@@ -209,9 +225,6 @@ class ServingEngine:
         self.model_cfg = model_cfg
         self.cfg = serve_cfg or ServeConfig()
         self.device = resolve_device(device)
-        if mesh_cfg is not None:
-            raise ValueError("mesh placement is not ported yet — ROADMAP "
-                             "queue 1 item 10 (mesh transparency)")
         self.tracer = (Tracer(clock=clock, capacity=self.cfg.trace_capacity,
                               meta={"model": model_cfg.name,
                                     "family": model_cfg.family,
@@ -230,17 +243,47 @@ class ServingEngine:
                 "decode-path contract (ServeContract); encdec/vlm "
                 "frontends need per-request modality inputs")
         cd = torch_dtype(model_cfg.compute_dtype)
+        # -- mesh placement (config-selected, transparent to callers)
+        self.mesh = None
+        self.model_axis = None
+        if mesh_cfg is not None:
+            from repro_torch.launch import sharding
+            from repro_torch.launch.mesh import build_mesh
+            self.mesh = build_mesh(mesh_cfg)
+            # dp_mode places training state; served weights replicate
+            # over the data axes
+            rules, sharded = sharding.param_rules(
+                dataclasses.replace(mesh_cfg, dp_mode="replicated"),
+                model_cfg)
+            self.model_axis = sharding.model_axis_for(self.mesh, sharded)
         if params is None:
             # ``seed`` initialises parameters ONLY; sampling randomness is
             # strictly per-request.  Weights are made in the compute dtype,
             # one leaf at a time, so the fp32 master tree never exists.
             gen = torch.Generator(device=self.device).manual_seed(seed)
-            params = self.bundle.init_params(gen, device=self.device,
-                                             dtype=cd)
+            if self.mesh is None:
+                params = self.bundle.init_params(gen, device=self.device,
+                                                 dtype=cd)
+            else:
+                params = sharding.init_local_params(
+                    self.bundle.specs, rules, self.mesh, gen,
+                    device=self.device, dtype=cd)
+        elif self.mesh is not None:
+            # whole weights given (the same on every rank): keep our block
+            params = sharding.local_tree(
+                _to(params, self.device, cd),
+                logical_to_mesh(self.bundle.specs, rules), self.mesh)
         # weights live in the compute dtype, cast once: the values equal
         # cast_tree's per-call cast (both round to nearest even), and the
         # per-call casts in the model entry points become no-ops
         self.params = _to(params, self.device, cd)
+        with model_axis(self.model_axis):
+            self._build_pool(model_cfg, caps, clock)
+
+    def _build_pool(self, model_cfg, caps, clock):
+        """The KV pool and the engine state around it, at this rank's
+        shapes (built under the model axis: local KV heads / channels)."""
+        self._dp_group, self._dp, self._dp_rank = None, 1, 0
 
         # -- pool: page-granular when the family has a KVLayout (every
         # paged family of the port declares the prefix contract too);
@@ -286,10 +329,21 @@ class ServingEngine:
             # auto-resolved slotted (no KVLayout): the error the explicit
             # kv_layout='slotted' combination gets in validate()
             self.cfg.check_kv_dtype(None)
+            # data-parallel slots: each DP rank holds a contiguous run of
+            # them when their count divides the DP degree (else every rank
+            # holds and runs them all)
+            if self.mesh is not None:
+                dp = self.mesh.size(self.mesh.dp_axes)
+                if dp > 1 and self.cfg.max_batch % dp == 0:
+                    self._dp_group = self.mesh.group(self.mesh.dp_axes)
+                    self._dp, self._dp_rank = dp, self.mesh.index(
+                        self.mesh.dp_axes)
+            per = self.cfg.max_batch // self._dp
             self.pool = SlotKVCachePool(
                 self.cfg.max_batch,
                 lambda: self.bundle.init_decode_state(
-                    1, self.cfg.max_seq_len, device=self.device))
+                    1, self.cfg.max_seq_len, device=self.device),
+                local_slots=(self._dp_rank * per, per))
             self._cache_len = self.cfg.max_seq_len
             self._span_cap = self.cfg.decode_steps
             # host mirror of each slot's next sampling index (= prompt +
@@ -378,13 +432,17 @@ class ServingEngine:
         also decoded junk into.  ``samp`` / ``pos0`` are a sampled cycle's
         packed rows and next sampling indices."""
         state = self.pool.batched()
+        first, n = self.pool.local_slots     # this rank's slots
+        mine = slice(first, first + n)
         toks, pos = toks0, pos0
         rows = []
         for k in range(self.cfg.decode_steps):
-            logits, _ = self.bundle.decode_fn(self.params, toks[:, None],
-                                              state)
-            nxt = (sample_tokens(logits, samp, pos) if samp is not None
+            logits, _ = self.bundle.decode_fn(self.params,
+                                              toks[mine, None], state)
+            nxt = (sample_tokens(logits, samp[mine], pos[mine])
+                   if samp is not None
                    else torch.argmax(logits, dim=-1).to(torch.int32))
+            nxt = self._gather_slots(nxt)
             rows.append(nxt)
             adv = (k + 1) < limits
             toks = torch.where(adv, nxt, toks)
@@ -393,6 +451,21 @@ class ServingEngine:
         stack = torch.stack(rows)
         last = torch.where(limits >= 1, stack[-1], toks0)
         return stack, last
+
+    def _gather_slots(self, x):
+        """The data-parallel ranks' slot runs of ``x`` joined (rank order
+        is slot order); ``x`` itself without data-parallel slots."""
+        if self._dp_group is None:
+            return x
+        parts = [torch.empty_like(x) for _ in range(self._dp)]
+        dist.all_gather(parts, x.contiguous(), group=self._dp_group)
+        return torch.cat(parts)
+
+    def _slot_owner(self, slot: int) -> int:
+        """Global rank of the data-parallel rank holding ``slot`` (at this
+        rank's model coordinate)."""
+        d = slot // self.pool.local_slots[1]
+        return dist.get_global_rank(self._dp_group, d)
 
     def _bucketed_prompt(self, prompt, cap: int):
         """(tokens [1, S], n_valid_or_None): pad to a power-of-two bucket
@@ -800,16 +873,24 @@ class ServingEngine:
                 tok = a.cached_tok
             else:
                 # slotted: whole-prompt prefill, its state copied into the
-                # slot
+                # slot — by the data-parallel rank holding the slot, which
+                # broadcasts the first token to the others
                 toks, n_valid = self._bucketed_prompt(a.prompt,
                                                       self._cache_len)
-                with tr.span("prefill.device", tokens=len(a.prompt),
-                             bucket=int(toks.shape[1])):
-                    logits, state = self._prefill(toks, n_valid)
-                    self.pool.insert_at(a.slot, state)
-                    self._fence()
+                tok = torch.zeros((), dtype=torch.int32, device=self.device)
+                if self.pool.holds(a.slot):
+                    with tr.span("prefill.device", tokens=len(a.prompt),
+                                 bucket=int(toks.shape[1])):
+                        logits, state = self._prefill(toks, n_valid)
+                        self.pool.insert_at(a.slot, state)
+                        self._fence()
+                    tok = self._first_token(a.req, logits, len(a.prompt))
+                if self._dp_group is not None:
+                    tok = tok.reshape(1).clone()
+                    dist.broadcast(tok, src=self._slot_owner(a.slot),
+                                   group=self._dp_group)
+                    tok = tok[0]
                 self.metrics.record_prefill(len(a.prompt))
-                tok = self._first_token(a.req, logits, len(a.prompt))
                 self._slot_pos[a.slot] = len(a.prompt) + 1
             self._set_tok(a.slot, tok)
             overrides.append((a.req.rid, a.slot, tok))
@@ -1027,7 +1108,7 @@ class ServingEngine:
     def step(self, stream: Optional[StreamFn] = None) -> bool:
         """One engine cycle; returns True while work remains."""
         tr = self.tracer
-        with torch.no_grad(), tr.span("step"):
+        with torch.no_grad(), model_axis(self.model_axis), tr.span("step"):
             with tr.span("step.plan"):
                 plan = self._plan_cycle()
             with tr.span("step.draft", rows=len(plan.rows)):

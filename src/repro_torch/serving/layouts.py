@@ -187,6 +187,26 @@ class KVLayout:
                 "window": self.window, "ring": self.ring,
                 "kv_dtype": self.kv_dtype}
 
+    # -- sharding ----------------------------------------------------------
+
+    def page_pspec(self, name: str, leaf, model_size: int) -> tuple:
+        """Placement of one page-pool leaf (whole-model shape).  Per-head
+        pages ``[L,P,ps,KV,hd]`` shard their KV heads over "model" when
+        the count divides it, else replicate (the port shards heads
+        whole; the JAX layout shards ``head_dim`` then); int8 scales
+        ``[L,P,ps,KV]`` shard exactly when their data leaf does.  Latent
+        (ckv/krope) pages replicate: the rank is a contracted dim of every
+        absorbed-MLA product.  Pages replicate over the data axes — any
+        slot's pages live anywhere."""
+        spec = [None] * leaf.ndim
+        if model_size > 1 and leaf.shape[3 if leaf.ndim > 3 else -1] \
+                % model_size == 0:
+            if (name in ("k", "v") and leaf.ndim == 5) or \
+                    (name in ("k" + SCALE_SUFFIX, "v" + SCALE_SUFFIX)
+                     and leaf.ndim == 4):
+                spec[3] = "model"
+        return tuple(spec)
+
 
 #: the contiguous per-head layout of full attention and MLA's contiguous
 #: latent layout

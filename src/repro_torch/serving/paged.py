@@ -84,6 +84,17 @@ from repro_torch.obs import NULL_TRACER
 from repro_torch.serving.layouts import KV_FULL, KVLayout
 
 
+def paged_pspecs(pool_structs, *, model_size: int = 1,
+                 layout: KVLayout = KV_FULL):
+    """Placement tree for the page pool: each leaf's from the layout (KV
+    heads -> "model" when divisible; pages replicate — any slot's pages
+    live anywhere, so there is no data axis to shard them over).  The
+    pool built under a ``models.common.model_axis`` holds exactly this
+    rank's blocks."""
+    return {name: layout.page_pspec(name, leaf, model_size)
+            for name, leaf in pool_structs.items()}
+
+
 def upload(arr: np.ndarray, device) -> torch.Tensor:
     """Host array -> device tensor without a host sync on CUDA: the copy
     goes through pinned memory with ``non_blocking``, so the pipelined

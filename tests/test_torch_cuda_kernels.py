@@ -144,6 +144,48 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,KV", [(20, 4), (10, 2)],
+                         ids=["model2", "model4"])
+def test_cuda_kernels_at_qwen_per_rank_heads(dtype, H, KV):
+    """qwen2.5-14b's 40 query / 8 KV heads split whole over a model axis
+    of 2 (20 / 4 a rank) and 4 (10 / 2): K1 decode, K2 chunked prefill
+    and K3 flash attention each hold to their plain versions at the
+    rank's head counts (hd 128)."""
+    dev = _cuda()
+    hd, ps = 128, 16
+    q, k, v, table, lengths = _decode_case(8, 8, H, KV, hd, ps, 6)
+    args = (_t(q, dtype, dev), _t(k, dtype, dev), _t(v, dtype, dev),
+            torch.from_numpy(table).to(dev), torch.from_numpy(lengths).to(dev))
+    out = port_ops.paged_attention(*args, use_kernel=True)
+    torch.testing.assert_close(
+        out.float(), port_ops.paged_attention(*args, use_kernel=False).float(),
+        rtol=0, atol=TOL[dtype])
+    rng = np.random.default_rng(9)
+    n, S, start, n_valid = 12, 64, 32, 50
+    pq = rng.normal(size=(S, H, hd)).astype(np.float32)
+    pk = rng.normal(size=(n + 1, ps, KV, hd)).astype(np.float32)
+    pv = rng.normal(size=(n + 1, ps, KV, hd)).astype(np.float32)
+    pk[0], pv[0] = 1e4, -1e4
+    pargs = (_t(pq, dtype, dev), _t(pk, dtype, dev), _t(pv, dtype, dev),
+             torch.arange(1, n + 1, dtype=torch.int32, device=dev), start,
+             n_valid)
+    out = port_ops.paged_prefill(*pargs, use_kernel=True)
+    want = port_ops.paged_prefill(*pargs, use_kernel=False)
+    torch.testing.assert_close(out[:n_valid].float(),
+                               want[:n_valid].float(), rtol=0,
+                               atol=TOL[dtype])
+    fq = _t(rng.normal(size=(2 * H, 300, hd)).astype(np.float32), dtype, dev)
+    fk = _t(rng.normal(size=(2 * KV, 300, hd)).astype(np.float32), dtype, dev)
+    fv = _t(rng.normal(size=(2 * KV, 300, hd)).astype(np.float32), dtype, dev)
+    out, _ = flash_kernel.flash_attention_kernel(fq, fk, fv, causal=True,
+                                                 window=0)
+    want = flash_ref.attention_ref(fq, fk, fv, causal=True, window=0)
+    torch.testing.assert_close(out.float(), want.float(), rtol=0,
+                               atol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("Sq,Sk,H,KV,hd,causal,window", [
     (256, 256, 40, 8, 128, True, 0), (200, 200, 8, 2, 64, True, 48),
     (100, 160, 4, 4, 128, False, 0), (1000, 1000, 10, 2, 128, True, 0),

@@ -14,7 +14,11 @@ fixture, each a subprocess joined with a timeout (killed on expiry):
     the printed losses are that sequential run's, on every rank;
   * ``launch.serve --smoke --requests 3``: the printed streams are
     ``Session.serve``'s on the launcher's prompts;
-  * ``--mesh 2x2`` (a model axis) fails, naming ROADMAP item 10.
+  * ``launch.train --mesh 2x2`` under ``--nproc-per-node 4`` (two
+    data-parallel replicas, each tensor-parallel over two ranks): the
+    printed losses are the joined sequential run's, on every rank;
+  * ``launch.serve --mesh 2x2`` under ``--nproc-per-node 4``: rank 0
+    prints the one-process streams.
 """
 import os
 import re
@@ -46,8 +50,14 @@ RUNS = {
     "serve": [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
               "qwen2.5-14b", "--smoke", "--device", "cpu", "--requests", "3",
               "--max-new", "6"],
-    "mesh_2x2": [sys.executable, "-m", "repro_torch.launch.train", *TRAIN,
-                 "--mesh", "2x2"],
+    "mesh_2x2": [sys.executable, "-m", "torch.distributed.run",
+                 "--standalone", "--nproc-per-node", "4",
+                 "-m", "repro_torch.launch.train", *TRAIN, "--mesh", "2x2"],
+    "serve_2x2": [sys.executable, "-m", "torch.distributed.run",
+                  "--standalone", "--nproc-per-node", "4",
+                  "-m", "repro_torch.launch.serve", "--arch", "qwen2.5-14b",
+                  "--smoke", "--device", "cpu", "--requests", "3",
+                  "--max-new", "6", "--mesh", "2x2"],
 }
 
 
@@ -105,11 +115,10 @@ def test_train_prints_the_sessions_losses(runs):
                                [res.losses[0], res.losses[-1]], atol=1e-4)
 
 
-def test_two_process_train_equals_the_joined_sequential_run(runs):
-    rc, text = runs["train_dp2"]
-    assert rc == 0, text
-    first, final = _losses(text)
-    assert len(first) == len(final) == 2          # both ranks report
+@pytest.fixture(scope="module")
+def joined_sequential():
+    """The losses of one process stepping on two replicas' local batches
+    joined (each replica's shard of the synthetic corpus)."""
     sess = api.load("stablelm-1.6b", smoke=True, device="cpu")
     run = RunConfig(model=sess.model, shape=ShapeConfig("t", "train", 16, 8),
                     mesh=MeshConfig(shape=(1, 1),
@@ -126,26 +135,59 @@ def test_two_process_train_equals_the_joined_sequential_run(runs):
         batch = {k: np.concatenate([b[k] for b in local]) for k in local[0]}
         state, m = tr.step(state, batch)
         want.append(float(m["loss"]))
+    return want
+
+
+def test_two_process_train_equals_the_joined_sequential_run(
+        runs, joined_sequential):
+    rc, text = runs["train_dp2"]
+    assert rc == 0, text
+    first, final = _losses(text)
+    assert len(first) == len(final) == 2          # both ranks report
+    want = joined_sequential
     np.testing.assert_allclose(first, [want[0]] * 2, atol=1e-4)
     np.testing.assert_allclose(final, [want[-1]] * 2, atol=1e-4)
 
 
-def test_serve_prints_the_sessions_streams(runs):
-    rc, text = runs["serve"]
-    assert rc == 0, text
-    assert "served 3/3 requests" in text
-    printed = [[int(t) for t in re.findall(r"\d+", m)]
-               for m in re.findall(r"req \d+: \[([^\]]*)\]", text)]
-    # the launcher's prompts: lengths jittered from its --seed
+def _streams(text):
+    return [[int(t) for t in re.findall(r"\d+", m)]
+            for m in re.findall(r"req \d+: \[([^\]]*)\]", text)]
+
+
+@pytest.fixture(scope="module")
+def one_process_streams():
+    """``Session.serve`` on the serve launcher's prompts (lengths
+    jittered from its --seed)."""
     rng = np.random.default_rng(0)
     lengths = rng.integers(8, 17, size=3)
     prompts = [list(rng.integers(0, 256, (int(n),))) for n in lengths]
-    outs = api.load("qwen2.5-14b", smoke=True, device="cpu").serve(
+    return api.load("qwen2.5-14b", smoke=True, device="cpu").serve(
         prompts, max_new=6, max_batch=4, max_seq_len=22)
-    assert printed == outs
 
 
-def test_model_axis_names_roadmap_item_10(runs):
+def test_serve_prints_the_sessions_streams(runs, one_process_streams):
+    rc, text = runs["serve"]
+    assert rc == 0, text
+    assert "served 3/3 requests" in text
+    assert _streams(text) == one_process_streams
+
+
+def test_model_axis_names_roadmap_item_10(runs, joined_sequential):
+    """``--mesh 2x2``: four processes, a model axis of two (mesh
+    transparency, ROADMAP item 10); every rank prints the losses of the
+    joined sequential run."""
     rc, text = runs["mesh_2x2"]
-    assert rc != 0
-    assert "NotImplementedError" in text and "item 10" in text
+    assert rc == 0, text
+    first, final = _losses(text)
+    assert len(first) == len(final) == 4          # every rank reports
+    want = joined_sequential
+    np.testing.assert_allclose(first, [want[0]] * 4, atol=1e-4)
+    np.testing.assert_allclose(final, [want[-1]] * 4, atol=1e-4)
+
+
+def test_meshed_serve_prints_the_one_process_streams(runs,
+                                                     one_process_streams):
+    rc, text = runs["serve_2x2"]
+    assert rc == 0, text
+    assert text.count("served 3/3 requests") == 1     # rank 0 prints
+    assert _streams(text) == one_process_streams

@@ -312,12 +312,13 @@ def test_unported_engine_paths_raise(knobs):
 
 
 def test_unported_families_and_train_raise():
-    """What the port still leaves out raises, naming its ROADMAP item:
-    fsdp placement.  The encdec family (whisper) loads with the
-    reference's capabilities and refuses to serve, as the reference does
+    """The encdec family (whisper) loads with the reference's
+    capabilities and refuses to serve, as the reference does
     (``tests/test_torch_encdec_vlm.py``).  The moe, hybrid and ssm
     families and checkpoint / resume train (``tests/test_torch_train_
-    families.py``, ``tests/test_torch_checkpoint.py``)."""
+    families.py``, ``tests/test_torch_checkpoint.py``), and so does
+    ``dp_mode="fsdp"`` (no longer unported: on one device it is the
+    replicated run; meshes in ``tests/test_torch_mesh_train.py``)."""
     # mixtral (swa + MoE) serves on ring pages with the reference's
     # capabilities
     mx = port_api.load("mixtral-8x22b", smoke=True, device="cpu")
@@ -340,10 +341,10 @@ def test_unported_families_and_train_raise():
     assert {"serve", "paged_serve", "prefix_serve",
             "spec_serve"} <= sess.capabilities()
     assert "train" in sess.capabilities()
-    # the trainer's unported part: fsdp placement
+    # fsdp placement trains; on one device it is the replicated run
     fsdp = port_api.load(ARCH, smoke=True, device="cpu", dp_mode="fsdp")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fsdp.train(steps=1, seq_len=8, global_batch=2)
+    got = fsdp.train(steps=2, seq_len=8, global_batch=2).losses
+    assert got == sess.train(steps=2, seq_len=8, global_batch=2).losses
 
 
 # ---------------------------------------------------------------------------
