@@ -82,9 +82,10 @@ Phases, in order; any failure exits non-zero:
    K6 / K7 launch held against its plain version on that launch's inputs;
    the ``use_kernels=False`` arm (K6's plain decode and the expanded MLA
    prefill), whose partings are printed; then profiled on the warm engine;
-8. deepseek fp32 — the same model and requests in fp32, kernels on and
-   off: teacher-forced logits of the two paths agree within 1e-3, and the
-   greedy streams match or part only at fp32 near-ties;
+8. deepseek fp32 — the same model cut to 9 of its 27 layers (the run's
+   time limit) and requests in fp32, kernels on and off: teacher-forced
+   logits of the two paths agree within 1e-3, and the greedy streams
+   match or part only at fp32 near-ties;
 9. recurrent serve — full-width ``recurrentgemma-2b`` and ``rwkv6-1.6b``
    (random weights from a seed) served like qwen on the slotted pool
    (``kv_layout="auto"``), kernels on, recurrentgemma's requests with a
@@ -134,7 +135,25 @@ Phases, in order; any failure exits non-zero:
    attention layers x 2 (remat), kernel and plain arms agreeing at step 1;
    then ``python -m repro_torch.launch.serve --arch qwen2.5-14b
    --requests 8`` in a process of its own must exit 0;
-13. a JSON ``kernels`` line, then as the last line
+13. mesh — two ranks of one gloo group share the card (``--mesh``);
+14. analysis — (a) the threefry sampler on the card against the CPU over
+   64 rows x qwen's 152,064-token vocabulary on identical fp32 logits:
+   every raw bit equal, every sampled token equal but at a near-tie of
+   the perturbed scores; (b) ``python -m repro_torch.roofline.profile_cell
+   --device cuda`` in a process of its own on full-width qwen2.5-14b (48
+   layers) cells: a prefill of 2 x 4,096 tokens (K3 must launch) and a
+   decode step of 32 slots at a 4,096-token context — each prints the dry
+   run's predicted terms and peak beside the card's step time, busy
+   share, launches, time by kernel and peak memory (the prefill also with
+   ``use_kernels=False``, the plain path the dry run counts); (c) in the qwen serve
+   phase, the six requests sampled (temperature, top-k, top-p, a seed
+   each), kernels on (K1 / K2 must launch), checked (every K1 / K2 launch
+   against its plain version on its own inputs) and off; at each parting
+   of the two arms, both serving paths' teacher-forced logits along the
+   shared prefix are printed with what they draw and where the two tokens
+   sit against the top-k / top-p edges; each parting must be a perturbed
+   near-tie or a token at the top-k edge (4 bf16 ulps of the top logit);
+15. a JSON ``kernels`` line, then as the last line
    ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --kernels K2,K6[,...] [SRC]
@@ -145,7 +164,8 @@ cases, from
 the package under SRC (default this checkout's ``src``): two checkouts'
 kernels side by side in one call.  ``--decode-kernels [SRC]`` is
 ``--kernels K1,K4 [SRC]``.  ``--train`` builds the kernels and runs the
-train phase (6-7) alone, ``--encdec`` phase 12 alone.
+train phase (6-7) alone, ``--encdec`` phase 12 alone, ``--mesh`` phase 13
+alone, ``--analysis`` phase 14 alone (with the sampled qwen drive).
 
 Exits with code 2 and prints no result when CUDA is unavailable.
 """
@@ -1808,7 +1828,7 @@ def checked_drive(torch, sess, prompts, outs, names, **overrides):
         checked, wall, _, _ = serve_once(torch, sess, prompts,
                                          use_kernels=True, **overrides)
     report_checked(torch, errs, wall)
-    log(f"checked drive: greedy streams "
+    log(f"checked drive: streams "
         f"{'equal' if checked == outs else 'differ from'} the kernel arm's")
 
 
@@ -1959,7 +1979,7 @@ def check_ring_launches(cfg, counts, names, pool):
                              f"rotations {pool.ring_rotations}")
 
 
-def serve_phase(torch, arch, profile_marks=()):
+def serve_phase(torch, arch, profile_marks=(), card=""):
     """Serve ``arch`` at full width with the kernels; then once more with
     every launch of the family's kernels checked; then with
     ``use_kernels=False``; then a
@@ -2042,6 +2062,7 @@ def serve_phase(torch, arch, profile_marks=()):
         out.update(int8_arm(torch, sess, prompts, outs))
     if arch == "qwen2.5-14b":
         out["flash_attention"] = slotted_arm(torch, sess, prompts, outs)
+        sampled_arm(torch, sess, prompts, card)
     return out
 
 
@@ -3497,6 +3518,287 @@ def mesh_phase(torch, card):
     log(f"mesh phase: {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: analysis — the sampler on the card, the dry run against the card
+# ---------------------------------------------------------------------------
+
+#: (a) the sampler's rows, over qwen2.5-14b's vocabulary
+SAMPLER_ROWS, QWEN_VOCAB = 64, 152064
+#: (a) a parting between the card's and the CPU's sampled token must sit
+#: at a near-tie of the CPU's perturbed scores (filtered logits / T +
+#: Gumbel noise, |score| < ~30): the two devices' softmax, cumsum and log
+#: round differently in the last fp32 bits
+SAMPLER_TIE = 1e-4
+#: (b) the profiled full-width qwen cells: (shape preset, batch, sequence)
+#: — a prefill of 2 x 4,096 tokens (K3 in every layer) and a decode step
+#: of 32 slots at a 4,096-token context (26 GB of cache beside 29.5 GB of
+#: bf16 weights)
+ANALYSIS_CELLS = (("prefill_32k", 2, 4096), ("decode_32k", 32, 4096))
+#: (c) the sampled qwen drive's per-request parameters
+SAMPLED_DRIVE = [dict(temperature=0.8, top_k=40, top_p=0.95, seed=i)
+                 for i in range(6)]
+
+
+def _sampler_rows(torch, n):
+    """Packed rows over a grid of temperature, top-k and top-p."""
+    from repro_torch.serving.sampling import SamplingParams, pack_params
+    import numpy as np
+    grid = [(t, k, p) for t in (0.0, 0.7, 1.3) for k in (0, 50)
+            for p in (1.0, 0.9)]
+    rows = [pack_params(SamplingParams(
+        temperature=grid[i % len(grid)][0], top_k=grid[i % len(grid)][1],
+        top_p=grid[i % len(grid)][2], seed=(7919 * i) % (2 ** 31)))
+        for i in range(n)]
+    return torch.from_numpy(np.stack(rows))
+
+
+def _perturbed(torch, logits, packed, idx):
+    """The sampler's scores on the CPU before its filters: the logits over
+    the temperature plus the row's Gumbel noise (greedy rows: the logits)
+    — two tokens both devices kept compare on these."""
+    from repro_torch.serving import sampling
+    temp = packed[:, 0].contiguous().view(torch.float32)
+    g = sampling.gumbel(sampling.fold_in(packed[:, 3], idx), logits.shape[1])
+    scores = logits / torch.clamp(temp, min=1e-6)[:, None] + g
+    return torch.where((temp > 0)[:, None], scores, logits)
+
+
+def sampler_check(torch, card):
+    """(a) threefry on the card against the CPU over 64 rows of qwen's
+    vocabulary on identical fp32 logits: the raw bits must be equal, every
+    sampled token too but at a near-tie of the perturbed scores."""
+    from repro_torch.serving import sampling
+    gen = torch.Generator().manual_seed(SEED)
+    logits = torch.randn(SAMPLER_ROWS, QWEN_VOCAB, generator=gen) * 4.0
+    packed = _sampler_rows(torch, SAMPLER_ROWS)
+    idx = torch.randint(0, 1 << 20, (SAMPLER_ROWS,), generator=gen,
+                        dtype=torch.int32)
+    key = sampling.fold_in(packed[:, 3], idx)
+    cpu_bits = sampling.random_bits(key, QWEN_VOCAB)
+    dev_key = sampling.fold_in(packed[:, 3].cuda(), idx.cuda())
+    dev_bits = sampling.random_bits(dev_key, QWEN_VOCAB).cpu()
+    same_bits = int((cpu_bits == dev_bits).sum())
+    cpu_tok = sampling.sample_tokens(logits, packed, idx)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dev_tok = sampling.sample_tokens(logits.cuda(), packed.cuda(), idx.cuda())
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    dev_tok = dev_tok.cpu()
+    parted = [r for r in range(SAMPLER_ROWS) if cpu_tok[r] != dev_tok[r]]
+    log(f"analysis (a): threefry bits card vs CPU: {same_bits} / "
+        f"{cpu_bits.numel()} equal; sampled tokens {SAMPLER_ROWS - len(parted)}"
+        f" / {SAMPLER_ROWS} equal (the card's first sampler call, host "
+        f"clock: {ms:.2f} ms for {SAMPLER_ROWS} x {QWEN_VOCAB}) [{card}]")
+    if same_bits != cpu_bits.numel():
+        raise AssertionError("threefry bits differ between the card and the "
+                             "CPU")
+    if parted:
+        scores = _perturbed(torch, logits[parted], packed[parted],
+                            idx[parted])
+        for j, r in enumerate(parted):
+            a, b = int(cpu_tok[r]), int(dev_tok[r])
+            gap = abs(float(scores[j, a] - scores[j, b]))
+            log(f"  row {r}: CPU {a} vs card {b}; perturbed-score gap "
+                f"{gap:.3g} (tie tolerance {SAMPLER_TIE:g})")
+            if gap > SAMPLER_TIE:
+                raise AssertionError(f"sampler row {r} parts at gap {gap}")
+
+
+def profile_cell_drive(card, shape, batch, seq):
+    """``python -m repro_torch.roofline.profile_cell --device cuda`` on one
+    full-width qwen cell, in a process of its own; returns its JSON."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    cmd = [sys.executable, "-m", "repro_torch.roofline.profile_cell",
+           "--arch", "qwen2.5-14b", "--shape", shape, "--device", "cuda",
+           "--batch", str(batch), "--seq-len", str(seq), "--top", "10"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                       text=True, timeout=900)
+    for line in r.stdout.strip().splitlines()[:-1]:
+        log(f"  | {line}")
+    if r.returncode != 0:
+        log(r.stderr[-4000:])
+        raise AssertionError(f"profile_cell {shape} failed: rc "
+                             f"{r.returncode}")
+    rec = json.loads(r.stdout.strip().splitlines()[-1])
+    p, m = rec["predicted"], rec["measured"]
+    log(f"analysis (b): qwen2.5-14b {shape} cut to {batch} x {seq} on one "
+        f"card: predicted {p['step_s'] * 1e3:.2f} ms (compute "
+        f"{p['compute_s'] * 1e3:.2f}, memory {p['memory_s'] * 1e3:.2f}) vs "
+        f"measured {m['wall_s'] * 1e3:.2f} ms a step, device busy "
+        f"{100 * m['busy_share']:.1f}%, {m['kernel_launches']} launches; "
+        f"peak {m['peak_bytes'] / 1e9:.2f} GB measured vs "
+        f"{p['peak_bytes'] / 1e9:.2f} GB dry run; hand-written kernels "
+        f"{ {k: v for k, v in m['launches'].items() if v} or 'none'} "
+        f"(process {time.perf_counter() - t0:.1f} s, dry run "
+        f"{rec['dry_run_s']:.1f} s) [{card}]")
+    q = rec["measured_plain"]
+    if q is not None:
+        log(f"analysis (b): the same cell with use_kernels=False (the path "
+            f"the dry run counts): {q['wall_s'] * 1e3:.2f} ms a step, device "
+            f"busy {100 * q['busy_share']:.1f}%, {q['kernel_launches']} "
+            f"launches, peak {q['peak_bytes'] / 1e9:.2f} GB [{card}]")
+        if any(q["launches"].values()):
+            raise AssertionError(f"the plain arm launched {q['launches']}")
+    return rec
+
+
+@contextlib.contextmanager
+def recorded_draws(torch):
+    """Every sampled draw the serving engine makes inside: each
+    ``sample_tokens`` call's fp32 logits, packed rows, indices and tokens,
+    copied to the host (a sync per call)."""
+    from repro_torch.serving import engine
+    real, calls = engine.sample_tokens, []
+
+    def record(logits, packed, idx, **kw):
+        out = real(logits, packed, idx, **kw)
+        calls.append(tuple(t.detach().cpu() for t in (
+            logits.float(), packed, idx, out)))
+        return out
+    engine.sample_tokens = record
+    try:
+        yield calls
+    finally:
+        engine.sample_tokens = real
+
+
+def served_logits(torch, calls, row, idx, tok, what):
+    """The logits a serving arm drew ``tok`` from: the recorded draw of the
+    packed sampling ``row`` at sequence index ``idx`` (a frozen slot's
+    replays draw it again, alike).  Fails where no draw was recorded
+    there, or none gave ``tok``."""
+    from repro_torch.serving.sampling import PACKED_WIDTH
+    found = []
+    for lg, pk, ix, out in calls:
+        hit = ((ix.long() == idx)
+               & (pk[:, :PACKED_WIDTH] == row).all(dim=-1)).nonzero()
+        found += [(lg[r], int(out[r])) for r in hit[:, 0].tolist()]
+    if not found:
+        raise AssertionError(f"{what}: no draw recorded at index {idx}")
+    for lg, t in found:
+        if t == tok:
+            return lg
+    raise AssertionError(f"{what}: the draws recorded at index {idx} gave "
+                         f"{sorted({t for _, t in found})}, not {tok}")
+
+
+def parting_margin(torch, logits, sp, idx, a, b):
+    """How close one arm's logits sit to flipping its draw between tokens
+    ``a`` and ``b``, in logit units, and by which edge: the two tokens'
+    perturbed scores (scaled logits plus the row's Gumbel noise) where
+    both pass the filters; either token's scaled logit against the k-th
+    largest (top-k); either token's mass ranked above it against top_p,
+    as the logit shift that moves that mass there (a shift of every logit
+    by at most d moves it by a factor within exp(+-2d/T))."""
+    from repro_torch.serving import sampling
+    T = sp.temperature
+    z = logits.float() / T
+    desc = torch.sort(z, descending=True).values
+    kth = float(desc[sp.top_k - 1]) if sp.top_k else float("-inf")
+    kept = torch.where(z >= kth, z, torch.full((), -float("inf")))
+    p = torch.softmax(kept, dim=-1)
+    g = sampling.gumbel(sampling.fold_in(
+        torch.tensor([sp.seed], dtype=torch.int32),
+        torch.tensor([idx], dtype=torch.int32)), z.numel())[0]
+    edges = []
+    if z[a] >= kth and z[b] >= kth:
+        edges.append((T * abs(float(z[a] + g[a] - z[b] - g[b])), "near-tie"))
+    if sp.top_k:
+        edges += [(T * abs(float(z[t]) - kth), f"top-k edge ({t})")
+                  for t in (a, b)]
+    if sp.top_p < 1.0:
+        for t in (a, b):
+            m = float(p[p > p[t]].sum())
+            edges.append((T * abs(m - sp.top_p) / (2 * max(m, 1e-9)),
+                          f"top-p edge ({t})"))
+    return min(edges)
+
+
+def sampled_arm(torch, sess, prompts, card):
+    """(c) the qwen drive with sampling (per-request temperature, top-k,
+    top-p and seed), kernels on: the kernels must launch and the streams
+    be well formed; then the checked drive, every K1 / K2 launch of the
+    sampled drive held against its plain version on its own inputs; then
+    kernels off.  Both arms record the logits of every draw the engine
+    makes (``recorded_draws``).  Where a kernel stream parts from the
+    plain one, each arm's own logits at that index, in its own batch,
+    must give its own token (the witness is the serving step itself), and
+    the parting must sit within bf16 rounding: on one arm's logits, the
+    smallest ``parting_margin`` at most TIE_ULPS bf16 ulps of the top
+    logit — the greedy drives' near-tie rule, with the sampler's filters
+    as further edges.  The arms' logits there differ by some d; one arm's
+    margin is at most d, so the rule fails where d passes that rounding
+    and the flip does not sit at a nearer edge."""
+    from repro_torch.serving import sampling
+    samp = [sampling.SamplingParams(**kw) for kw in SAMPLED_DRIVE]
+    names = SERVE_KERNELS["qwen2.5-14b"]
+    with recorded_draws(torch) as kcalls:
+        outs, wall, counts, m = serve_once(torch, sess, prompts,
+                                           sampling=samp)
+    log(f"analysis (c): sampled qwen drive (kernels; draws recorded): "
+        f"{wall:.2f} s, tok/s {m['tokens_per_sec']:.2f}; drafted "
+        f"{m['drafted_tokens']} accepted {m['accepted_tokens']}; launches "
+        f"{ {n: counts[n] for n in names} } [{card}]")
+    for name in names:
+        if counts[name] <= 0:
+            raise AssertionError(f"{name} never launched in the sampled drive")
+    for o in outs:
+        if len(o) != MAX_NEW or not all(0 <= t < sess.model.vocab_size
+                                        for t in o):
+            raise AssertionError(f"bad sampled stream {o}")
+    checked_drive(torch, sess, prompts, outs, names, sampling=samp)
+    with recorded_draws(torch) as pcalls:
+        plain, pwall, pcounts, _ = serve_once(torch, sess, prompts,
+                                              sampling=samp,
+                                              use_kernels=False)
+    if any(pcounts.values()):
+        raise AssertionError(f"plain sampled arm launched kernels: {pcounts}")
+    same = 0
+    for i, (a, b) in enumerate(zip(outs, plain)):
+        if a == b:
+            same += 1
+            continue
+        j = next(k for k in range(len(a)) if a[k] != b[k])
+        row = torch.from_numpy(sampling.pack_params(samp[i]))
+        idx = len(prompts[i]) + j
+        lk = served_logits(torch, kcalls, row, idx, a[j], f"request {i} "
+                           "kernel arm")
+        lp = served_logits(torch, pcalls, row, idx, b[j], f"request {i} "
+                           "plain arm")
+        tie = bf16_tie(float(lp.max()))
+        margin, edge = min(parting_margin(torch, lg, samp[i], idx, a[j], b[j])
+                           for lg in (lk, lp))
+        log(f"  request {i}: sampled streams part at index {j} ({a[j]} vs "
+            f"{b[j]}), each arm's recorded logits giving its own token; the "
+            f"arms' logits there differ by up to "
+            f"{float((lk - lp).abs().max()):.4g}; nearest edge: {edge} at "
+            f"{margin:.4g} (bf16 tie {tie:.4g})")
+        if margin > tie:
+            raise AssertionError(f"sampled request {i} parts at {j} beyond "
+                                 "bf16 rounding of its draw")
+    log(f"analysis (c): plain sampled arm (draws recorded) {pwall:.2f} s; "
+        f"{same}/{len(outs)} sampled streams identical to the kernel arm's, "
+        "the rest part within bf16 rounding of a near-tie or a filter edge")
+
+
+def analysis_phase(torch, card):
+    """(a) the sampler on the card against the CPU; (b) the dry run of the
+    full-width qwen cells on one device against the same cells profiled
+    on the card (``profile_cell --device cuda``); the prefill must launch
+    K3.  Returns the cells' records."""
+    sampler_check(torch, card)
+    recs = {}
+    for shape, batch, seq in ANALYSIS_CELLS:
+        rec = profile_cell_drive(card, shape, batch, seq)
+        recs[shape] = rec
+    k3 = recs["prefill_32k"]["measured"]["launches"]["K3"]
+    if k3 <= 0:
+        raise AssertionError("the full-width prefill cell never launched K3")
+    return recs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3516,7 +3818,7 @@ def main() -> int:
             print(f"chip_smoke: unknown kernels {sorted(unknown)}; "
                   f"choose from {sorted(KERNEL_ROWS)}", file=sys.stderr)
             return 2
-    elif args in (["--train"], ["--encdec"], ["--mesh"]):
+    elif args in (["--train"], ["--encdec"], ["--mesh"], ["--analysis"]):
         names, only = [], args[0]
     elif args:
         print(f"chip_smoke: unknown arguments {args}", file=sys.stderr)
@@ -3544,6 +3846,10 @@ def main() -> int:
             train_phase(torch, card)
         elif only == "--mesh":
             mesh_phase(torch, card)
+        elif only == "--analysis":
+            analysis_phase(torch, card)
+            sess, prompts = load_for_serving(torch, "qwen2.5-14b")
+            sampled_arm(torch, sess, prompts, card)
         else:
             count_model_calls()
             encdec_vlm_phase(torch, card)
@@ -3555,7 +3861,7 @@ def main() -> int:
     # body paged_prefill_wgmma_kernel with its split merge
     # prefill_merge_kernel, or the scalar paged_*prefill_kernel
     counts = serve_phase(torch, "qwen2.5-14b",
-                         ("paged_decode_kernel", "prefill"))
+                         ("paged_decode_kernel", "prefill"), card)
     gc.collect()                        # the serve session and its engines
     torch.cuda.empty_cache()
     qwen_k3 = counts.pop("flash_attention")           # the slotted arm's
@@ -3594,6 +3900,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     mesh_phase(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    analysis_phase(torch, card)
 
     sources = {"paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                                    "src/repro/kernels/paged_attention/kernel.py:199"),

@@ -70,9 +70,7 @@ def main():
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="sampling temperature for every request "
                          "(0 = greedy argmax, the default); sampled rows "
-                         "draw from the port's Philox stream, not the "
-                         "reference's threefry bits (ROADMAP queue 1 item "
-                         "13)")
+                         "draw the reference's threefry bits")
     ap.add_argument("--top-k", type=int, default=0,
                     help="keep the k highest logits before sampling "
                          "(0 disables the filter)")

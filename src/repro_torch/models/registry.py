@@ -13,6 +13,13 @@ no ``KVLayout`` and serve on the slotted pool only, and ``encdec``
 (whisper) and ``vlm`` (pixtral), which train and declare no serve
 contract: their prefill takes per-request frames or patches.  cnn has no
 bundle, as in the JAX package, and its error names the way to train it.
+
+The ``*_input_specs`` functions and the ``decode_state_specs`` /
+``param_structs`` methods return meta tensors (``device="meta"``: shape and dtype,
+no storage) — the port's ``ShapeDtypeStruct`` stand-ins, with the JAX
+bundles' shapes and dtypes, for the dry run (``launch/dryrun.py``).
+``count_params`` / ``embed_param_count`` / ``model_flops`` are the
+analytic accounting the roofline divides by.
 """
 from __future__ import annotations
 
@@ -24,7 +31,7 @@ from typing import (Any, Callable, FrozenSet, Optional, Protocol, Tuple,
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import (common, pixtral, rglru, rwkv6, transformer,
                                 whisper)
 from repro_torch.serving.layouts import KVLayout, layout_for
@@ -98,9 +105,11 @@ class ModelBundle:
     cfg: ModelConfig
     specs: Any
     loss_fn: TrainStepContract            # (params, batch, *, use_kernels) -> loss
-    prefill_fn: Optional[Callable]        # (params, tokens) -> (logits, state)
+    prefill_fn: Optional[Callable]        # (params, **inputs, use_kernels) -> (logits, state)
     decode_fn: Optional[Callable]         # (params, tokens, state) -> (logits, state)
     init_decode_state: Callable           # (batch, seq_len, device) -> state
+    train_input_specs: Callable           # (ShapeConfig) -> dict of meta tensors
+    prefill_input_specs: Callable
     serve_prefill_fn: Optional[ServeContract] = None
     paged_decode_fn: Optional[PagedServeContract] = None
     paged_prefill_fn: Optional[PagedPrefillContract] = None
@@ -129,11 +138,40 @@ class ModelBundle:
                 caps.add("spec_serve")
         return frozenset(caps)
 
+    def decode_state_specs(self, shape: ShapeConfig):
+        """The decode state of ``shape`` as meta tensors: the family's own
+        ``init_decode_state`` on the meta device, at whole heads (outside
+        any model axis)."""
+        with common.model_axis(None):
+            return self.init_decode_state(shape.global_batch, shape.seq_len,
+                                          device="meta")
+
+    def param_structs(self):
+        """The ParamSpec tree as meta tensors (each leaf's shape and
+        dtype)."""
+        return common.tree_map(
+            lambda s: _meta(s.shape, common.torch_dtype(s.dtype)), self.specs)
+
     def init_params(self, gen: torch.Generator, *, device="cpu", dtype=None):
         """Seeded init from ``gen`` (a generator on ``device``); ``dtype``
         casts each leaf as it is made (see ``common.init_params``)."""
         return common.init_params(self.specs, gen, device=device,
                                   dtype=dtype)
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def _lm_train_specs(shape: ShapeConfig):
+    B, S = shape.global_batch, shape.seq_len
+    return {"tokens": _meta((B, S), torch.int32),
+            "labels": _meta((B, S), torch.int32)}
+
+
+def _lm_prefill_specs(shape: ShapeConfig):
+    return {"tokens": _meta((shape.global_batch, shape.seq_len),
+                            torch.int32)}
 
 
 # ---------------------------------------------------------------------------
@@ -147,12 +185,16 @@ def _build_lm(cfg: ModelConfig) -> ModelBundle:
         cfg=cfg,
         specs=transformer.lm_specs(cfg),
         loss_fn=functools.partial(transformer.lm_loss, cfg),
-        prefill_fn=lambda params, tokens: transformer.lm_prefill(
-            cfg, params, tokens,
-            cache_len=transformer.decode_cache_len(cfg, tokens.shape[1])),
+        prefill_fn=lambda params, tokens, *, use_kernels=False:
+            transformer.lm_prefill(
+                cfg, params, tokens,
+                cache_len=transformer.decode_cache_len(cfg, tokens.shape[1]),
+                use_kernels=use_kernels),
         decode_fn=functools.partial(transformer.lm_decode, cfg),
         init_decode_state=lambda b, s, device="cpu":
             transformer.init_decode_caches(cfg, b, s, device=device),
+        train_input_specs=_lm_train_specs,
+        prefill_input_specs=_lm_prefill_specs,
         # serving prefill routes MoE drop-free per token (moe_dropless)
         serve_prefill_fn=lambda params, tokens, *, cache_len, n_valid=None,
         use_kernels=False: transformer.lm_prefill(
@@ -176,11 +218,13 @@ def _build_rg(cfg: ModelConfig) -> ModelBundle:
         cfg=cfg,
         specs=rglru.rg_specs(cfg),
         loss_fn=functools.partial(rglru.rg_loss, cfg),
-        prefill_fn=lambda params, tokens: rglru.rg_prefill(cfg, params,
-                                                           tokens),
+        prefill_fn=lambda params, tokens, *, use_kernels=False:
+            rglru.rg_prefill(cfg, params, tokens, use_kernels=use_kernels),
         decode_fn=functools.partial(rglru.rg_decode, cfg),
         init_decode_state=lambda b, s, device="cpu":
             rglru.rg_init_states(cfg, b, s, device=device),
+        train_input_specs=_lm_train_specs,
+        prefill_input_specs=_lm_prefill_specs,
         serve_prefill_fn=lambda params, tokens, *, cache_len,
         use_kernels=False: rglru.rg_prefill(
             cfg, params, tokens, cache_len=cache_len,
@@ -193,11 +237,13 @@ def _build_rwkv(cfg: ModelConfig) -> ModelBundle:
         cfg=cfg,
         specs=rwkv6.rwkv_specs(cfg),
         loss_fn=functools.partial(rwkv6.rwkv_loss, cfg),
-        prefill_fn=lambda params, tokens: rwkv6.rwkv_prefill(cfg, params,
-                                                             tokens),
+        prefill_fn=lambda params, tokens, *, use_kernels=False:
+            rwkv6.rwkv_prefill(cfg, params, tokens, use_kernels=use_kernels),
         decode_fn=functools.partial(rwkv6.rwkv_decode, cfg),
         init_decode_state=lambda b, s, device="cpu":
             rwkv6.rwkv_init_states(cfg, b, device=device),
+        train_input_specs=_lm_train_specs,
+        prefill_input_specs=_lm_prefill_specs,
         # recurrent state is O(1) in sequence length: capacity is a no-op
         serve_prefill_fn=lambda params, tokens, *, cache_len,
         use_kernels=False: rwkv6.rwkv_prefill(cfg, params, tokens,
@@ -215,6 +261,15 @@ def _build_whisper(cfg: ModelConfig) -> ModelBundle:
                 "enc": torch.zeros((b, e.encoder_seq_len, cfg.d_model),
                                    dtype=cd, device=device)}
 
+    def train_specs(shape: ShapeConfig):
+        B, S = shape.global_batch, shape.seq_len
+        return {"frames": _meta((B, e.encoder_seq_len, cfg.d_model), cd),
+                **_lm_train_specs(shape)}
+
+    def prefill_specs(shape: ShapeConfig):
+        s = train_specs(shape)
+        return {"frames": s["frames"], "tokens": s["tokens"]}
+
     return ModelBundle(
         cfg=cfg,
         specs=whisper.whisper_specs(cfg),
@@ -224,10 +279,26 @@ def _build_whisper(cfg: ModelConfig) -> ModelBundle:
                                     use_kernels=use_kernels),
         decode_fn=functools.partial(whisper.whisper_decode, cfg),
         init_decode_state=init_state,
+        train_input_specs=train_specs,
+        prefill_input_specs=prefill_specs,
     )
 
 
 def _build_pixtral(cfg: ModelConfig) -> ModelBundle:
+    n_img = cfg.vlm.num_image_tokens
+    cd = common.torch_dtype(cfg.compute_dtype)
+
+    def train_specs(shape: ShapeConfig):
+        B, S = shape.global_batch, shape.seq_len
+        s_text = max(S - n_img, 1)
+        return {"tokens": _meta((B, s_text), torch.int32),
+                "patches": _meta((B, n_img, cfg.d_model), cd),
+                "labels": _meta((B, s_text), torch.int32)}
+
+    def prefill_specs(shape: ShapeConfig):
+        s = train_specs(shape)
+        return {"tokens": s["tokens"], "patches": s["patches"]}
+
     return ModelBundle(
         cfg=cfg,
         specs=pixtral.pixtral_specs(cfg),
@@ -238,6 +309,8 @@ def _build_pixtral(cfg: ModelConfig) -> ModelBundle:
         decode_fn=functools.partial(transformer.lm_decode, cfg),
         init_decode_state=lambda b, s, device="cpu":
             transformer.init_decode_caches(cfg, b, s, device=device),
+        train_input_specs=train_specs,
+        prefill_input_specs=prefill_specs,
     )
 
 
@@ -271,3 +344,24 @@ def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
         per_expert = 3 * cfg.d_model * m.d_ff_expert       # gate + up + down
         total -= (m.num_experts - m.top_k) * per_expert * cfg.num_layers
     return total
+
+
+def embed_param_count(cfg: ModelConfig) -> int:
+    n = cfg.vocab_size * cfg.d_model
+    if not cfg.tie_embeddings:
+        n *= 2
+    return n
+
+
+def model_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:
+    """MODEL_FLOPS per step: 6·N·T (train), 2·N·T (prefill), 2·N·B (decode),
+    with N = active params excluding the input embedding table (lm_head
+    kept)."""
+    n_active = count_params(cfg, active_only=True)
+    n_active -= cfg.vocab_size * cfg.d_model          # input table is a gather
+    tokens = shape.global_batch * shape.seq_len
+    if shape.kind == "train":
+        return 6.0 * n_active * tokens
+    if shape.kind == "prefill":
+        return 2.0 * n_active * tokens
+    return 2.0 * n_active * shape.global_batch        # decode: 1 new token/seq

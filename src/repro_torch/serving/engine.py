@@ -50,8 +50,8 @@ Differences from the JAX engine, all forced by eager PyTorch:
   * Traced mode fences device work with ``torch.cuda.synchronize()``
     (``jax.block_until_ready`` there); untraced, nothing syncs before
     retire.
-  * Sampled rows draw from a counter-keyed Philox stream
-    (``serving/sampling.py``), not JAX's threefry.
+  * Sampled rows draw JAX's threefry bits (``serving/sampling.py``) from
+    int64 tensor arithmetic, on the device, with no host sync.
 
 ``kv_dtype="int8"`` quantizes the per-head pages (contiguous and ring);
 MLA's latent pages and the slotted pool reject it with the JAX package's

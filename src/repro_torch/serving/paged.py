@@ -3,10 +3,12 @@
 (PyTorch port of the JAX package's pool.  The host bookkeeping is the
 same; the pages are torch tensors on the engine's device written in place
 — where the JAX pool donated its page buffers to a jitted ``_copy``, this
-one does in-place index copies.  The JAX pool's whole-prompt ``insert``
-path serves paged families without the prefix contract; every paged
-family of the port declares it, so admission always goes through
-``alloc_prefix`` and chunked prefill, and that path is not ported.)
+one does in-place index copies.  The engine admits through
+``alloc_prefix`` and chunked prefill, since every paged family of the
+port declares the prefix contract; the JAX pool's one-shot admission —
+``can_admit``, ``alloc_for_insert``, ``insert_state`` and ``insert``, a
+whole-prompt prefill cache scattered into private pages, contiguous
+layouts only — is here too, for callers that prefill outside the pool.)
 
 Where ``SlotKVCachePool`` preallocates a full decode cache per slot —
 cache memory set by the worst case — this pool owns one *global* page pool
@@ -81,7 +83,8 @@ import numpy as np
 import torch
 
 from repro_torch.obs import NULL_TRACER
-from repro_torch.serving.layouts import KV_FULL, KVLayout
+from repro_torch.serving.layouts import (KV_FULL, SCALE_SUFFIX, KVLayout,
+                                        quantize_kv)
 
 
 def paged_pspecs(pool_structs, *, model_size: int = 1,
@@ -279,6 +282,14 @@ class PagedKVCachePool:
         """Pages the allocator can hand out right now: content-free pages
         plus reclaimable cached ones."""
         return len(self._free_pages) + len(self._cached_lru)
+
+    def can_admit(self, n_tokens: int) -> bool:
+        """Is there a slot and enough free pages for an n_tokens prefill
+        (ignoring any prefix sharing — see ``can_admit_prompt``)?  Ring
+        layouts cap the need at the table width: later blocks reuse cells
+        in place."""
+        need = min(-(-n_tokens // self.page_size), self.table_width)
+        return bool(self._free_slots) and self._page_budget() >= need
 
     def can_admit_prompt(self, prompt: Sequence[int]) -> bool:
         """Is there a slot and enough pages for ``prompt``, net of the
@@ -671,6 +682,57 @@ class PagedKVCachePool:
                 self._index_version += 1
             cursor = (i + 1, h)
         self._commit_cursor[slot] = cursor
+
+    # -- one-shot admission (contiguous layouts) ----------------------------
+
+    def alloc_for_insert(self, rid: int, n_tokens: int) -> Optional[int]:
+        """Host half of the non-sharing admission: take a slot and allocate
+        ceil(n_tokens / page_size) private pages for it, before any prefill
+        has run.  None when slots or pages are exhausted (the caller
+        re-queues the request).  Contiguous layouts only — a ring cache
+        has no padded contiguous image (the prefix path, ``alloc_prefix``
+        + paged prefill, serves ring layouts)."""
+        if self.layout.ring:
+            raise ValueError(
+                "ring (windowed) layouts prefill straight into pages via "
+                "alloc_prefix + PagedPrefillContract; the contiguous "
+                "insert path cannot represent a ring cache")
+        if not self.can_admit(n_tokens):
+            return None
+        slot = self._take_slot(rid)
+        for b in range(-(-n_tokens // self.page_size)):
+            self._alloc_page(slot, b)
+        self.pos[slot] = n_tokens
+        self.peak_pages_held = max(self.peak_pages_held, self.pages_held)
+        return slot
+
+    def insert_state(self, slot: int, one_state) -> None:
+        """Device half: scatter a prefilled cache (its data leaves [L, 1,
+        padded_len, ...]: ``cache_len == padded_len``) into the pages
+        ``alloc_for_insert`` bound to ``slot``, in place.  Table entries
+        past the prompt's pages point at the trash page and receive the
+        blank tail chunks.  Quantized layouts quantize here with the same
+        ``quantize_kv`` the incremental write paths use."""
+        ids = torch.as_tensor(self.tables[slot], dtype=torch.long,
+                              device=self.device)
+        for n in self.layout.data_leaves:
+            x = one_state[n]
+            xr = x[:, 0].reshape((x.shape[0], self.pages_per_slot,
+                                  self.page_size) + tuple(x.shape[3:]))
+            xr = xr.to(self.device)
+            if self.layout.quantized:
+                q, sc = quantize_kv(xr)
+                self.pages[n][:, ids] = q
+                self.pages[n + SCALE_SUFFIX][:, ids] = sc
+            else:
+                self.pages[n][:, ids] = xr.to(self.pages[n].dtype)
+
+    def insert(self, rid: int, one_state, n_tokens: int) -> Optional[int]:
+        """One-shot admission: ``alloc_for_insert`` + ``insert_state``."""
+        slot = self.alloc_for_insert(rid, n_tokens)
+        if slot is not None:
+            self.insert_state(slot, one_state)
+        return slot
 
     def evict(self, slot: int) -> int:
         """Free a slot: every mapped page drops one reference; pages whose

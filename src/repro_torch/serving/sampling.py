@@ -3,18 +3,22 @@
 ``SamplingParams`` travels with a request from ``engine.submit()`` /
 ``Session.generate`` down into the engine's decode loop.  The sampler is
 **counter-based**: the token at absolute sequence index ``i`` (0-based over
-prompt + generated) is drawn from Philox4x32-10 keyed by ``(seed, i)``
-with the vocabulary index as the counter, turned into Gumbel noise for a
-Gumbel-max draw.  A request's tokens are therefore a pure function of
-(prompt, params) — independent of batch composition, slot assignment,
-warm vs cold caches and pipeline depth — and the same on the CPU and the
-GPU (the Philox rounds are written in int64 tensor arithmetic with no
-overflow).  No RNG state is carried between steps.
+prompt + generated) is drawn with ``fold_in(PRNGKey(seed), i)`` and
+``categorical`` — the JAX package's draw, bit for bit: threefry2x32 as
+jax 0.9.0 computes it (``jax_threefry_partitionable``, its default),
+Gumbel noise in fp32 added to the fp32 filtered logits, argmax.  A
+request's tokens are therefore a pure function of (prompt, params) —
+independent of batch composition, slot assignment, warm vs cold caches and
+pipeline depth — the same on the CPU and the GPU (the threefry rounds are
+written in int64 tensor arithmetic with no overflow and no host sync), and
+the same as the JAX package's for the same logits.  No RNG state is
+carried between steps.
 
-The draws differ from the JAX package's threefry bits (``fold_in(
-PRNGKey(seed), i)`` + ``categorical``); bit-identical sampling across the
-two packages is a ROADMAP item.  Greedy rows (temperature 0) are argmax
-with the first index on ties in both packages, so greedy output matches.
+The noise can differ from ``jax.random.gumbel``'s by an ulp (the two
+libraries' fp32 ``log``), and the top-p cumulative sum may round in
+another order; either matters only where two perturbed logits tie within
+that rounding.  Greedy rows (temperature 0) are argmax with the first
+index on ties in both packages.
 
 This module is import-light (numpy/torch only) so ``scheduler.Request``
 can carry a ``SamplingParams`` without layering cycles.
@@ -27,7 +31,8 @@ import numpy as np
 import torch
 
 __all__ = ["SamplingParams", "GREEDY", "pack_params", "sample_tokens",
-           "philox4x32", "PACKED_WIDTH"]
+           "threefry2x32", "fold_in", "random_bits", "gumbel",
+           "PACKED_WIDTH"]
 
 # Packed layout, one int32 row per slot:
 #   [bitcast(f32 temperature), bitcast(f32 top_p), top_k, seed]
@@ -86,49 +91,71 @@ def pack_params(p: SamplingParams) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# Philox4x32-10 in int64 tensor arithmetic
+# threefry2x32 (20 rounds) in int64 tensor arithmetic, as jax 0.9.0 draws
 # ---------------------------------------------------------------------------
 
 _MASK32 = 0xFFFFFFFF
-_M0, _M1 = 0xD2511F53, 0xCD9E8D57          # round multipliers
-_W0, _W1 = 0x9E3779B9, 0xBB67AE85          # key schedule (Weyl) constants
+_PARITY = 0x1BD11BDA                        # Threefish key-schedule parity
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+#: float32 finfo.tiny: the low end of the uniform the Gumbel noise takes
+_TINY = float(np.finfo(np.float32).tiny)
 
 
-def _mulhilo(m: int, c: torch.Tensor):
-    """(hi, lo) 32-bit halves of the 64-bit product m * c (c < 2**32),
-    from 16-bit partial products so nothing overflows int64."""
-    mh, ml = m >> 16, m & 0xFFFF
-    ch, cl = c >> 16, c & 0xFFFF
-    mid = mh * cl + ml * ch                 # < 2**33
-    low = ml * cl + ((mid & 0xFFFF) << 16)  # < 2**33
-    hi = mh * ch + (mid >> 16) + (low >> 32)
-    return hi & _MASK32, low & _MASK32
+def _rotl(x, r: int):
+    return ((x << r) | (x >> (32 - r))) & _MASK32
 
 
-def philox4x32(counter, key):
-    """Philox4x32-10.  counter: 4 int64 tensors (broadcastable, values in
-    [0, 2**32)); key: 2 int64 tensors.  Returns the 4 output words."""
-    c0, c1, c2, c3 = counter
+def threefry2x32(key, count):
+    """Threefry-2x32 (Random123's 20 rounds, as ``jax._src.prng``'s
+    unrolled lowering).  key: 2 int64 tensors, count: 2 int64 tensors
+    (broadcastable; values in [0, 2**32)).  Returns the 2 output words as
+    int64 tensors in [0, 2**32); no intermediate leaves int64."""
     k0, k1 = key
-    for r in range(10):
-        hi0, lo0 = _mulhilo(_M0, c0)
-        hi1, lo1 = _mulhilo(_M1, c2)
-        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
-        if r < 9:
-            k0 = (k0 + _W0) & _MASK32
-            k1 = (k1 + _W1) & _MASK32
-    return c0, c1, c2, c3
+    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
+    x0 = (count[0] + ks[0]) & _MASK32
+    x1 = (count[1] + ks[1]) & _MASK32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _MASK32
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _MASK32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _MASK32
+    return x0, x1
 
 
-def _gumbel(seed, idx, V: int, device):
-    """[S, V] Gumbel noise: Philox keyed (seed, idx) per row, counter =
-    vocabulary index; the first output word becomes a uniform in (0, 1)."""
-    j = torch.arange(V, dtype=torch.int64, device=device)[None, :]
-    zero = torch.zeros((), dtype=torch.int64, device=device)
-    w, _, _, _ = philox4x32((j, zero, zero, zero),
-                            (seed.long()[:, None] & _MASK32,
-                             idx.long()[:, None] & _MASK32))
-    u = (w.double() + 0.5) / 2.0 ** 32
+def fold_in(seed, idx):
+    """``jax.random.fold_in(PRNGKey(seed), idx)`` per row: PRNGKey(seed) is
+    the key (0, seed) for a 32-bit seed, and fold_in hashes the counter
+    pair (0, idx) under it.  seed, idx: int tensors of one shape; returns
+    the new key's 2 words."""
+    zero = torch.zeros_like(seed, dtype=torch.int64)
+    return threefry2x32((zero, seed.long() & _MASK32),
+                        (zero, idx.long() & _MASK32))
+
+
+def random_bits(key, V: int):
+    """``jax.random.bits(key, (V,), uint32)`` per row under
+    ``jax_threefry_partitionable`` (jax 0.9.0's default): the counters are
+    the (hi, lo) halves of ``arange(V)`` as a uint64 — hi 0 — and the bits
+    are the XOR of the two output words.  key: 2 int64 tensors [S];
+    returns [S, V] int64 in [0, 2**32)."""
+    k0, k1 = key
+    j = torch.arange(V, dtype=torch.int64, device=k0.device)[None, :]
+    b0, b1 = threefry2x32((k0[:, None], k1[:, None]), (torch.zeros_like(j), j))
+    return b0 ^ b1
+
+
+def gumbel(key, V: int):
+    """[S, V] fp32 Gumbel noise, ``jax.random.gumbel(key, (V,))`` per row
+    (mode "low"): the top 23 bits make a float in [1, 2), minus 1, scaled
+    onto [tiny, 1) and clipped at tiny, then ``-log(-log(u))`` — all in
+    fp32 as jax computes it (torch's and XLA's ``log`` may differ by an
+    ulp)."""
+    bits = random_bits(key, V)
+    one = (bits >> 9) | 0x3F800000          # < 2**31: fits an int32
+    floats = one.to(torch.int32).view(torch.float32) - 1.0
+    tiny = torch.tensor(_TINY, dtype=torch.float32, device=bits.device)
+    u = torch.maximum(tiny, floats * (1.0 - tiny) + tiny)
     return -torch.log(-torch.log(u))
 
 
@@ -138,14 +165,14 @@ def sample_tokens(logits, packed, idx, *, sampled: bool = True):
     logits [S, V] — next-token logits per row.
     packed [S, PACKED_WIDTH] int32 — per-row packed SamplingParams.
     idx    [S] int — absolute sequence index of the token being drawn
-        (the Philox key's second word).
+        (folded into the row's seed).
     sampled — the caller's host-side knowledge that some row has
         temperature > 0; False returns the argmax directly (all-greedy
         calls pay for the argmax only, with no device-to-host check).
 
     Returns [S] int32 tokens.  Rows with temperature == 0 take the argmax
     path (first index on ties); the filters follow the usual order:
-    temperature scale -> top-k -> top-p -> Gumbel-max draw.
+    temperature scale -> top-k -> top-p -> categorical (Gumbel-max).
     """
     logits = logits.float()
     greedy = torch.argmax(logits, dim=-1).to(torch.int32)
@@ -176,6 +203,6 @@ def sample_tokens(logits, packed, idx, *, sampled: bool = True):
                                     device=logits.device)).amin(dim=-1)
     keep = (probs >= cutoff[:, None]) | (top_p >= 1.0)[:, None]
     scaled = torch.where(keep, scaled, neg)
-    g = _gumbel(seed, idx.to(logits.device), V, logits.device)
-    drawn = torch.argmax(scaled.double() + g, dim=-1).to(torch.int32)
+    g = gumbel(fold_in(seed, idx.to(logits.device)), V)
+    drawn = torch.argmax(g + scaled, dim=-1).to(torch.int32)
     return torch.where(temp > 0.0, drawn, greedy)

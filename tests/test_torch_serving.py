@@ -3,11 +3,12 @@
 Greedy streams from ``repro_torch.api`` ``Session.serve`` must equal the
 JAX ``Session.serve`` streams on the same weights (carried across with
 ``from_jax_params``) and prompts: cold, with a warm prefix-cache hit, with
-speculation on and off, and with chunked prefill.  Sampled rows draw from
-the port's own counter-keyed Philox stream (not JAX's threefry bits), so
-they are held to the purity rows of ``tests/test_sampling.py``: a
-request's tokens are a pure function of (prompt, SamplingParams) whatever
-the batch, pipeline depth, cache warmth, speculation or preemption.
+speculation on and off, and with chunked prefill.  Sampled rows draw
+JAX's threefry bits (``tests/test_torch_sampling.py`` holds them and the
+sampled streams to the JAX package's); here they are also held to the
+purity rows of ``tests/test_sampling.py``: a request's tokens are a pure
+function of (prompt, SamplingParams) whatever the batch, pipeline depth,
+cache warmth, speculation or preemption.
 deepseek-v2-lite (MLA on latent pages + per-token MoE) is held to the JAX
 engine with the kernels off (``use_kernels`` / ``use_pallas`` False: the
 expanded MLA prefill) and on (both True: the absorbed prefill, through
@@ -25,7 +26,8 @@ from repro import api as jax_api
 from repro_torch import api as port_api
 from repro_torch.convert import from_jax_params
 from repro_torch.serving import GREEDY, SamplingParams
-from repro_torch.serving.sampling import pack_params, philox4x32, sample_tokens
+from repro_torch.serving.sampling import (pack_params, sample_tokens,
+                                         threefry2x32)
 from repro_torch.serving.spec import NGramDrafter
 
 ARCH = "qwen2.5-14b"
@@ -173,18 +175,17 @@ def test_greedy_pipeline_depth_and_kernels_flag_invariant(depth):
 # Sampled rows: purity (ported from tests/test_sampling.py)
 # ---------------------------------------------------------------------------
 
-def test_philox_known_answers():
-    """Random123's Philox4x32-10 known-answer vectors."""
-    def run(ctr, key):
-        t = [torch.tensor(x, dtype=torch.int64) for x in ctr + key]
-        return [int(w) for w in philox4x32(t[:4], t[4:])]
-    assert run([0] * 4, [0] * 2) == [0x6627e8d5, 0xe169c58d, 0xbc57ac4c,
-                                     0x9b00dbd8]
-    assert run([0xffffffff] * 4, [0xffffffff] * 2) == [
-        0x408f276d, 0x41c83b0e, 0xa20bc7c6, 0x6d5451fd]
-    assert run([0x243f6a88, 0x85a308d3, 0x13198a2e, 0x03707344],
-               [0xa4093822, 0x299f31d0]) == [0xd16cfe09, 0x94fdcceb,
-                                             0x5001e420, 0x24126ea1]
+def test_threefry_known_answers():
+    """Random123's Threefry-2x32 (20 rounds) known-answer vectors, the
+    ones JAX's own tests check."""
+    def run(key, ctr):
+        t = [torch.tensor(x, dtype=torch.int64) for x in key + ctr]
+        return [int(w) for w in threefry2x32(t[:2], t[2:])]
+    assert run([0] * 2, [0] * 2) == [0x6b200159, 0x99ba4efe]
+    assert run([0xffffffff] * 2, [0xffffffff] * 2) == [0x1cb996fc,
+                                                       0xbb002be7]
+    assert run([0x13198a2e, 0x03707344],
+               [0x243f6a88, 0x85a308d3]) == [0xc4923a9c, 0x483df7a0]
 
 
 def test_sample_tokens_greedy_and_determinism():
@@ -210,7 +211,7 @@ def test_sample_tokens_greedy_and_determinism():
 
 
 def test_sampled_draws_follow_the_distribution():
-    """Gumbel-max over Philox noise samples softmax(logits / T): the
+    """Gumbel-max over threefry noise samples softmax(logits / T): the
     empirical frequencies over many counter indices match the
     probabilities (4 categories, 4000 draws, 3-sigma band)."""
     logits = torch.log(torch.tensor([[0.1, 0.2, 0.3, 0.4]]))

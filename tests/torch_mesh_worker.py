@@ -1,6 +1,7 @@
 """Mesh ranks of the port's multi-process mesh tests (not a test module):
 ``run_serve`` for ``tests/test_torch_mesh_serving.py``, ``run_train`` for
-``tests/test_torch_mesh_train.py``.  Started through
+``tests/test_torch_mesh_train.py``, ``run_dryrun_cells`` for
+``tests/test_torch_dryrun.py``.  Started through
 ``torch_dp_worker.spawn_world`` (gloo, ``init_method="file://..."``); every
 rank runs every job in the same order, and rank 0 puts the results on the
 queue together with whether every rank saw the same ones.
@@ -167,3 +168,30 @@ def _session_vs_trainer(arch, steps: int = 3, seq_len: int = 16,
         ref.append(float(m["loss"]))
     pf.close()
     return res.losses, ref
+
+
+def collective_key(stats):
+    """A counter's collectives as a sorted, comparable list: (kind,
+    per-device buffer bytes, group size, count, issuing function)."""
+    return sorted((c.kind, c.result_bytes, c.group_size, c.multiplicity,
+                   c.site) for c in stats.collectives)
+
+
+def run_dryrun_cells(rank, world, init_file, cells, out):
+    """The dry run's cells for real: each ``name -> (arch, ShapeConfig,
+    mode)`` built by ``launch.dryrun.lower_cell`` on the 2x2 mesh (smoke
+    config) and run once on real tensors under the op counter; rank 0
+    puts every rank's counted collectives, in rank order."""
+    from repro_torch.launch import dryrun
+    with _rank_of(rank, world, init_file, out):
+        mine = {}
+        for name, (arch, shape, mode) in cells.items():
+            cell = dryrun.lower_cell(arch, shape, "single", mode,
+                                     cfg=get_config(arch, smoke=True),
+                                     mesh_cfg=MESH_2X2)
+            counter = dryrun.run_cell(cell)[0]
+            mine[name] = collective_key(counter.stats)
+        every = [None] * world
+        dist.all_gather_object(every, mine)
+        if rank == 0:
+            out.put({"ranks": every})
