@@ -37,10 +37,21 @@ Phases, in order; any failure exits non-zero:
 4. serve — full-width ``qwen2.5-14b`` (random weights from a seed) served
    through ``repro_torch.api.load(...).serve`` with the kernels on: a
    shared page-aligned prefix (prefix-cache hit) and a repetitive prompt
-   (n-gram drafts verified through the prefill kernel).  Every kernel's
-   launch count is zeroed just before and read just after; each must be
-   launched; then the same drive with every K1 / K2 launch held against its
-   plain version on that launch's inputs;
+   (n-gram drafts verified through the prefill kernel).  Every decode
+   cycle is one CUDA-graph replay (``ServeConfig.decode_graphs``, which
+   each drive prints as its engine resolved it, with its decode cycles
+   and the decode steps the card ran).  Every kernel's launch count is
+   zeroed just before and read just after; each must be launched, the
+   decode kernel (K1; K4, K6 and the K8 branches on their drives) layers
+   x decode steps times (a replay counts its graph's captured launches)
+   and the prefill kernel layers x (chunks + verifies); then the same
+   drive with every K1 / K2 launch held against its plain version on that
+   launch's inputs — the eager arm (``decode_graphs=False``: the checks
+   wrap Python functions), whose streams must equal the graphed drive's
+   token for token; qwen's decode graphs (count, warm-up and capture
+   seconds, private pool bytes) and a warm profile of both arms (busy
+   share, the host's CUDA kernel / graph launch calls per decode cycle,
+   tok/s);
 5. comparison — the same requests with ``use_kernels=False`` (plain
    versions on the card); greedy streams must match, or part only where
    the plain forward's top two logits are a bf16 near-tie; then the same
@@ -153,8 +164,14 @@ Phases, in order; any failure exits non-zero:
    shared prefix are printed with what they draw and where the two tokens
    sit against the top-k / top-p edges; each parting must be a perturbed
    near-tie or a token at the top-k edge (4 bf16 ulps of the top logit);
-15. a JSON ``kernels`` line, then as the last line
-   ``{"ok": true, "device": {...}}``.
+15. each phase's wall seconds, a JSON ``kernels`` line, then as the
+   last line ``{"ok": true, "device": {...}}``.
+
+Drives that wrap Python functions decode eagerly and say so: the checked
+drives, the sampled drive's recorded arms (a graphed sampled drive must
+give the recorded kernel arm's streams), the mesh ranks (``decode_graphs``
+resolves to False with a mesh); every other serve drive, plain arms
+included, replays decode graphs.
 
     python3 chip_smoke.py --kernels K2,K6[,...] [SRC]
 
@@ -179,6 +196,7 @@ import os
 import subprocess
 import sys
 import time
+import weakref
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -1662,16 +1680,55 @@ def read_counts():
     return counts
 
 
+#: the last drive's engine: its resolved ``decode_graphs``, graph count,
+#: and the decode cycles and steps the drive ran (``drive_decode``)
+DRIVE = {}
+
+
+def engine_marks(sess):
+    """Each cached engine's decode cycles and steps so far (weakly held:
+    a drive may drop engines)."""
+    return weakref.WeakKeyDictionary(
+        {e: (e.decode_cycles, e.decode_steps_run)
+         for e in sess._engines.values()})
+
+
+def drive_decode(sess, marks):
+    """The last drive's decode on its engine (``sess.engine``), against
+    ``engine_marks`` taken before it: the decode cycles and the decode
+    steps the card ran (graph warm-ups, replays and eager cycles), and
+    how the engine resolved ``decode_graphs``."""
+    eng = sess.engine
+    cycles0, steps0 = marks.get(eng, (0, 0))
+    g = eng._graphs
+    return {"decode_graphs": eng.decode_graphs,
+            "graphs": len(g) if g is not None else 0,
+            "capture_s": g.capture_s if g is not None else 0.0,
+            "cycles": eng.decode_cycles - cycles0,
+            "steps": eng.decode_steps_run - steps0}
+
+
 def serve_once(torch, sess, prompts, **overrides):
     """One drive of ``prompts`` (with the arch's ``DRIVE_KW``); every
-    kernel's count is zeroed just before and read just after."""
+    kernel's count is zeroed just before and read just after; the drive's
+    decode (``DRIVE``) printed."""
     reset_counts()
+    marks = engine_marks(sess)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     outs = sess.serve(prompts, max_new=MAX_NEW,
                       **{**DRIVE_KW.get(sess.model.name, {}), **overrides})
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    DRIVE.clear()
+    DRIVE.update(drive_decode(sess, marks))
+    knobs = {k: ("sampled" if k == "sampling" else v)
+             for k, v in overrides.items()}
+    log(f"  drive {sess.model.name} {knobs or ''}: decode_graphs="
+        f"{DRIVE['decode_graphs']} ({DRIVE['graphs']} graphs captured so "
+        f"far, {DRIVE['capture_s']:.2f} s warm-up + capture), "
+        f"{DRIVE['cycles']} decode cycles, {DRIVE['steps']} decode steps "
+        f"on the card, {wall:.2f} s")
     return outs, wall, read_counts(), sess.engine.metrics.summary()
 
 
@@ -1823,13 +1880,24 @@ def checked_drive(torch, sess, prompts, outs, names, **overrides):
     """The drive again on a cold engine of its own, every launch of the
     kernels ``names`` held against its plain version (CHECK_LIMITS): the
     kernels checked at the inputs the serving path gives them, prefill
-    chunks, verify rows and decode steps alike."""
+    chunks, verify rows and decode steps alike.  The checks wrap Python
+    functions, so this drive decodes eagerly (``decode_graphs=False``):
+    it is the eager arm of the kernel drive ``outs``, whose greedy (or
+    seeded) streams it must equal token for token — the same decode body
+    and kernels, graphed there."""
+    log("checked drive: the eager arm (decode_graphs=False; its checks "
+        "wrap Python functions)")
     with checked_launches(torch, names) as errs:
         checked, wall, _, _ = serve_once(torch, sess, prompts,
-                                         use_kernels=True, **overrides)
+                                         use_kernels=True,
+                                         decode_graphs=False, **overrides)
     report_checked(torch, errs, wall)
-    log(f"checked drive: streams "
-        f"{'equal' if checked == outs else 'differ from'} the kernel arm's")
+    same = sum(a == b for a, b in zip(checked, outs))
+    log(f"checked drive (eager) vs the kernel drive: {same}/{len(outs)} "
+        "streams equal token for token")
+    if checked != outs:
+        raise AssertionError("the eager arm's streams differ from the "
+                             "kernel drive's")
 
 
 def report_checked(torch, errs, wall):
@@ -1885,28 +1953,86 @@ def report_profile(kernels, wall, what, marks=()):
             f"{n:7d} launches  {name[:100]}")
 
 
-def profile_phase(torch, sess, prompts, marks=()):
+#: CUDA API calls (cuda* and cu*) that put kernels on the card: one a
+#: kernel, or one a whole graph
+KERNEL_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx")
+GRAPH_CALLS = ("cudaGraphLaunch", "cuGraphLaunch")
+
+
+def api_launches(torch, prof):
+    """(kernel launch calls, graph launch calls) the host made in a
+    profile (the CUDA API events CUPTI records), or None
+    where the profile holds no runtime event."""
+    calls = {e.key: e.count for e in prof.key_averages()
+             if e.device_type != torch.autograd.DeviceType.CUDA}
+    if not any(k.startswith(("cuda", "cu")) for k in calls):
+        return None
+    return (sum(calls.get(k, 0) for k in KERNEL_CALLS),
+            sum(calls.get(k, 0) for k in GRAPH_CALLS))
+
+
+def profile_phase(torch, sess, prompts, marks=(), **overrides):
     """One more drive of the same requests under ``torch.profiler`` (CUDA
     activity only, which keeps its overhead and post-processing small):
     wall time, the device's busy share (kernel time over wall), the share
     of device time of the GEMMs and of the kernels whose names hold one of
     ``marks``, and the kernels that take the most device time.  The drive
-    reuses the warm engine of the kernels arm: on the paged pool every
-    prompt is a full prefix-cache hit and the profile is decode and
-    verify; on the slotted pool (no prefix cache) it is the whole drive,
-    prefills and decode.  Printed only; nothing is asserted."""
+    reuses the warm engine of the kernels arm (of ``overrides``' arm):
+    on the paged pool every prompt is a full prefix-cache hit and the
+    profile is decode and verify; on the slotted pool (no prefix cache) it
+    is the whole drive, prefills and decode.  Printed, and returned: wall,
+    busy share, the host's kernel / graph launch calls, decode cycles and
+    tok/s (new tokens over wall); nothing is asserted."""
     from torch.profiler import ProfilerActivity, profile
+    marks_before = engine_marks(sess)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sess.serve(prompts, max_new=MAX_NEW,
-                   **DRIVE_KW.get(sess.model.name, {}))
+        outs = sess.serve(prompts, max_new=MAX_NEW,
+                          **{**DRIVE_KW.get(sess.model.name, {}),
+                             **overrides})
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     m = sess.engine.metrics.summary()
-    report_profile(device_kernels(torch, prof), wall,
+    dec = drive_decode(sess, marks_before)
+    kernels = device_kernels(torch, prof)
+    report_profile(kernels, wall,
                    f"warm engine, prefix-hit tokens "
-                   f"{m['prefill_tokens_saved']}", marks)
+                   f"{m['prefill_tokens_saved']}, decode_graphs="
+                   f"{dec['decode_graphs']}, {dec['cycles']} decode cycles",
+                   marks)
+    api = api_launches(torch, prof)
+    return {"wall": wall, "busy": sum(k[0] for k in kernels) / 1e6 / wall,
+            "kernels": sum(k[1] for k in kernels), "api": api,
+            "cycles": dec["cycles"],
+            "tok_s": sum(len(o) for o in outs) / wall}
+
+
+def graph_arms(torch, sess, prompts, graphed, marks, card):
+    """qwen's decode graphs on the kernel drive's engine — graphs captured,
+    their warm-up and capture seconds, the private pool's bytes — and the
+    warm profile of the eager arm (the checked drive's engine: kernels on,
+    ``decode_graphs=False``) beside the graph arm's ``graphed``."""
+    g = sess.engine._graphs
+    pool = g.pool_bytes()
+    log(f"decode graphs ({sess.model.name}, kernels on): {len(g)} captured "
+        f"({', '.join(map(str, g._graphs))}), warm-up + capture "
+        f"{g.capture_s:.2f} s, private pool "
+        + (f"{pool / 2**20:.1f} MiB" if pool is not None
+           else "not measured") + f", {g.replays} replays so far [{card}]")
+    eager = profile_phase(torch, sess, prompts, marks, use_kernels=True,
+                          decode_graphs=False)
+    for arm, r in (("graph", graphed), ("eager", eager)):
+        api = ("not recorded" if r["api"] is None else
+               f"{r['api'][0]} kernel + {r['api'][1]} graph launch calls = "
+               f"{(r['api'][0] + r['api'][1]) / max(r['cycles'], 1):.1f} a "
+               f"decode cycle over {r['cycles']} cycles (verify rows and "
+               "copies included)")
+        log(f"warm {sess.model.name} drive, {arm} arm [{card}]: wall "
+            f"{r['wall']:.3f} s, device busy {100 * r['busy']:.1f}%, "
+            f"{r['kernels']} kernels on the card; CUDA API: {api}; "
+            f"{r['tok_s']:.1f} tok/s")
 
 
 def _describe(cfg):
@@ -1963,20 +2089,27 @@ def load_for_serving(torch, arch, **overrides):
     return sess, prompts
 
 
-def check_ring_launches(cfg, counts, names, pool):
-    """On ring pages every layer of every decode step launches K4 (or its
-    int8 branch) once, and of every prefill chunk and verify K5 once; the
-    pool must have rotated a ring cell."""
+def check_paged_launches(cfg, counts, names, pool):
+    """On the paged pool every layer of every decode step the card ran
+    launches the decode kernel (``names[0]``: K1, K4, K6, or their int8
+    branches) once — replays of a decode graph count its captured launches
+    each time, and the steps include the graphs' warm-up runs
+    (``DRIVE``) — and of every prefill chunk and verify the prefill kernel
+    (``names[1]``) once; on ring pages the pool must have rotated a cell."""
     L = cfg.num_layers
-    want = {names[0]: L * MODEL_CALLS.get("lm_paged_decode", 0),
+    want = {names[0]: L * DRIVE["steps"],
             names[1]: L * (MODEL_CALLS.get("lm_paged_prefill", 0)
                            + MODEL_CALLS.get("lm_paged_verify", 0))}
     got = {n: counts[n] for n in names}
-    log(f"ring launches {got}: {L} layers x model calls {MODEL_CALLS}; "
-        f"ring cells rotated {pool.ring_rotations}")
-    if got != want or pool.ring_rotations <= 0:
-        raise AssertionError(f"ring launches {got}, expected {want}; "
-                             f"rotations {pool.ring_rotations}")
+    ring = cfg.attn_kind == "swa"
+    log(f"paged launches {got}: {L} layers x {DRIVE['steps']} decode steps "
+        f"on the card ({DRIVE['cycles']} cycles, decode_graphs="
+        f"{DRIVE['decode_graphs']}) and x prefill chunks + verifies "
+        f"{ {k: v for k, v in MODEL_CALLS.items() if k != 'lm_paged_decode'} }"
+        + (f"; ring cells rotated {pool.ring_rotations}" if ring else ""))
+    if got != want or (ring and pool.ring_rotations <= 0):
+        raise AssertionError(f"paged launches {got}, expected {want}" + (
+            f"; rotations {pool.ring_rotations}" if ring else ""))
 
 
 def serve_phase(torch, arch, profile_marks=(), card=""):
@@ -1990,7 +2123,6 @@ def serve_phase(torch, arch, profile_marks=(), card=""):
     cfg = sess.model
     ours = SERVE_KERNELS[arch]
     recurrent = sess.bundle.kv_layout is None
-    ring = cfg.attn_kind == "swa"
     if arch in COLD_PROFILE:
         # the first drive, cold, under the profiler: the long prompt's
         # chunks run through the prefill kernel here, not in the warm
@@ -2036,8 +2168,8 @@ def serve_phase(torch, arch, profile_marks=(), card=""):
             raise AssertionError("no prefix-cache hit on the main path")
         if m["drafted_tokens"] <= 0:
             raise AssertionError("no speculative drafts were verified")
-    if ring:
-        check_ring_launches(cfg, counts, ours, sess.engine.pool)
+    if not recurrent:
+        check_paged_launches(cfg, counts, ours, sess.engine.pool)
     for o in outs:
         if len(o) != MAX_NEW or not all(0 <= t < cfg.vocab_size for t in o):
             raise AssertionError(f"bad stream {o}")
@@ -2056,7 +2188,9 @@ def serve_phase(torch, arch, profile_marks=(), card=""):
     # kernels are held by the checked drive and the fp32 arms instead
     compare_streams(torch, sess, prompts, outs, plain,
                     asserted=not (moe or recurrent))
-    profile_phase(torch, sess, prompts, profile_marks)
+    graphed = profile_phase(torch, sess, prompts, profile_marks)
+    if arch == "qwen2.5-14b":
+        graph_arms(torch, sess, prompts, graphed, profile_marks, card)
     out = {n: counts[n] for n in ours}
     if arch in INT8_SERVE_KERNELS:
         out.update(int8_arm(torch, sess, prompts, outs))
@@ -2089,8 +2223,7 @@ def int8_arm(torch, sess, prompts, outs):
     fp = [n for n in BY_PAGES if n not in INT8_KERNELS and counts[n]]
     if any(counts[n] <= 0 for n in names) or fp:
         raise AssertionError(f"int8 drive launches {counts}")
-    if cfg.attn_kind == "swa":
-        check_ring_launches(cfg, counts, names, pool)
+    check_paged_launches(cfg, counts, names, pool)
     parted = [next(k for k in range(len(a)) if a[k] != b[k])
               for a, b in zip(q8, outs) if a != b]
     log(f"int8 vs bf16 pages: {len(outs) - len(parted)}/{len(outs)} greedy "
@@ -3247,6 +3380,8 @@ def _mesh_serve_arm(torch, card, rank, arch, mesh, ref, names, **load_kw):
     from repro_torch import api
     sess = api.load(arch, device="cuda", seed=SEED, mesh=mesh, **load_kw)
     cfg = sess.model
+    log(f"[{card}] mesh {mesh} rank {rank}: the ranks decode eagerly "
+        "(decode_graphs resolves to False with a mesh)")
     prompts = make_prompts(cfg.vocab_size, REPETITIVE[arch],
                            LONG_PROMPT.get(arch, 0))
     sess.serve([prompts[1][:8]], max_new=2)
@@ -3734,9 +3869,15 @@ def sampled_arm(torch, sess, prompts, card):
     from repro_torch.serving import sampling
     samp = [sampling.SamplingParams(**kw) for kw in SAMPLED_DRIVE]
     names = SERVE_KERNELS["qwen2.5-14b"]
+    # recording wraps the engine's sampler (a Python function): the
+    # recorded arms decode eagerly; the graphed sampled drive after the
+    # kernel arm must give its streams token for token
+    log("analysis (c): the recorded arms decode eagerly (decode_graphs="
+        "False; recorded_draws wraps a Python function)")
     with recorded_draws(torch) as kcalls:
         outs, wall, counts, m = serve_once(torch, sess, prompts,
-                                           sampling=samp)
+                                           sampling=samp,
+                                           decode_graphs=False)
     log(f"analysis (c): sampled qwen drive (kernels; draws recorded): "
         f"{wall:.2f} s, tok/s {m['tokens_per_sec']:.2f}; drafted "
         f"{m['drafted_tokens']} accepted {m['accepted_tokens']}; launches "
@@ -3748,11 +3889,21 @@ def sampled_arm(torch, sess, prompts, card):
         if len(o) != MAX_NEW or not all(0 <= t < sess.model.vocab_size
                                         for t in o):
             raise AssertionError(f"bad sampled stream {o}")
+    graphed, gwall, gcounts, _ = serve_once(torch, sess, prompts,
+                                            sampling=samp)
+    log(f"analysis (c): sampled qwen drive (kernels, decode graphs): "
+        f"{gwall:.2f} s; launches { {n: gcounts[n] for n in names} }; "
+        f"{sum(a == b for a, b in zip(graphed, outs))}/{len(outs)} streams "
+        f"equal to the eager kernel arm's token for token [{card}]")
+    if not DRIVE["decode_graphs"] or graphed != outs:
+        raise AssertionError("the graphed sampled drive differs from the "
+                             "eager one")
     checked_drive(torch, sess, prompts, outs, names, sampling=samp)
     with recorded_draws(torch) as pcalls:
         plain, pwall, pcounts, _ = serve_once(torch, sess, prompts,
                                               sampling=samp,
-                                              use_kernels=False)
+                                              use_kernels=False,
+                                              decode_graphs=False)
     if any(pcounts.values()):
         raise AssertionError(f"plain sampled arm launched kernels: {pcounts}")
     same = 0
@@ -3797,6 +3948,21 @@ def analysis_phase(torch, card):
     if k3 <= 0:
         raise AssertionError("the full-width prefill cell never launched K3")
     return recs
+
+
+#: phase name -> wall seconds (``phase``)
+PHASE_S = {}
+
+
+@contextlib.contextmanager
+def phase(name):
+    """Print the wall seconds of one phase of the full run."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        PHASE_S[name] = time.perf_counter() - t0
+        log(f"phase {name}: {PHASE_S[name]:.1f} s wall")
 
 
 def main() -> int:
@@ -3855,32 +4021,41 @@ def main() -> int:
             encdec_vlm_phase(torch, card)
         return 0
     count_model_calls()
-    build_phase()
-    stats = kernel_phase(torch, F)
+    t_start = time.perf_counter()
+    with phase("build"):
+        build_phase()
+    with phase("kernels"):
+        stats = kernel_phase(torch, F)
     # profile marks: K1 / K4's kernel, and K2's (K5's on mixtral): the bf16
     # body paged_prefill_wgmma_kernel with its split merge
     # prefill_merge_kernel, or the scalar paged_*prefill_kernel
-    counts = serve_phase(torch, "qwen2.5-14b",
-                         ("paged_decode_kernel", "prefill"), card)
-    gc.collect()                        # the serve session and its engines
-    torch.cuda.empty_cache()
+    with phase("serve qwen2.5-14b"):
+        counts = serve_phase(torch, "qwen2.5-14b",
+                             ("paged_decode_kernel", "prefill"), card)
+        gc.collect()                    # the serve session and its engines
+        torch.cuda.empty_cache()
     qwen_k3 = counts.pop("flash_attention")           # the slotted arm's
-    counts["flash_attention"] = train_phase(torch, card)["launches"]
-    gc.collect()                        # the train sessions
-    torch.cuda.empty_cache()
-    counts.update(serve_phase(
-        torch, "deepseek-v2-lite-16b",
-        ("paged_mla_decode_kernel", "paged_mla_prefill_kernel")))
-    gc.collect()                        # the bf16 deepseek session
-    torch.cuda.empty_cache()
-    fp32_phase(torch)
-    rg = serve_phase(torch, "recurrentgemma-2b",
-                     ("lru_scan_kernel", "flash_fwd_kernel"))
-    gc.collect()
-    torch.cuda.empty_cache()
-    counts.update(serve_phase(torch, "rwkv6-1.6b", ("wkv6_kernel",)))
-    gc.collect()
-    torch.cuda.empty_cache()
+    with phase("train"):
+        counts["flash_attention"] = train_phase(torch, card)["launches"]
+        gc.collect()                    # the train sessions
+        torch.cuda.empty_cache()
+    with phase("serve deepseek-v2-lite-16b"):
+        counts.update(serve_phase(
+            torch, "deepseek-v2-lite-16b",
+            ("paged_mla_decode_kernel", "paged_mla_prefill_kernel")))
+        gc.collect()                    # the bf16 deepseek session
+        torch.cuda.empty_cache()
+    with phase("fp32 deepseek-v2-lite-16b"):
+        fp32_phase(torch)
+    with phase("serve recurrentgemma-2b"):
+        rg = serve_phase(torch, "recurrentgemma-2b",
+                         ("lru_scan_kernel", "flash_fwd_kernel"))
+        gc.collect()
+        torch.cuda.empty_cache()
+    with phase("serve rwkv6-1.6b"):
+        counts.update(serve_phase(torch, "rwkv6-1.6b", ("wkv6_kernel",)))
+        gc.collect()
+        torch.cuda.empty_cache()
     counts["lru_scan"] = rg["lru_scan"]
     # K3 runs on three paths: the train drives (qwen's and recurrentgemma's),
     # qwen's slotted prefill and recurrentgemma's local-attention prefill
@@ -3888,21 +4063,30 @@ def main() -> int:
         f"{qwen_k3}, recurrentgemma {rg['flash_attention']}")
     counts["flash_attention"] += qwen_k3 + rg["flash_attention"]
     for arch in ("recurrentgemma-2b", "rwkv6-1.6b"):
-        fp32_phase(torch, arch)
-    counts.update(serve_phase(torch, "mixtral-8x22b",
-                              ("paged_decode_kernel", "prefill")))
-    gc.collect()                        # the bf16 mixtral session
-    torch.cuda.empty_cache()
-    fp32_phase(torch, "mixtral-8x22b")
-    modal_k3 = encdec_vlm_phase(torch, card)
-    log(f"K3 launches: whisper / pixtral {modal_k3}")
-    counts["flash_attention"] += modal_k3
-    gc.collect()
-    torch.cuda.empty_cache()
-    mesh_phase(torch, card)
-    gc.collect()
-    torch.cuda.empty_cache()
-    analysis_phase(torch, card)
+        with phase(f"fp32 {arch}"):
+            fp32_phase(torch, arch)
+    with phase("serve mixtral-8x22b"):
+        counts.update(serve_phase(torch, "mixtral-8x22b",
+                                  ("paged_decode_kernel", "prefill")))
+        gc.collect()                    # the bf16 mixtral session
+        torch.cuda.empty_cache()
+    with phase("fp32 mixtral-8x22b"):
+        fp32_phase(torch, "mixtral-8x22b")
+    with phase("encdec / vlm"):
+        modal_k3 = encdec_vlm_phase(torch, card)
+        log(f"K3 launches: whisper / pixtral {modal_k3}")
+        counts["flash_attention"] += modal_k3
+        gc.collect()
+        torch.cuda.empty_cache()
+    with phase("mesh"):
+        mesh_phase(torch, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+    with phase("analysis"):
+        analysis_phase(torch, card)
+    log(f"phases (s): { {k: round(v, 1) for k, v in PHASE_S.items()} }; "
+        f"total {time.perf_counter() - t_start:.1f} s after the environment "
+        f"[{card}]")
 
     sources = {"paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                                    "src/repro/kernels/paged_attention/kernel.py:199"),

@@ -388,9 +388,11 @@ class Session:
         return ServeConfig(**auto)
 
     def _drop_engine(self, key) -> None:
-        """Retire one cached engine, invalidating its prefix cache first."""
+        """Retire one cached engine, invalidating its prefix cache first and
+        releasing its decode graphs (their private memory pool)."""
         eng = self._engines.pop(key)
         eng.pool.clear_prefix_cache()
+        eng.close()
         if self._last_engine is eng:
             self._last_engine = None
 

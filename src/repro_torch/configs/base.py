@@ -310,6 +310,20 @@ class ServeConfig:
       calls with ``torch.cuda.synchronize`` so host and device time separate —
       that sync costs throughput, so leave it off for measured perf runs.
     * ``trace_capacity`` — ring-buffer bound (events); oldest drop first.
+
+    Device dispatch:
+
+    * ``use_kernels`` — the hand-written CUDA kernels (None: on a CUDA
+      device) or their plain PyTorch versions.
+    * ``decode_graphs`` — every decode cycle as one CUDA-graph replay
+      (``serving/graphs.py``): captured once per pool kind, sampled or
+      greedy, ``decode_steps``, kv dtype and slot count, then replayed with
+      the cycle's operands copied into its static inputs.  None resolves
+      to graphs on a CUDA device without a mesh, False to the eager loop
+      (the same decode body, one launch at a time); True on the CPU or
+      with a mesh raises (the engine resolves it:
+      ``ServingEngine.decode_graphs``).  Prefill chunks and speculative
+      verify rows run eagerly either way.
     """
     max_batch: int = 8            # decode slots (fixed batched-decode shape)
     max_queue: int = 64           # admission control: reject beyond this
@@ -347,6 +361,13 @@ class ServeConfig:
     # plain version for CPU tensors); False forces the plain versions even
     # on CUDA — the comparison arm of ``chip_smoke.py``.
     use_kernels: Optional[bool] = None
+    # Each decode cycle (decode_steps steps of every slot, greedy or
+    # sampled, either pool) as one CUDA-graph replay — the counterpart of
+    # the JAX engine's jitted lax.scan.  None = auto (graphs when the
+    # engine's device is CUDA and there is no mesh); False = the eager loop
+    # everywhere (the comparison arm of chip_smoke.py); True asks for the
+    # graphs and raises on the CPU or with a mesh (the engine checks).
+    decode_graphs: Optional[bool] = None
     # deprecated alias for max_prefills_per_step (folded in __post_init__)
     prefill_chunk: Optional[int] = None
 
@@ -432,6 +453,11 @@ class ServeConfig:
             raise ValueError(
                 f"use_kernels={self.use_kernels!r} must be None (auto: "
                 "kernels on CUDA only) or a bool")
+        if self.decode_graphs is not None \
+                and not isinstance(self.decode_graphs, bool):
+            raise ValueError(
+                f"decode_graphs={self.decode_graphs!r} must be None (auto: "
+                "CUDA graphs on a CUDA device without a mesh) or a bool")
         # slotted never pages, so page_size is inert there; "auto" may
         # resolve to paged, so it must satisfy the block-hashing constraint
         if self.enable_prefix_cache and self.kv_layout != "slotted" \

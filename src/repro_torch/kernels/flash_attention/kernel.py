@@ -22,8 +22,9 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.common import (KERNEL_DTYPES, check_tensor, lib_fn,
-                                        raise_on, refuse_grad)
+from repro_torch.kernels.common import (KERNEL_DTYPES, check_tensor,
+                                        count_launch, lib_fn, raise_on,
+                                        refuse_grad)
 from repro_torch.kernels.flash_attention.ref import (attention_lse_ref,
                                                      attention_ref)
 
@@ -72,7 +73,7 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0):
              KERNEL_DTYPES[q.dtype],
              torch.cuda.current_stream(q.device).cuda_stream)
     raise_on(err, "flash_attention")
-    flash_attention_kernel.launches += 1
+    count_launch(flash_attention_kernel)
     return out, lse
 
 

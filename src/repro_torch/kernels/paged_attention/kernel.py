@@ -32,8 +32,14 @@ Each wrapper takes the plain PyTorch version (``ref.py``) for tensors on
 the CPU — and only there.  For CUDA tensors it checks device, dtype, shape
 and contiguity, allocates the output with ``torch.empty``, launches the
 kernel on the current stream, raises if the launch was refused, and adds
-one to its ``launches`` counter; there is no fallback.  The library builds
-from the repo's sources on the first CUDA launch (``kernels/build.py``).
+one to its ``launches`` counter (under CUDA-graph capture, to the
+capture's tally, which every replay adds: ``kernels/common.py``); there
+is no fallback.  The library builds from the repo's sources on the first
+CUDA launch (``kernels/build.py``).  The decode wrappers (K1 / K4, K6)
+are captured in the engine's decode graphs: their split counts are
+functions of shapes, and their launchers set the shared-memory attribute
+with ``cudaFuncSetAttribute``, which is not a stream operation and is
+legal while a stream captures.
 """
 from __future__ import annotations
 
@@ -44,6 +50,8 @@ import torch
 
 from repro_torch.kernels.common import KERNEL_DTYPES as _DTYPES
 from repro_torch.kernels.common import check_tensor as _check
+from repro_torch.kernels.common import count_launch as _count_launch
+from repro_torch.kernels.common import hold_scratch as _hold
 from repro_torch.kernels.common import lib_fn as _lib
 from repro_torch.kernels.common import raise_on as _raise_on
 from repro_torch.kernels.paged_attention.ref import (
@@ -76,9 +84,9 @@ def _ptr(t):
 def _count(wrapper, kind: str) -> None:
     """One launch: the wrapper's ``launches`` and its ``launches_by`` page
     kind ("fp" / "int8", "ring" / "ring_int8" for K4 and its K8 branch),
-    which tell K1 from K4 and either from its int8 branch (K8)."""
-    wrapper.launches += 1
-    wrapper.launches_by[kind] = wrapper.launches_by.get(kind, 0) + 1
+    which tell K1 from K4 and either from its int8 branch (K8); under
+    CUDA-graph capture, the capture's tally (``kernels/common.py``)."""
+    _count_launch(wrapper, kind)
 
 
 def _check_pages(q, k_pages, v_pages, k_scale=None, v_scale=None,
@@ -161,7 +169,9 @@ def _decode_scratch(device, stream: int, n_ws: int, n_counters: int):
     """The split decode's fp32 workspace and merge counters on ``device``
     for ``stream``, kept across launches (the launches of one stream run
     one after another, so they share them): the counters are zeroed once
-    here and left zero by every launch.  Grown when a launch needs more."""
+    here and left zero by every launch.  Grown when a launch needs more,
+    by reallocation: a CUDA graph captured with the old pair holds it
+    (``hold_scratch``), so growth never frees memory a graph points at."""
     ws, counters = _SCRATCH.get((device, stream), (None, None))
     if ws is None or ws.numel() < n_ws or counters.numel() < n_counters:
         ws = torch.empty(max(n_ws, 1 << 16), dtype=torch.float32,
@@ -169,6 +179,7 @@ def _decode_scratch(device, stream: int, n_ws: int, n_counters: int):
         counters = torch.zeros(max(n_counters, 1024), dtype=torch.int32,
                                device=device)
         _SCRATCH[device, stream] = ws, counters
+    _hold(ws, counters)
     return ws, counters
 
 
@@ -543,7 +554,7 @@ def paged_mla_kernel(q_lat, q_rope, ckv_pages, krope_pages, page_table,
              n_table, float(scale), _DTYPES[q_lat.dtype], int(splits),
              torch.cuda.current_stream(q_lat.device).cuda_stream)
     _raise_on(err, "paged_mla")
-    paged_mla_kernel.launches += 1
+    _count_launch(paged_mla_kernel)
     return out
 
 
@@ -639,7 +650,7 @@ def paged_mla_prefill_kernel(q_lat, q_rope, ckv_pages, krope_pages,
              float(scale), _DTYPES[q_lat.dtype], int(splits),
              torch.cuda.current_stream(q_lat.device).cuda_stream)
     _raise_on(err, "paged_mla_prefill")
-    paged_mla_prefill_kernel.launches += 1
+    _count_launch(paged_mla_prefill_kernel)
     return out
 
 

@@ -20,8 +20,8 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels.common import (check_tensor, lib_fn, raise_on,
-                                        refuse_grad)
+from repro_torch.kernels.common import (check_tensor, count_launch, lib_fn,
+                                        raise_on, refuse_grad)
 from repro_torch.kernels.rglru_scan.ref import lru_scan_ref
 
 _P = ctypes.c_void_p
@@ -99,7 +99,7 @@ def lru_scan_kernel(log_a, x, *, _splits: LruSplit | None = None):
              split.warps, split.steps,
              torch.cuda.current_stream(x.device).cuda_stream)
     raise_on(err, "lru_scan")
-    lru_scan_kernel.launches += 1
+    count_launch(lru_scan_kernel)
     return h
 
 

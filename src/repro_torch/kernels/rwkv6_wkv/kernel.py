@@ -19,8 +19,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.common import (check_tensor, lib_fn, raise_on,
-                                        refuse_grad)
+from repro_torch.kernels.common import (check_tensor, count_launch, lib_fn,
+                                        raise_on, refuse_grad)
 from repro_torch.kernels.rwkv6_wkv.ref import wkv6_model_ref
 
 #: head sizes the CUDA kernel is instantiated for
@@ -68,7 +68,7 @@ def wkv6_kernel(r, k, v, w, u, s0):
              u.data_ptr(), s0.data_ptr(), out.data_ptr(), s_last.data_ptr(),
              B, S, H, hd, torch.cuda.current_stream(dev).cuda_stream)
     raise_on(err, "wkv6")
-    wkv6_kernel.launches += 1
+    count_launch(wkv6_kernel)
     return out, s_last
 
 

@@ -499,11 +499,32 @@ def rope_frequencies(head_dim: int, theta: float):
     return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32) / head_dim))
 
 
+#: (head_dim, theta, device) -> the rotation frequencies on a CUDA device
+_ROPE_FREQS: dict = {}
+
+
+def _rope_freqs(hd: int, theta: float, device):
+    """``rope_frequencies`` on ``device``; on a CUDA device copied there
+    once and kept, so a decode step launches no host-to-device copy (none
+    may run while the engine captures its decode graph).  Fake tensors
+    (the dry run) are never kept."""
+    freqs = torch.from_numpy(rope_frequencies(hd, theta))
+    if device.type != "cuda":
+        return freqs.to(device)
+    key = (hd, theta, device)
+    if key not in _ROPE_FREQS:
+        on_device = freqs.to(device)
+        if type(on_device) is not torch.Tensor:
+            return on_device
+        _ROPE_FREQS[key] = on_device
+    return _ROPE_FREQS[key]
+
+
 def apply_rope(x, positions, theta: float = 10_000.0):
     """x: [..., seq, heads, head_dim]; positions: [..., seq].  Half-split
     rotation in fp32, cast back to x.dtype."""
     hd = x.shape[-1]
-    freqs = torch.from_numpy(rope_frequencies(hd, theta)).to(x.device)
+    freqs = _rope_freqs(hd, theta, x.device)
     angles = positions[..., :, None].float() * freqs           # [..., seq, hd/2]
     cos = torch.cos(angles)[..., :, None, :]                   # [..., seq, 1, hd/2]
     sin = torch.sin(angles)[..., :, None, :]

@@ -11,9 +11,18 @@ Two modes, with the JAX package's contracts:
     engine's token-identity guarantee across bucket widths, chunk
     boundaries and concurrently decoding slots.  The JAX package computes
     this as a dense pass over all E experts with zero combine weights off
-    the top-k; here only the selected experts run: the (token, choice)
-    pairs are grouped by expert and each group is one matmul chain.  That
-    needs the group sizes on the host — one device-to-host sync per call.
+    the top-k.  Two routes here, the same function:
+
+    - sorted (prefill chunks, verify rows): only the selected experts run:
+      the (token, choice) pairs are grouped by expert and each group is
+      one matmul chain.  That needs the group sizes on the host — one
+      device-to-host sync per call — and at many tokens does K/E of the
+      dense route's expert work;
+    - ``dense=True`` (decode steps): the JAX package's dispatch — every
+      local expert on every token as batched products over [E_local, N,
+      D], combine weights zero off the top-k.  No data-dependent shape and
+      no host sync, so a CUDA graph holds it; each step reads every local
+      expert's weights.
 
 Numerics copied from the JAX package: router logits in fp32 from the cast
 router; softmax, then top-k (ties to the lower expert index); gates
@@ -122,6 +131,25 @@ def _per_token(cfg, p, xf, gates, sel, keep, cd):
     return _from_experts(acc).to(cd)
 
 
+def _dense(cfg, p, xf, gates, sel, keep, cd):
+    """Drop-free routing as the JAX package computes it (g = 1, C = 1): [N,
+    D] in the compute dtype.  Each local expert runs on every token row
+    whose combine weight for it (its gate in the compute dtype, 0 off the
+    token's top-k and for padding) is nonzero — the reference's dispatch
+    mask — and the weighted outputs sum in fp32, cast once."""
+    E = cfg.moe.num_experts
+    first = local_offset(E, "expert")   # this rank's experts: first + i
+    n_local = p["w_gate"].shape[0]
+    combine = torch.zeros((xf.shape[0], E), dtype=cd, device=xf.device)
+    combine = combine.scatter(1, sel, gates.to(cd)) * keep[:, None]
+    w = combine[:, first:first + n_local].t()                    # [E_l, N]
+    xe = xf[None] * (w > 0)[..., None].to(cd)                    # [E_l, N, D]
+    ye = _expert(activation(cfg.act), p["w_gate"], p["w_up"], p["w_down"],
+                 xe, cd)
+    acc = torch.einsum("end,en->nd", ye.float(), w.float())
+    return _from_experts(acc).to(cd)
+
+
 def _capacity(cfg, p, xf, gates, onehot, G: int, g: int, cd):
     """GShard capacity dispatch (choice-major priority): [N, D]."""
     m = cfg.moe
@@ -151,14 +179,16 @@ def _capacity(cfg, p, xf, gates, onehot, G: int, g: int, cd):
 
 
 def moe_apply(cfg, p, x, *, n_valid: Optional[int] = None,
-              per_token: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+              per_token: bool = False,
+              dense: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B,S,D] -> (y [B,S,D], aux_loss scalar fp32).
 
     ``n_valid`` (serving prefill): positions >= n_valid along S are a
     masked bucket tail — their routing is zeroed before capacity
     accounting, so padding never displaces a real token (their own outputs
     are garbage either way; the engine masks them downstream).
-    ``per_token``: drop-free per-token routing (see the module docstring).
+    ``per_token``: drop-free per-token routing (see the module docstring),
+    on the sorted route, or with ``dense`` on the dense route (decode).
     The Switch load-balance aux loss is the JAX package's in both modes.
     """
     m = cfg.moe
@@ -172,12 +202,17 @@ def moe_apply(cfg, p, x, *, n_valid: Optional[int] = None,
     keep = torch.ones((N,), dtype=torch.bool, device=x.device)
     if n_valid is not None:
         keep = (torch.arange(S, device=x.device) < n_valid).repeat(B)
-    onehot = F.one_hot(sel, E) * keep[:, None, None]              # [N,K,E]
+    # one_hot by comparison: F.one_hot reads the class bounds back to the
+    # host on the CPU
+    onehot = ((sel[..., None] == torch.arange(E, device=x.device)).long()
+              * keep[:, None, None])                              # [N,K,E]
 
     g = 1 if per_token else _choose_group_size(N, E)
     G = N // g
     xe, ge = _into_experts(xf), _into_experts(gates)
-    if per_token:
+    if per_token and dense:
+        y = _dense(cfg, p, xe, ge, sel, keep, cd)
+    elif per_token:
         y = _per_token(cfg, p, xe, ge, sel, keep, cd)
     else:
         y = _capacity(cfg, p, xe, ge, onehot, G, g, cd)

@@ -96,22 +96,25 @@ def _layer_pages(pages, i: int):
 # Layer apply
 # ---------------------------------------------------------------------------
 
-def ff_apply(cfg, p, h, *, n_valid=None, per_token: bool = False):
+def ff_apply(cfg, p, h, *, n_valid=None, per_token: bool = False,
+             dense: bool = False):
     """The feed-forward half: (out, aux) — MoE (``moe_apply``'s routing
-    modes and aux loss) or the dense MLP (aux 0)."""
+    modes and aux loss; ``dense``: its sync-free decode route) or the
+    dense MLP (aux 0)."""
     if cfg.moe is not None:
         return moe_mod.moe_apply(cfg, p, h, n_valid=n_valid,
-                                 per_token=per_token)
+                                 per_token=per_token, dense=dense)
     return mlp_mod.mlp_apply(cfg, p, h), torch.zeros(
         (), dtype=torch.float32, device=h.device)
 
 
 def decoder_layer_apply(cfg, p, x, positions, cache=None,
-                        use_kernels=False, per_token: bool = False):
+                        use_kernels=False, per_token: bool = False,
+                        dense: bool = False):
     """Returns (x, new_cache, aux).  MLA attention ignores ``use_kernels``
     here, as the JAX package's does ``use_pallas``: its whole-sequence
     path is the expanded one.  ``per_token`` routes MoE drop-free per
-    token (``moe_apply``)."""
+    token (``moe_apply``), on its dense route with ``dense``."""
     h = apply_norm(cfg, p["ln1"], x)
     if cfg.attn_kind == "mla":
         a, new_cache = attn.mla_apply(cfg, p["attn"], h, positions,
@@ -122,7 +125,7 @@ def decoder_layer_apply(cfg, p, x, positions, cache=None,
                                             use_kernels=use_kernels)
     x = x + a
     f, aux = ff_apply(cfg, p["ff"], apply_norm(cfg, p["ln2"], x),
-                      per_token=per_token)
+                      per_token=per_token, dense=dense)
     return x + f, new_cache, aux
 
 
@@ -401,7 +404,9 @@ def lm_decode(cfg, params, tokens, caches):
     MoE routes per token on per-row caches: the slots are independent
     sequences, which the JAX engine decodes one token each (its ``vmap``),
     where GShard capacity never drops a token — routing the slot batch
-    through one capacity group would let slots displace each other.
+    through one capacity group would let slots displace each other.  It
+    takes the dense route there (no host sync: the engine captures this
+    step in a CUDA graph).
 
     Returns (logits [B,V], caches)."""
     params = cast_tree(params, cfg.compute_dtype)
@@ -413,7 +418,7 @@ def lm_decode(cfg, params, tokens, caches):
         cache = {k: v[i] for k, v in caches.items()}
         x, _, _ = decoder_layer_apply(cfg, layer_params(params, i), x,
                                       positions, cache=cache,
-                                      per_token=per_row)
+                                      per_token=per_row, dense=per_row)
     x = apply_norm(cfg, params["final_norm"], x)
     logits = lm_head(cfg, params, x)
     return logits[:, 0], caches
@@ -426,7 +431,8 @@ def paged_decoder_layer_apply(cfg, p, x, positions, kv, page_table, lengths,
     Dispatches on the family's page layout: per-head k/v pages
     (``paged_attention_apply``) or MLA's latent ckv/krope pages
     (``paged_mla_attention_apply``); MoE routes per token, so concurrently
-    decoding slots never compete for expert capacity."""
+    decoding slots never compete for expert capacity, on the dense route
+    (no host sync: the engine captures this step in a CUDA graph)."""
     h = apply_norm(cfg, p["ln1"], x)
     apply = attn.paged_mla_attention_apply if cfg.attn_kind == "mla" \
         else attn.paged_attention_apply
@@ -434,7 +440,7 @@ def paged_decoder_layer_apply(cfg, p, x, positions, kv, page_table, lengths,
                   use_kernels=use_kernels)
     x = x + a
     f, _ = ff_apply(cfg, p["ff"], apply_norm(cfg, p["ln2"], x),
-                    per_token=True)
+                    per_token=True, dense=True)
     return x + f, kv
 
 

@@ -40,13 +40,20 @@ identical either way.
 
 Differences from the JAX engine, all forced by eager PyTorch:
 
-  * ``jax.lax.scan`` over decode steps and over verify rows becomes a
-    Python loop; ``jax.jit`` has no counterpart.  ``prefill_compiles``
-    keeps its meaning as the count of distinct prefill shapes (what
-    bucketing bounds).
+  * ``jax.lax.scan`` over decode steps becomes a Python loop
+    (``_decode_loop`` / ``_decode_slotted``), and on a CUDA device the
+    jitted scan's counterpart is a CUDA graph of that loop: each decode
+    cycle — either pool, greedy or sampled — is one graph replay
+    (``serving/graphs.py``; ``ServeConfig.decode_graphs``, resolved in
+    ``decode_graphs``: on for CUDA without a mesh, the eager loop when
+    False, on the CPU and on a mesh).  The scan over verify rows stays a
+    Python loop, and prefill chunks and verify rows run eagerly.
+    ``prefill_compiles`` keeps its meaning as the count of distinct
+    prefill shapes (what bucketing bounds).
   * The JAX engine ``vmap``s the slotted decode over slots; here the slots
     are the batch axis of one decode call, each at its own position.
-  * Pools are written in place where the JAX engine donated buffers.
+  * Pools are written in place where the JAX engine donated buffers (a
+    decode graph writes the same buffers: they are never rebound).
   * Traced mode fences device work with ``torch.cuda.synchronize()``
     (``jax.block_until_ready`` there); untraced, nothing syncs before
     retire.
@@ -87,6 +94,7 @@ from repro_torch.models.common import (logical_to_mesh, model_axis,
                                        torch_dtype)
 from repro_torch.obs import (INFLIGHT_COUNTER, NULL_TRACER, Tracer,
                              request_track, write_chrome_trace)
+from repro_torch.serving.graphs import DecodeGraphs
 from repro_torch.serving.kvcache import SlotKVCachePool
 from repro_torch.serving.layouts import quantized_layout
 from repro_torch.serving.metrics import ServingMetrics
@@ -113,6 +121,27 @@ def resolve_device(device) -> torch.device:
             "CUDA is not available: pass device='cpu' to run the port on "
             "the CPU (with the kernels' plain PyTorch versions)")
     return dev
+
+
+def resolve_decode_graphs(choice: Optional[bool], device: torch.device,
+                          mesh_cfg) -> bool:
+    """``ServeConfig.decode_graphs`` for an engine on ``device``: None
+    means CUDA graphs on a CUDA device without a mesh; True where graphs
+    cannot run raises, and says why."""
+    if choice is None:
+        return device.type == "cuda" and mesh_cfg is None
+    if choice and mesh_cfg is not None:
+        raise ValueError(
+            "decode_graphs=True with a mesh: the meshed decode step runs "
+            "collectives between the ranks (gloo where ranks share a card, "
+            "which a CUDA graph cannot capture; NCCL meshes wait for a "
+            "multi-card configuration); pass decode_graphs=None or False")
+    if choice and device.type != "cuda":
+        raise ValueError(
+            f"decode_graphs=True needs a CUDA device (decode cycles are "
+            f"CUDA-graph replays), got {device}; pass decode_graphs=None "
+            "or False")
+    return choice
 
 
 def bucket_len(n: int, cap: int, *, floor: int = _MIN_BUCKET) -> int:
@@ -225,6 +254,9 @@ class ServingEngine:
         self.model_cfg = model_cfg
         self.cfg = serve_cfg or ServeConfig()
         self.device = resolve_device(device)
+        #: each decode cycle one CUDA-graph replay (else the eager loop)
+        self.decode_graphs = resolve_decode_graphs(self.cfg.decode_graphs,
+                                                   self.device, mesh_cfg)
         self.tracer = (Tracer(clock=clock, capacity=self.cfg.trace_capacity,
                               meta={"model": model_cfg.name,
                                     "family": model_cfg.family,
@@ -378,10 +410,70 @@ class ServingEngine:
             self.use_kernels = self.device.type == "cuda"
         else:
             self.use_kernels = self.cfg.use_kernels
+        # the decode cycles' CUDA graphs (captured on first use), and the
+        # cycles the eager loop ran
+        self._graphs = DecodeGraphs(self) if self.decode_graphs else None
+        self._eager_cycles = 0
+
+    @property
+    def decode_cycles(self) -> int:
+        """Decode cycles run: eager loops and graph replays."""
+        return self._eager_cycles + (self._graphs.replays
+                                     if self._graphs is not None else 0)
+
+    @property
+    def decode_steps_run(self) -> int:
+        """Decode steps the device ran (each one model step of every slot):
+        the cycles', and the graphs' warm-up runs before their captures."""
+        warmups = self._graphs.warmups if self._graphs is not None else 0
+        return self.cfg.decode_steps * (self.decode_cycles + warmups)
+
+    def close(self) -> None:
+        """Release the decode graphs and their private memory pool (the
+        Session calls this when it drops the engine); a later graphed
+        decode cycle raises."""
+        if self._graphs is not None:
+            self._graphs.close()
 
     # ------------------------------------------------------------------
-    # Device steps (the JAX engine's jitted scans, as Python loops)
+    # Device steps (the JAX engine's jitted scans: Python loops, captured
+    # as CUDA graphs on the card)
     # ------------------------------------------------------------------
+
+    def _decode_operands(self, plan: "_StepPlan",
+                         sampled: bool) -> Dict[str, torch.Tensor]:
+        """One cycle's decode operands on the device: the token chain
+        ``toks0``; the paged pool's packed table | pos | limits
+        (``packed``), or the slotted pool's ``limits`` and, sampled, next
+        sampling indices ``pos0``; a sampled cycle's packed rows
+        ``samp``."""
+        cfg = self.cfg
+        ops = {"toks0": self._last_toks}
+        if sampled:
+            ops["samp"] = upload(np.stack(
+                [pack_params(self.requests[self.pool.owner[s]].sampling
+                             if s in self.pool.owner else GREEDY)
+                 for s in range(cfg.max_batch)]), self.device)
+        if self.paged:
+            ops["packed"] = self.pool.decode_operands(plan.limits,
+                                                      mask_slots=plan.mask)
+        else:
+            ops["limits"] = upload(np.asarray(
+                [plan.limits.get(s, 0) for s in range(cfg.max_batch)],
+                np.int32), self.device)
+            if sampled:
+                ops["pos0"] = upload(self._slot_pos.astype(np.int32),
+                                     self.device)
+        return ops
+
+    def _decode(self, ops: Dict[str, torch.Tensor]):
+        """One decode cycle on ``ops`` (``_decode_operands``): the replay of
+        its CUDA graph, or the eager loop.  Returns (stack, last)."""
+        body = self._decode_loop if self.paged else self._decode_slotted
+        if self._graphs is not None:
+            return self._graphs.run(body, ops)
+        self._eager_cycles += 1
+        return body(**ops)
 
     def _decode_loop(self, toks0, packed, samp=None):
         """``decode_steps`` paged decode steps for every slot.  Each slot
@@ -390,7 +482,8 @@ class ServingEngine:
         token, same position, same K/V write), so no slot writes past its
         prepared span and the rows past the budget are ignored at retire.
         ``packed`` is the pool's [slots, width+2] operand (page table | pos
-        | limits); ``samp`` the packed sampling rows of a sampled cycle."""
+        | limits); ``samp`` the packed sampling rows of a sampled cycle.
+        No host sync: this is the body a decode graph captures."""
         table = packed[:, :-2].contiguous()
         pos = packed[:, -2]
         limits = packed[:, -1]
@@ -430,7 +523,8 @@ class ServingEngine:
         completes (and is blanked on eviction) or is free (and is
         overwritten by the next insert) — the slots the synchronous engine
         also decoded junk into.  ``samp`` / ``pos0`` are a sampled cycle's
-        packed rows and next sampling indices."""
+        packed rows and next sampling indices.  No host sync: this is the
+        body a decode graph captures."""
         state = self.pool.batched()
         first, n = self.pool.local_slots     # this rank's slots
         mine = slice(first, first + n)
@@ -934,27 +1028,10 @@ class ServingEngine:
             # still lower to argmax
             sampled = any(not self.requests[rid].sampling.greedy
                           for _, rid in plan.rows)
-            samp = None
-            if sampled:
-                samp = upload(np.stack(
-                    [pack_params(self.requests[self.pool.owner[s]].sampling
-                                 if s in self.pool.owner else GREEDY)
-                     for s in range(cfg.max_batch)]), self.device)
+            ops = self._decode_operands(plan, sampled)
             with tr.span("decode.device", steps=cfg.decode_steps,
                          rows=len(plan.rows), sampled=sampled):
-                if self.paged:
-                    packed = self.pool.decode_operands(plan.limits,
-                                                       mask_slots=plan.mask)
-                    stack, self._last_toks = self._decode_loop(
-                        self._last_toks, packed, samp)
-                else:
-                    limits = upload(np.asarray(
-                        [plan.limits.get(s, 0) for s in range(cfg.max_batch)],
-                        np.int32), self.device)
-                    pos0 = (upload(self._slot_pos.astype(np.int32),
-                                   self.device) if sampled else None)
-                    stack, self._last_toks = self._decode_slotted(
-                        self._last_toks, limits, samp, pos0)
+                stack, self._last_toks = self._decode(ops)
                 self._fence()
             # host positions are deterministic once planned — advance now
             # so the next plan overlaps the in-flight device step

@@ -154,7 +154,7 @@ def gumbel(key, V: int):
     bits = random_bits(key, V)
     one = (bits >> 9) | 0x3F800000          # < 2**31: fits an int32
     floats = one.to(torch.int32).view(torch.float32) - 1.0
-    tiny = torch.tensor(_TINY, dtype=torch.float32, device=bits.device)
+    tiny = torch.full((), _TINY, dtype=torch.float32, device=bits.device)
     u = torch.maximum(tiny, floats * (1.0 - tiny) + tiny)
     return -torch.log(-torch.log(u))
 

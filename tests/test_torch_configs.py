@@ -3,7 +3,9 @@
 ``repro_torch.configs`` is a copy of ``repro.configs`` (pure dataclasses
 with construction-time validation); every preset, smoke and full, must
 resolve to the same values in both packages.  ``ServeConfig`` differs in
-one renamed knob: the JAX ``use_pallas`` is the port's ``use_kernels``.
+one renamed knob — the JAX ``use_pallas`` is the port's ``use_kernels`` —
+and one knob of the port's own, ``decode_graphs`` (CUDA graphs stand
+where the JAX engine jits its decode scans).
 """
 import dataclasses
 
@@ -28,8 +30,11 @@ def test_serve_config_defaults_match_reference():
     ref = dataclasses.asdict(jax_configs.ServeConfig())
     port = dataclasses.asdict(torch_configs.ServeConfig())
     assert ref.pop("use_pallas") is None and port.pop("use_kernels") is None
+    assert port.pop("decode_graphs") is None
     assert port == ref
     with pytest.raises(ValueError, match="use_kernels"):
         torch_configs.ServeConfig(use_kernels=1)
+    with pytest.raises(ValueError, match="decode_graphs"):
+        torch_configs.ServeConfig(decode_graphs=1)
     with pytest.raises(ValueError, match="page_size"):
         torch_configs.ServeConfig(page_size=12)
