@@ -306,9 +306,11 @@ class ServeConfig:
     * ``trace`` — record per-phase engine spans, per-request lifecycle
       spans and page-pool cache events into a bounded in-memory ring
       (exportable as a Perfetto-loadable Chrome trace; per-phase seconds
-      fold into ``ServingMetrics.summary()``).  Traced mode fences device
-      calls with ``torch.cuda.synchronize`` so host and device time separate —
-      that sync costs throughput, so leave it off for measured perf runs.
+      fold into ``ServingMetrics.summary()``).  Device phases are timed by
+      stream events on the card's clock, with no synchronize, so a traced
+      engine runs the untraced schedule; the recording costs host time.
+      Traced or not, the engine's spans are ``record_function`` ranges
+      while a ``torch.profiler`` session is active.
     * ``trace_capacity`` — ring-buffer bound (events); oldest drop first.
 
     Device dispatch:
@@ -352,7 +354,7 @@ class ServeConfig:
     enable_prefix_cache: bool = True   # share prompt-prefix pages (paged)
     prefill_bucket: bool = True        # power-of-two prefill length buckets
     prefill_chunk_tokens: int = 0      # chunked prefill size (0 = whole)
-    trace: bool = False                # repro_torch.obs engine tracing (fenced)
+    trace: bool = False                # repro_torch.obs engine tracing
     trace_capacity: int = 1 << 16      # trace ring-buffer bound (events)
     # Hand-written CUDA paged-attention kernels (decode + chunked prefill +
     # verify); the counterpart of the JAX package's ``use_pallas``.  None =

@@ -96,9 +96,9 @@ def main():
     ap.add_argument("--trace", metavar="PATH", default="",
                     help="run the engine traced (repro_torch.obs) and write a "
                          "Perfetto-loadable Chrome trace JSON here; also "
-                         "prints the per-phase time breakdown (fencing "
-                         "costs throughput — don't combine with measured "
-                         "runs)")
+                         "prints the per-phase times (host step and plan "
+                         "seconds; the card's prefill, decode and verify "
+                         "seconds from stream events)")
     args = ap.parse_args()
 
     # require the serve capability at load time: a family the engine cannot
@@ -188,15 +188,15 @@ def main():
                   f"{s['accepted_tokens']} accepted "
                   f"(accept_rate {s['accept_rate']:.2f})")
         if s["step_time_s"] > 0:
-            st = s["step_time_s"]
-            print(f"  phases plan {s['plan_time_s']/st:6.1%}  "
-                  f"prefill {s['prefill_time_s']/st:6.1%}  "
-                  f"decode {s['decode_time_s']/st:6.1%}  "
-                  f"other {s['other_time_s']/st:6.1%}  "
-                  f"of {st:.2f}s engine wall "
-                  f"(host_overhead_frac {s['host_overhead_frac']:.2f}; "
-                  f"decode {s['decode_tokens_per_sec']:.1f} tok/s, "
-                  f"prefill {s['prefill_tokens_per_sec']:.1f} tok/s)")
+            clock = "card" if engine.device.type == "cuda" else "host"
+            device = (f"{clock} prefill {s['prefill_time_s']:.3f}s  "
+                      f"decode {s['decode_time_s']:.3f}s  "
+                      f"verify {s['verify_time_s']:.3f}s "
+                      f"(decode {s['decode_tokens_per_sec']:.1f} tok/s, "
+                      f"prefill {s['prefill_tokens_per_sec']:.1f} tok/s)")
+            print(f"  phases host step {s['step_time_s']:.2f}s, plan "
+                  f"{s['plan_time_s']:.3f}s, draft "
+                  f"{s['draft_time_s']:.3f}s; {device}")
         for i, toks in enumerate(outs):
             print(f"  req {i}: {toks[:8]}{'...' if len(toks) > 8 else ''}")
     if args.trace:

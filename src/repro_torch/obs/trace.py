@@ -17,6 +17,22 @@ Design constraints, in order:
     whose ``span()`` returns one shared context-manager singleton: no
     allocation, no clock read, no branch in the engine beyond an attribute
     call.  The hot decode loop must not regress when tracing is off.
+  * **no fences** — a traced engine runs the schedule an untraced one
+    does.  Device phases (``device_span``) are timed by a pair of stream
+    events from a *device clock* the engine hands in (``serving/
+    profiling.py``'s ``CudaClock``: record / done / seconds, anchored to
+    this tracer's clock at ``reset``); :meth:`Tracer.resolve` turns the
+    pairs whose end has completed into spans on :data:`DEVICE_TRACK`
+    without waiting, and the engine calls it after retire, which has
+    already waited for them.  Without a device clock (the CPU) a device
+    span is a host span only.
+  * **one set of spans for every consumer** — while a ``torch.profiler``
+    session is active, each lexical span (of a :class:`Tracer` or of
+    :data:`NULL_TRACER`) is also entered as a ``record_function`` range of
+    the same name, so the profile of an untraced engine carries the
+    engine's phases on the kernels' clock.  Whether a profile is active is
+    one attribute of the module :func:`install_profiler` installs
+    (``serving`` installs ``torch.autograd.profiler``), read per span.
   * **bounded memory** — events land in a ring buffer (``capacity``, default
     64Ki); when full the *oldest* events drop (``dropped`` counts them), so
     a long-lived engine keeps the recent window instead of growing without
@@ -40,8 +56,9 @@ Two kinds of span API:
 Per-phase attribution: every closed span accumulates into
 ``phase_seconds[name]`` / ``phase_counts[name]`` *for the engine track
 only* — per-request spans overlap engine phases wall-clock-wise and would
-double count.  ``repro_torch.obs.export.phase_snapshot`` flattens those totals
-into the dict ``ServingMetrics.summary()`` merges.
+double count — as host seconds; each resolved device interval into
+``device_seconds[name]``.  ``repro_torch.obs.export.phase_snapshot``
+flattens those totals into the dict ``ServingMetrics.summary()`` merges.
 
 Events are stored as plain tuples ``(ph, name, track, ts, value, args)``
 with Chrome trace-event phase codes (``"X"`` complete span with
@@ -57,31 +74,94 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 #: the engine-loop track; phase attribution accumulates spans on it only
 ENGINE_TRACK = "engine"
+#: the track of the device phases' intervals (stream events, host clock)
+DEVICE_TRACK = "device"
 
 #: event tuple layout (ph, name, track, ts, value, args) — ph follows the
 #: Chrome trace-event phase codes so the exporter is a dumb transcription
 Event = Tuple[str, str, str, float, float, Optional[Dict[str, Any]]]
 
 
-class _SpanCtx:
-    """Lexically scoped span (``with tracer.span(...)``)."""
+class _NullSpan:
+    """The shared no-op context manager ``NULL_TRACER.span`` hands out."""
 
-    __slots__ = ("_tr", "_name", "_track", "_args", "_t0")
+    __slots__ = ()
+
+    def __enter__(self) -> "_NullSpan":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_NULL_SPAN = _NullSpan()
+
+
+class _NoProfiler:
+    """Stands for the profiler's state until :func:`install_profiler`: no
+    profile is ever active."""
+
+    _is_profiler_enabled = False
+
+
+#: whose ``_is_profiler_enabled`` says a profile is active, and the range
+#: each span enters then (``install_profiler``)
+_profiler: Any = _NoProfiler
+_record_function: Optional[Callable[[str], Any]] = None
+
+
+def install_profiler(profiler: Any, record_function: Callable[[str], Any]
+                     ) -> None:
+    """Enter every lexical span as ``record_function(name)`` while
+    ``profiler._is_profiler_enabled`` holds (``serving`` installs
+    ``torch.autograd.profiler`` and ``torch.profiler.record_function``)."""
+    global _profiler, _record_function
+    _profiler, _record_function = profiler, record_function
+
+
+def profile_range(name: str):
+    """``record_function(name)`` while a profile is active, else the shared
+    no-op span: a range for code outside the engine's tracer (the MoE
+    layer's sorted route)."""
+    if _profiler._is_profiler_enabled:
+        return _record_function(name)
+    return _NULL_SPAN
+
+
+class _SpanCtx:
+    """Lexically scoped span (``with tracer.span(...)``); a device span
+    also records a stream event at each end."""
+
+    __slots__ = ("_tr", "_name", "_track", "_args", "_t0", "_range",
+                 "_device", "_ev0")
 
     def __init__(self, tr: "Tracer", name: str, track: str,
-                 args: Optional[Dict[str, Any]]):
+                 args: Optional[Dict[str, Any]], device: bool = False):
         self._tr = tr
         self._name = name
         self._track = track
         self._args = args
+        self._device = device
 
     def __enter__(self) -> "_SpanCtx":
-        self._t0 = self._tr._clock()
+        self._range = None
+        if _profiler._is_profiler_enabled:
+            self._range = _record_function(self._name)
+            self._range.__enter__()
+        tr = self._tr
+        if self._device:
+            self._ev0 = tr.device_clock.record()
+        self._t0 = tr._clock()
         return self
 
     def __exit__(self, *exc) -> bool:
         tr = self._tr
+        if self._device:
+            tr._pending.append((self._name, self._args, self._ev0,
+                                tr.device_clock.record()))
         tr._span(self._name, self._track, self._t0, tr._clock(), self._args)
+        if self._range is not None:
+            self._range.__exit__(*exc)
         return False
 
 
@@ -92,22 +172,29 @@ class Tracer:
 
     def __init__(self, *, clock: Optional[Callable[[], float]] = None,
                  capacity: int = 1 << 16,
-                 meta: Optional[Dict[str, Any]] = None):
+                 meta: Optional[Dict[str, Any]] = None,
+                 device_clock: Any = None):
         assert capacity >= 1, capacity
         self._clock = clock or time.perf_counter
+        self.device_clock = device_clock
         self.capacity = capacity
         self.meta: Dict[str, Any] = dict(meta or {})
         self.reset()
 
     def reset(self) -> None:
-        """Drop every event and phase total (benchmarks reuse warm engines;
-        the clock, capacity and meta survive)."""
+        """Drop every event, phase total and unresolved device pair, and
+        re-anchor the device clock on this tracer's clock (benchmarks reuse
+        warm engines; the clocks, capacity and meta survive)."""
         self.events: deque = deque()
         self.dropped = 0
         self._open: Dict[Tuple[str, str], Tuple[float,
                                                 Optional[Dict[str, Any]]]] = {}
+        self._pending: deque = deque()
         self.phase_seconds: Dict[str, float] = {}
         self.phase_counts: Dict[str, int] = {}
+        self.device_seconds: Dict[str, float] = {}
+        if self.device_clock is not None:
+            self.device_clock.anchor(self._clock)
         self.t0 = self._clock()
 
     def now(self) -> float:
@@ -133,6 +220,31 @@ class Tracer:
              **args: Any) -> _SpanCtx:
         """Lexically scoped span; nest freely (``with`` blocks)."""
         return _SpanCtx(self, name, track, args or None)
+
+    def device_span(self, name: str, **args: Any) -> _SpanCtx:
+        """An engine-track span around device launches, whose device
+        interval (a stream event at each end) lands on
+        :data:`DEVICE_TRACK` once :meth:`resolve` finds it complete."""
+        return _SpanCtx(self, name, ENGINE_TRACK, args or None,
+                        device=self.device_clock is not None)
+
+    def resolve(self, wait: bool = False) -> int:
+        """Turn the device pairs whose end event has completed into spans
+        on :data:`DEVICE_TRACK` and ``device_seconds``, in stream order; a
+        pair still running stops the scan, and nothing waits for it unless
+        ``wait`` (export: one synchronize).  Returns how many resolved."""
+        dev, pending = self.device_clock, self._pending
+        if wait and pending:
+            dev.synchronize()
+        n = 0
+        while pending and dev.done(pending[0][3]):
+            name, args, ev0, ev1 = pending.popleft()
+            t0, t1 = dev.seconds(ev0), dev.seconds(ev1)
+            self._push(("X", name, DEVICE_TRACK, t0, t1 - t0, args))
+            self.device_seconds[name] = \
+                self.device_seconds.get(name, 0.0) + (t1 - t0)
+            n += 1
+        return n
 
     def begin(self, name: str, track: str = ENGINE_TRACK,
               **args: Any) -> None:
@@ -183,19 +295,6 @@ class Tracer:
         return n
 
 
-class _NullSpan:
-    """The shared no-op context manager ``NULL_TRACER.span`` hands out."""
-
-    __slots__ = ()
-
-    def __enter__(self) -> "_NullSpan":
-        return self
-
-    def __exit__(self, *exc) -> bool:
-        return False
-
-
-_NULL_SPAN = _NullSpan()
 _EMPTY_DICT: Dict[str, Any] = {}
 
 
@@ -204,8 +303,10 @@ class NullTracer:
 
     Every method returns immediately without reading the clock or
     allocating; ``span()`` returns one module-level singleton context
-    manager.  ``events`` / ``phase_seconds`` present the empty shapes so
-    consumers (metrics merge, exporters) need no enabled-check branches.
+    manager — or, while a profile is active, the span's
+    ``record_function`` range.  ``events`` / ``phase_seconds`` present the
+    empty shapes so consumers (metrics merge, exporters) need no
+    enabled-check branches.
     """
 
     enabled = False
@@ -216,6 +317,8 @@ class NullTracer:
     meta = _EMPTY_DICT
     phase_seconds: Dict[str, float] = _EMPTY_DICT
     phase_counts: Dict[str, int] = _EMPTY_DICT
+    device_seconds: Dict[str, float] = _EMPTY_DICT
+    device_clock = None
 
     def reset(self) -> None:
         pass
@@ -223,9 +326,15 @@ class NullTracer:
     def now(self) -> float:
         return 0.0
 
-    def span(self, name: str, track: str = ENGINE_TRACK,
-             **args: Any) -> _NullSpan:
+    def span(self, name: str, track: str = ENGINE_TRACK, **args: Any):
+        if _profiler._is_profiler_enabled:
+            return _record_function(name)
         return _NULL_SPAN
+
+    device_span = span
+
+    def resolve(self, wait: bool = False) -> int:
+        return 0
 
     def begin(self, name: str, track: str = ENGINE_TRACK,
               **args: Any) -> None:

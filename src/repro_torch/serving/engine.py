@@ -54,9 +54,10 @@ Differences from the JAX engine, all forced by eager PyTorch:
     are the batch axis of one decode call, each at its own position.
   * Pools are written in place where the JAX engine donated buffers (a
     decode graph writes the same buffers: they are never rebound).
-  * Traced mode fences device work with ``torch.cuda.synchronize()``
-    (``jax.block_until_ready`` there); untraced, nothing syncs before
-    retire.
+  * Traced mode times device phases by stream events on the card's clock
+    (``serving/profiling.py``), resolved after retire has waited for them;
+    the JAX engine's traced mode blocks on each phase instead.  Traced or
+    not, nothing syncs before retire.
   * Sampled rows draw JAX's threefry bits (``serving/sampling.py``) from
     int64 tensor arithmetic, on the device, with no host sync.
 
@@ -99,6 +100,7 @@ from repro_torch.serving.kvcache import SlotKVCachePool
 from repro_torch.serving.layouts import quantized_layout
 from repro_torch.serving.metrics import ServingMetrics
 from repro_torch.serving.paged import PagedKVCachePool, upload
+from repro_torch.serving.profiling import device_clock
 from repro_torch.serving.sampling import (GREEDY, PACKED_WIDTH,
                                           SamplingParams, pack_params,
                                           sample_tokens)
@@ -257,16 +259,14 @@ class ServingEngine:
         #: each decode cycle one CUDA-graph replay (else the eager loop)
         self.decode_graphs = resolve_decode_graphs(self.cfg.decode_graphs,
                                                    self.device, mesh_cfg)
+        # traced: device phases timed by stream events on the card's clock
+        # (no fences: the schedule is the untraced one)
         self.tracer = (Tracer(clock=clock, capacity=self.cfg.trace_capacity,
                               meta={"model": model_cfg.name,
                                     "family": model_cfg.family,
-                                    "backend": self.device.type})
+                                    "backend": self.device.type},
+                              device_clock=device_clock(self.device))
                        if self.cfg.trace else NULL_TRACER)
-        # traced mode fences device work so host vs device time separates;
-        # untraced, launches stay asynchronous until retire reads them
-        self._fence = (torch.cuda.synchronize
-                       if self.tracer.enabled and self.device.type == "cuda"
-                       else (lambda: None))
         self.bundle = registry.build(model_cfg)
         caps = self.bundle.capabilities()
         if "serve" not in caps:
@@ -973,11 +973,11 @@ class ServingEngine:
                                                       self._cache_len)
                 tok = torch.zeros((), dtype=torch.int32, device=self.device)
                 if self.pool.holds(a.slot):
-                    with tr.span("prefill.device", tokens=len(a.prompt),
-                                 bucket=int(toks.shape[1])):
+                    with tr.device_span("prefill.device",
+                                        tokens=len(a.prompt),
+                                        bucket=int(toks.shape[1])):
                         logits, state = self._prefill(toks, n_valid)
                         self.pool.insert_at(a.slot, state)
-                        self._fence()
                     tok = self._first_token(a.req, logits, len(a.prompt))
                 if self._dp_group is not None:
                     tok = tok.reshape(1).clone()
@@ -999,12 +999,12 @@ class ServingEngine:
             rt = request_track(job.req.rid)
             with tr.span("prefill.chunk", track=rt, chunk=c.chunk,
                          bucket=width, start=c.start):
-                with tr.span("prefill.device", tokens=c.chunk, bucket=width):
+                with tr.device_span("prefill.device", tokens=c.chunk,
+                                    bucket=width):
                     logits = self._prefill_chunk(
                         upload(ctoks, self.device),
                         upload(self.pool.tables[c.slot], self.device),
                         c.start, c.chunk)
-                    self._fence()
             self.metrics.record_prefill(c.chunk)
             job.done = c.start + c.chunk
             # register fully-written blocks right away: requests admitted
@@ -1028,11 +1028,11 @@ class ServingEngine:
             # still lower to argmax
             sampled = any(not self.requests[rid].sampling.greedy
                           for _, rid in plan.rows)
-            ops = self._decode_operands(plan, sampled)
-            with tr.span("decode.device", steps=cfg.decode_steps,
-                         rows=len(plan.rows), sampled=sampled):
-                stack, self._last_toks = self._decode(ops)
-                self._fence()
+            # the span holds the operand uploads and the graph launch
+            with tr.device_span("decode.device", steps=cfg.decode_steps,
+                                rows=len(plan.rows), sampled=sampled):
+                stack, self._last_toks = self._decode(
+                    self._decode_operands(plan, sampled))
             # host positions are deterministic once planned — advance now
             # so the next plan overlaps the in-flight device step
             if self.paged:
@@ -1050,10 +1050,10 @@ class ServingEngine:
             tables = [upload(self.pool.tables[sp.slot], self.device)
                       for sp in plan.specs]
             total = sum(sp.m + 1 for sp in plan.specs)
-            with tr.span("verify.device", tokens=total, rows=len(plan.specs)):
+            with tr.device_span("verify.device", tokens=total,
+                                rows=len(plan.specs)):
                 emit, nacc = self._verify(plan.specs,
                                           upload(toks, self.device), tables)
-                self._fence()
             for sp in plan.specs:
                 # optimistic host advance over the whole drafted span;
                 # retire rewinds past the first mismatch
@@ -1203,6 +1203,9 @@ class ServingEngine:
                     self._retire(prev, stream)
                     tr.counter(INFLIGHT_COUNTER,
                                int(self._inflight is not None))
+                    # retire has waited for the cycle's tokens: its device
+                    # spans' events are complete
+                    tr.resolve()
         return self.busy
 
     def run(self, stream: Optional[StreamFn] = None) -> Dict[int, List[int]]:
@@ -1213,7 +1216,8 @@ class ServingEngine:
         return dict(self.results)
 
     def save_trace(self, path: str) -> Optional[str]:
-        """Write the tracer's ring buffer as a Chrome trace JSON; None when
+        """Write the tracer's ring buffer as a Chrome trace JSON (device
+        spans still unresolved resolve after one synchronize); None when
         the engine runs untraced."""
         if not self.tracer.enabled:
             return None

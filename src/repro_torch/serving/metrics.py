@@ -5,11 +5,16 @@
 is injectable so tests can drive deterministic timelines.
 
 ``summary()`` is the export surface: a flat dict (JSON-friendly) consumed by
-``launch/serve.py`` (pretty print) and ``benchmarks/serving.py``
-(BENCH_serving.json trajectory).  When the engine runs traced
-(``ServeConfig(trace=True)``) the attached ``repro_torch.obs.Tracer``'s per-phase
-seconds fold into the same dict — plan / prefill / decode / other wall
-time, and the prefill-vs-decode throughput split those times enable.
+``launch/serve.py`` (pretty print).  When the engine runs traced
+(``ServeConfig(trace=True)``) the attached ``repro_torch.obs.Tracer``'s
+per-phase seconds fold into the same dict — the host's step and plan
+seconds, the card's prefill / decode / verify seconds from stream events,
+and the prefill-vs-decode throughput split those device times enable.
+
+Per-cycle samples (queue depth, KV bytes held) are kept as running max,
+sum and count, so a long-lived engine's metrics do not grow; the queue
+depth also keeps a thinned history (``queue_depth``: at most
+``QUEUE_HISTORY`` samples, evenly spaced over the cycles since reset).
 """
 from __future__ import annotations
 
@@ -18,7 +23,10 @@ import time
 from typing import Callable, Dict, List, Optional, Union
 
 from repro_torch.obs import NULL_TRACER, phase_snapshot
-from repro_torch.obs.export import DECODE_TIME_S, PREFILL_TIME_S
+
+#: queue-depth samples kept: past this many, every second one is dropped
+#: and the stride between kept cycles doubles
+QUEUE_HISTORY = 1 << 14
 
 
 def percentile(xs: List[float], p: float) -> float:
@@ -61,8 +69,12 @@ class ServingMetrics:
         self._last_token_t: Dict[int, float] = {}
         self.ttft: List[float] = []
         self.itl: List[float] = []                 # inter-token latencies
-        self.queue_depth: List[int] = []           # sampled once per cycle
-        self.kv_bytes: List[int] = []              # sampled once per cycle
+        # sampled once per cycle: running max / sum / count
+        self._queue = [0, 0, 0]
+        self._kv = [0, 0, 0]
+        # thinned history (bench/sweep.py reads its first and last quarter)
+        self.queue_depth: List[int] = []
+        self._queue_stride = 1
         self.kv_bytes_slotted = 0                  # slot-pool equivalent
         self.preemptions = 0
         self.rejected = 0
@@ -164,14 +176,19 @@ class ServingMetrics:
         self._last_token_t.pop(rid, None)
 
     def sample_queue_depth(self, depth: int) -> None:
-        self.queue_depth.append(depth)
+        _accumulate(self._queue, depth)
+        if (self._queue[2] - 1) % self._queue_stride == 0:
+            self.queue_depth.append(depth)
+            if len(self.queue_depth) >= QUEUE_HISTORY:
+                del self.queue_depth[1::2]
+                self._queue_stride *= 2
 
     def sample_kv_bytes(self, held: int, slotted_equiv: int) -> None:
         """KV bytes currently held by the pool vs what a slot-granular pool
         would statically preallocate.  Sampled once per admission cycle and
         (paged) after each decode-step page growth, so the peak is the true
         high-water mark, not the per-cycle snapshot."""
-        self.kv_bytes.append(held)
+        _accumulate(self._kv, held)
         self.kv_bytes_slotted = slotted_equiv
 
     # -- export ------------------------------------------------------------
@@ -196,20 +213,17 @@ class ServingMetrics:
         yields honest zeros, never a ZeroDivisionError.
 
         ``decode_tokens_per_sec`` / ``prefill_tokens_per_sec`` split the
-        combined ``tokens_per_sec`` (kept for BENCH comparability) by the
-        tracer's accumulated device-phase time: decode tokens over decode
-        kernel seconds, prefill tokens *run* (prefix hits excluded) over
-        prefill kernel seconds.  Both are 0.0 with tracing off — per-phase
-        time does not exist untraced.
+        combined ``tokens_per_sec`` by the card's seconds in each phase
+        (stream events of a traced engine): decode tokens over decode
+        seconds, prefill tokens *run* (prefix hits excluded) over prefill
+        seconds.  Both are 0.0 with tracing off; on the CPU, which has no
+        device clock, the phases' host seconds stand in.
         """
         dt = self.elapsed()
         prompt_tokens = self.prefill_tokens + self.prefix_hit_tokens
-        # phase keys come from repro_torch.obs.export's named constants (shared
-        # with the bench schema gate), including ``host_overhead_frac`` —
-        # the async-pipeline acceptance number
         phases = phase_snapshot(self.tracer if self.tracer is not None
                                 else NULL_TRACER)
-        dec_t, pre_t = phases[DECODE_TIME_S], phases[PREFILL_TIME_S]
+        dec_t, pre_t = phases["decode_time_s"], phases["prefill_time_s"]
         return {
             "completed": self.completed,
             "tokens_out": self.tokens_out,
@@ -235,13 +249,22 @@ class ServingMetrics:
             "ttft_p99_s": percentile(self.ttft, 99),
             "itl_p50_s": percentile(self.itl, 50),
             "itl_p99_s": percentile(self.itl, 99),
-            "queue_depth_max": max(self.queue_depth, default=0),
-            "queue_depth_mean": (sum(self.queue_depth) / len(self.queue_depth)
-                                 if self.queue_depth else 0.0),
+            "queue_depth_max": self._queue[0],
+            "queue_depth_mean": _mean(self._queue),
             "preemptions": self.preemptions,
             "rejected": self.rejected,
-            "kv_bytes_peak": max(self.kv_bytes, default=0),
-            "kv_bytes_mean": (sum(self.kv_bytes) / len(self.kv_bytes)
-                              if self.kv_bytes else 0.0),
+            "kv_bytes_peak": self._kv[0],
+            "kv_bytes_mean": _mean(self._kv),
             "kv_bytes_slotted": self.kv_bytes_slotted,
         }
+
+
+def _accumulate(stat: List[int], x: int) -> None:
+    """Fold one sample into a running [max, sum, count]."""
+    stat[0] = max(stat[0], x)
+    stat[1] += x
+    stat[2] += 1
+
+
+def _mean(stat: List[int]) -> float:
+    return stat[1] / stat[2] if stat[2] else 0.0
