@@ -1242,6 +1242,146 @@ K10_CASES = ((1, 17, 32, 64), (1, 46, 32, 64), (1, 200, 32, 64))
 K10_REPORTED = (1, 46, 32, 64)
 
 
+#: K11 (the MoE sorted route's grouped GEMM) cases, (N, n_valid, E, K, D,
+#: F): deepseek-v2-lite's 512-token chunk (reported), a verify row of 5,
+#: a bucket with 300 valid of 512, and mixtral-8x22b's 512-token chunk
+K11_CASES = ((512, 512, 64, 6, 2048, 1408), (5, 5, 64, 6, 2048, 1408),
+             (512, 300, 64, 6, 2048, 1408), (512, 512, 8, 2, 6144, 16384))
+K11_REPORTED = K11_CASES[0]
+#: K11 against its plain version, max |err| over max(1, max |plain|): in
+#: bf16 both round h and each expert's output at the same points, and a
+#: last-bit difference of their fp32 sums flips a rounding by one bf16 ulp
+#: (2^-8 relative); in fp32 the same products summed in another order
+MOE_RTOL = {"bfloat16": 2.0 ** -6, "float32": 1e-4}
+
+
+def _moe_inputs(torch, gen, N, n_valid, E, K, D, Fd, dtype):
+    """x [N, D]; expert weights scaled to keep h and the rows O(1); every
+    token's K distinct experts drawn at random, padding rows past
+    ``n_valid`` routed nowhere (expert E); gates renormalised."""
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(dtype)
+    x = rnd(N, D)
+    wg, wu = rnd(E, D, Fd, scale=D ** -0.5), rnd(E, D, Fd, scale=D ** -0.5)
+    wd = rnd(E, Fd, D, scale=Fd ** -0.5)
+    sel = torch.rand((N, E), generator=gen, device="cuda").argsort(1)[:, :K]
+    sel[n_valid:] = E
+    gates = torch.rand((N, K), generator=gen, device="cuda") + 0.1
+    return x, wg, wu, wd, sel.reshape(-1), gates / gates.sum(1, keepdim=True)
+
+
+def _old_sorted_route(torch, x, wg, wu, wd, flat_e, gates, K):
+    """The sorted route as it was before K11, the yardstick: the group
+    sizes read back to the host and one eager matmul chain an expert."""
+    from repro_torch.models.moe import _expert
+    cd, E = x.dtype, wg.shape[0]
+    order = torch.argsort(flat_e, stable=True)
+    counts = torch.bincount(flat_e, minlength=E + 1)[:E].tolist()
+    tok, gate = order // K, gates.to(cd).reshape(-1)[order]
+    acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    lo = 0
+    for e, c in enumerate(counts):
+        if c:
+            t = tok[lo:lo + c]
+            ye = _expert(torch.nn.functional.silu, wg[e], wu[e], wd[e], x[t],
+                         cd)
+            acc.index_add_(0, t, ye.float() * gate[lo:lo + c, None].float())
+        lo += c
+    return acc
+
+
+def k11_parts(torch, fn, iters=20):
+    """Device ms a call of K11's three kernels (gate/up, down, combine) and
+    of the rest of the wrapper's work (grouping, the tile table), from one
+    profile of ``iters`` calls, each after an L2 flush."""
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    parts = {"gate_up": 0.0, "down": 0.0, "combine": 0.0, "table": 0.0}
+    for us, _, name in device_kernels(torch, prof):
+        if "moe_gemm" in name:
+            parts["gate_up" if "true" in name else "down"] += us
+        elif "moe_combine" in name:
+            parts["combine"] += us
+        elif "zero" not in name and "fill" not in name.lower():
+            parts["table"] += us
+    return {k: v / iters / 1e3 for k, v in parts.items()}
+
+
+def k11_case(torch, gen, N, n_valid, E, K, D, Fd, dtype=None, timed=True):
+    """K11 on one routed batch of picks against its plain version over the
+    same tile table; timed (bf16) beside the plain version, the old loop
+    and its bound: the touched experts' weights, x and the output."""
+    from repro_torch.kernels.moe_grouped import kernel as mk
+    from repro_torch.kernels.moe_grouped import ref
+    dtype = dtype or torch.bfloat16
+    x, wg, wu, wd, flat_e, gates = _moe_inputs(torch, gen, N, n_valid, E, K,
+                                               D, Fd, dtype)
+
+    def kern():
+        return mk.moe_grouped(x, wg, wu, wd, flat_e, gates, first=0,
+                              act="silu")
+
+    order, tiles = ref.group_picks(flat_e, 0, E)
+    inv = torch.empty_like(order).scatter_(
+        0, order, torch.arange(N * K, device="cuda"))
+    gate = gates.to(dtype).reshape(-1)[order]
+
+    def plain():
+        return ref.moe_grouped_ref(x, wg, wu, wd, order // K, gate, tiles,
+                                   flat_e.view(N, K), inv.view(N, K),
+                                   first=0, act="silu")
+
+    n0 = mk.moe_grouped.launches
+    out, want = kern(), plain()
+    torch.cuda.synchronize()
+    assert mk.moe_grouped.launches == n0 + 3
+    err, rel = _rel_err(out, want)
+    name = str(dtype)[6:]
+    case = dict(case=f"{name} N={N} valid={n_valid} E={E} K={K} D={D} "
+                     f"F={Fd} tiles={tiles.shape[0]}",
+                max_abs_err=err, rel_err=rel, rel_tol=MOE_RTOL[name])
+    if not timed:
+        return case
+    touched = int(torch.unique(flat_e[flat_e < E]).numel())
+    picks = int((flat_e < E).sum())
+    nbytes = (3 * touched * D * Fd + N * D) * 2 + N * D * 4
+    b_ms, b_by = bound(nbytes, 6 * picks * D * Fd)
+
+    def old():
+        return _old_sorted_route(torch, x, wg, wu, wd, flat_e, gates, K)
+
+    return dict(case, ms=time_ms(torch, kern), plain_ms=time_ms(torch, plain),
+                old_loop_ms=time_ms(torch, old), bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, device_ms=device_ms(torch, kern),
+                library_device_ms=None, parts=k11_parts(torch, kern))
+
+
+def _rows_k11(torch, F, gen):
+    rows = [k11_case(torch, gen, *c) for c in K11_CASES]
+    rows += [k11_case(torch, gen, *c, dtype=torch.float32, timed=False)
+             for c in K11_CASES[:3]]
+    return {"moe_grouped": rows}
+
+
+def moe_summary(rows):
+    """K11 at every timed case: device time beside its bound, the old
+    loop's and the plain version's times."""
+    for c, r in zip(K11_CASES, rows.get("moe_grouped", ())):
+        log(f"K11 {c}: device {r['device_ms']:.4f} ms (events "
+            f"{r['ms']:.4f}), bound {r['bound_ms']:.4f} ({r['bound_by']}, "
+            f"{100 * r['bound_ms'] / r['device_ms']:.1f}%); old loop "
+            f"{r['old_loop_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms; parts "
+            + ", ".join(f"{k} {v:.4f}" for k, v in r["parts"].items()))
+
+
 def report_row(name, r):
     """Print one kernel case (its check, and its times where it was
     timed); returns whether it agrees with its plain version."""
@@ -1378,7 +1518,8 @@ KERNEL_ROWS = {"K1": ("paged_attention", _rows_k1),
                "K6": ("paged_mla", _rows_k6),
                "K7": ("paged_mla_prefill", _rows_k7),
                "K9": ("lru_scan", _rows_k9),
-               "K10": ("wkv6", _rows_k10)}
+               "K10": ("wkv6", _rows_k10),
+               "K11": ("moe_grouped", _rows_k11)}
 
 
 def k2_summary(rows):
@@ -1436,6 +1577,7 @@ def kernels_only_phase(torch, F, names):
     if "K7" in names:
         k7_summary(rows)
     recurrent_summary(rows)
+    moe_summary(rows)
     return ok
 
 
@@ -1462,6 +1604,7 @@ def kernel_phase(torch, F):
     k2b = k2_summary(rows)
     k7_summary(rows)
     recurrent_summary(rows)
+    moe_summary(rows)
     k7 = next(r for r, c in zip(rows["paged_mla_prefill"], K7_CASES)
               if c == K7_REPORTED)
     k9 = next(r for r, c in zip(rows["lru_scan"], K9_CASES)
@@ -1542,7 +1685,8 @@ def kernel_phase(torch, F):
             "lru_scan": dict(k9, max_abs_err=max(
                 r["max_abs_err"] for r in rows["lru_scan"])),
             "wkv6": dict(k10, max_abs_err=max(
-                r["max_abs_err"] for r in rows["wkv6"]))}
+                r["max_abs_err"] for r in rows["wkv6"])),
+            "moe_grouped": worst("moe_grouped", rows["moe_grouped"][0])}
 
 
 # ---------------------------------------------------------------------------
@@ -1662,8 +1806,16 @@ def launches_per_prefill(cfg):
     return {"wkv6": cfg.num_layers}
 
 
+def moe_wrapper():
+    """K11's wrapper.  The MoE sorted route has one algorithm on the card,
+    the grouped GEMM, so plain arms (``use_kernels=False``) launch it too:
+    it is counted apart from ``kernel_wrappers``."""
+    from repro_torch.kernels.moe_grouped import kernel as mk
+    return mk.moe_grouped
+
+
 def reset_counts():
-    for w in kernel_wrappers().values():
+    for w in [*kernel_wrappers().values(), moe_wrapper()]:
         w.launches = 0
         if hasattr(w, "launches_by"):
             w.launches_by = {}
@@ -1677,7 +1829,25 @@ def read_counts():
               if not hasattr(w, "launches_by")}
     for name, (w, kind) in BY_PAGES.items():
         counts[name] = wrappers[w].launches_by.get(kind, 0)
+    counts["moe_grouped"] = moe_wrapper().launches
     return counts
+
+
+def plain_launches(counts):
+    """``counts`` without K11, which every MoE arm on the card runs."""
+    return {n: c for n, c in counts.items() if n != "moe_grouped"}
+
+
+def check_moe_launches(cfg, counts, arm):
+    """Every layer of every paged prefill chunk and verify runs the MoE
+    sorted route once: K11's three launches (gate/up, down, combine)."""
+    want = 3 * cfg.num_layers * (MODEL_CALLS.get("lm_paged_prefill", 0)
+                                 + MODEL_CALLS.get("lm_paged_verify", 0))
+    log(f"K11 launches ({arm}) {counts['moe_grouped']}: 3 x {cfg.num_layers}"
+        f" layers x prefill chunks + verifies")
+    if counts["moe_grouped"] != want:
+        raise AssertionError(f"K11 launches {counts['moe_grouped']}, "
+                             f"expected {want}")
 
 
 #: the last drive's engine: its resolved ``decode_graphs``, graph count,
@@ -2170,10 +2340,12 @@ def serve_phase(torch, arch, profile_marks=(), card=""):
             raise AssertionError("no speculative drafts were verified")
     if not recurrent:
         check_paged_launches(cfg, counts, ours, sess.engine.pool)
+    moe = cfg.moe is not None
+    if moe:
+        check_moe_launches(cfg, counts, "kernels")
     for o in outs:
         if len(o) != MAX_NEW or not all(0 <= t < cfg.vocab_size for t in o):
             raise AssertionError(f"bad stream {o}")
-    moe = cfg.moe is not None
     checked_drive(torch, sess, prompts, outs, ours)
 
     plain, pwall, pcounts, pm = serve_once(torch, sess, prompts,
@@ -2181,8 +2353,10 @@ def serve_phase(torch, arch, profile_marks=(), card=""):
     log(f"serve {cfg.name} (plain, use_kernels=False): {pwall:.2f} s; tok/s "
         f"{pm['tokens_per_sec']:.2f}; ttft mean {pm['ttft_mean_s']:.3f} s; "
         f"launches {pcounts}")
-    if any(pcounts.values()):
+    if any(plain_launches(pcounts).values()):
         raise AssertionError(f"plain arm launched kernels: {pcounts}")
+    if moe:
+        check_moe_launches(cfg, pcounts, "plain")
     # random-weight MoE and recurrent streams part far from bf16 near-ties
     # (see the fp32 arms), so there the partings are printed and the
     # kernels are held by the checked drive and the fp32 arms instead
@@ -2191,7 +2365,7 @@ def serve_phase(torch, arch, profile_marks=(), card=""):
     graphed = profile_phase(torch, sess, prompts, profile_marks)
     if arch == "qwen2.5-14b":
         graph_arms(torch, sess, prompts, graphed, profile_marks, card)
-    out = {n: counts[n] for n in ours}
+    out = {n: counts[n] for n in ours + (("moe_grouped",) if moe else ())}
     if arch in INT8_SERVE_KERNELS:
         out.update(int8_arm(torch, sess, prompts, outs))
     if arch == "qwen2.5-14b":
@@ -2962,7 +3136,8 @@ def fp32_phase(torch, arch="deepseek-v2-lite-16b"):
         f"{m['accepted_tokens']}, launches {counts}), plain {pwall:.2f} s "
         f"(launches {pcounts}); peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-    if not all(counts[n] > 0 for n in ours) or any(pcounts.values()):
+    if not all(counts[n] > 0 for n in ours) or any(
+            plain_launches(pcounts).values()):
         raise AssertionError(f"fp32 arms: launches {counts} / {pcounts}")
     identical, worst, t0 = 0, 0.0, time.perf_counter()
     for i, (p, a, b) in enumerate(zip(prompts, outs, plain)):
@@ -4043,6 +4218,7 @@ def main() -> int:
         counts.update(serve_phase(
             torch, "deepseek-v2-lite-16b",
             ("paged_mla_decode_kernel", "paged_mla_prefill_kernel")))
+        moe_k11 = counts.pop("moe_grouped")
         gc.collect()                    # the bf16 deepseek session
         torch.cuda.empty_cache()
     with phase("fp32 deepseek-v2-lite-16b"):
@@ -4068,6 +4244,9 @@ def main() -> int:
     with phase("serve mixtral-8x22b"):
         counts.update(serve_phase(torch, "mixtral-8x22b",
                                   ("paged_decode_kernel", "prefill")))
+        log(f"K11 launches: deepseek {moe_k11}, mixtral "
+            f"{counts['moe_grouped']}")
+        counts["moe_grouped"] += moe_k11
         gc.collect()                    # the bf16 mixtral session
         torch.cuda.empty_cache()
     with phase("fp32 mixtral-8x22b"):
@@ -4119,7 +4298,11 @@ def main() -> int:
                    "src/repro/kernels/paged_attention/kernel.py:113"),
                "paged_ring_prefill_int8": (
                    "src/repro_torch/csrc/paged_ring_prefill.cu",
-                   "src/repro/kernels/paged_attention/kernel.py:490")}
+                   "src/repro/kernels/paged_attention/kernel.py:490"),
+               "moe_grouped": (
+                   "src/repro_torch/csrc/moe_grouped.cu",
+                   "none: the JAX package's dense einsum dispatch "
+                   "(src/repro/models/moe.py moe_apply(per_token=True))")}
     kernels = []
     for name, (src, replaces) in sources.items():
         r = stats[name]

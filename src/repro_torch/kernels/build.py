@@ -27,7 +27,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 #: every kernel source of the package (one shared library each)
 SOURCES = ("paged_attention", "paged_prefill", "paged_ring_prefill",
            "flash_attention", "paged_mla", "paged_mla_prefill", "lru_scan",
-           "wkv6")
+           "wkv6", "moe_grouped")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -14,9 +14,11 @@ Two modes, with the JAX package's contracts:
     the top-k.  Two routes here, the same function:
 
     - sorted (prefill chunks, verify rows): only the selected experts run:
-      the (token, choice) pairs are grouped by expert and each group is
-      one matmul chain.  That needs the group sizes on the host — one
-      device-to-host sync per call — and at many tokens does K/E of the
+      the (token, choice) pairs are sorted by expert on the device into a
+      tile table whose length the shapes fix, and one grouped GEMM runs
+      over it (``kernels/moe_grouped``, K11 on CUDA; its plain version
+      over the same table on the CPU).  No group size reaches the host and
+      no Python loop walks the experts; at many tokens it does K/E of the
       dense route's expert work.  While a profile is active it is the
       ``moe.sorted`` range (``repro_torch.obs.profile_range``);
     - ``dense=True`` (decode steps): the JAX package's dispatch — every
@@ -45,6 +47,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.moe_grouped.kernel import moe_grouped
 from repro_torch.models.common import (ParamSpec, activation, dot,
                                        from_model, gather_model,
                                        local_offset, to_model)
@@ -107,32 +110,14 @@ def _from_experts(y):
 
 def _per_token(cfg, p, xf, gates, sel, keep, cd):
     """Drop-free routing: [N, D] in the compute dtype.  Padding tokens
-    (``keep`` False) route nowhere.  The grouping, its host sync and the
-    expert loop are the ``moe.sorted`` range of a profile."""
-    m = cfg.moe
-    E, K = m.num_experts, m.top_k
-    N = xf.shape[0]
-    act = activation(cfg.act)
+    (``keep`` False) route nowhere.  The grouping and the grouped GEMM
+    are the ``moe.sorted`` range of a profile."""
+    E = cfg.moe.num_experts
     first = local_offset(E, "expert")   # this rank's experts: first + i
-    n_local = p["w_gate"].shape[0]
     with profile_range("moe.sorted"):
         flat_e = torch.where(keep[:, None], sel, E).reshape(-1)  # E: nowhere
-        order = torch.argsort(flat_e, stable=True)
-        counts = torch.bincount(flat_e, minlength=E + 1)[:E].tolist()  # sync
-        tok = (order // K)
-        gate = gates.to(cd).reshape(-1)[order]
-        acc = torch.zeros((N, xf.shape[1]), dtype=torch.float32,
-                          device=xf.device)
-        lo = 0
-        for e, c in enumerate(counts):      # ascending expert order
-            if c and first <= e < first + n_local:
-                t = tok[lo:lo + c]
-                i = e - first
-                ye = _expert(act, p["w_gate"][i], p["w_up"][i],
-                             p["w_down"][i], xf[t], cd)
-                acc.index_add_(0, t,
-                               ye.float() * gate[lo:lo + c, None].float())
-            lo += c
+        acc = moe_grouped(xf, p["w_gate"], p["w_up"], p["w_down"], flat_e,
+                          gates, first=first, act=cfg.act)
     return _from_experts(acc).to(cd)
 
 

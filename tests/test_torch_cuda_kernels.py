@@ -1188,3 +1188,98 @@ def test_cuda_alexnet_step_matches_cpu_autograd():
         scale = max(1.0, float(b.abs().max()))
         assert float((a - b).abs().max()) <= 1e-3 * scale
         assert float((p - q).abs().max()) <= 1e-5 * scale
+
+
+# ---------------------------------------------------------------------------
+# K11: the MoE sorted route's grouped GEMM
+# ---------------------------------------------------------------------------
+
+def _moe_case(dev, seed, N, n_valid, E, K, D, F, dtype):
+    """x [N, D], expert weights scaled to keep h and the rows O(1), every
+    token's K distinct experts at random, padding past ``n_valid`` routed
+    nowhere (expert E), gates renormalised."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+    x = rnd(N, D)
+    w = (rnd(E, D, F, scale=D ** -0.5), rnd(E, D, F, scale=D ** -0.5),
+         rnd(E, F, D, scale=F ** -0.5))
+    sel = torch.rand((N, E), generator=g, device=dev).argsort(1)[:, :K]
+    sel[n_valid:] = E
+    gates = torch.rand((N, K), generator=g, device=dev) + 0.1
+    return x, w, sel.reshape(-1), gates / gates.sum(1, keepdim=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("N,n_valid,E,K,D,F", [
+    (5, 5, 64, 6, 2048, 1408), (512, 512, 64, 6, 2048, 1408),
+    (512, 300, 64, 6, 2048, 1408), (512, 512, 8, 2, 6144, 16384),
+    (37, 30, 8, 2, 136, 200)],
+    ids=["dsv2-verify", "dsv2-chunk", "dsv2-bucket", "mixtral-chunk",
+         "ragged"])
+def test_cuda_moe_grouped_kernel_matches_plain(dtype, N, n_valid, E, K, D, F):
+    """K11 at deepseek-v2-lite's width (a verify row of 5, a 512-token
+    chunk, a bucket with 300 valid of 512), at mixtral-8x22b's (bf16 only:
+    its fp32 weights and the plain version's per-tile copies would take
+    ~30 GB) and at a ragged width, against its plain version over the same
+    tile table.  Tolerance, max |err| over max(1, max |plain|): bf16 2^-6
+    (both round h and each expert's output at the same points; a last-bit
+    difference of their fp32 sums flips a rounding by one bf16 ulp, 2^-8
+    relative), fp32 1e-4 (the same products summed in another order)."""
+    if dtype == "float32" and E == 8 and D == 6144:
+        pytest.skip("mixtral's width runs in bf16 only (memory)")
+    from repro_torch.kernels.moe_grouped import kernel as mk
+    from repro_torch.kernels.moe_grouped import ref
+    dev = _cuda()
+    x, (wg, wu, wd), flat_e, gates = _moe_case(dev, N + E, N, n_valid, E, K,
+                                               D, F, TORCH[dtype])
+    n0 = mk.moe_grouped.launches
+    got = mk.moe_grouped(x, wg, wu, wd, flat_e, gates, first=0, act="silu")
+    assert mk.moe_grouped.launches == n0 + 3
+    order, tiles = ref.group_picks(flat_e, 0, E)
+    inv = torch.empty_like(order).scatter_(0, order,
+                                           torch.arange(N * K, device=dev))
+    want = ref.moe_grouped_ref(x, wg, wu, wd, order // K,
+                               gates.to(x.dtype).reshape(-1)[order], tiles,
+                               flat_e.view(N, K), inv.view(N, K), first=0,
+                               act="silu")
+    assert torch.equal(got[n_valid:], torch.zeros_like(got[n_valid:]))
+    _rel_close(got, want, 2.0 ** -6 if dtype == "bfloat16" else 1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_moe_sorted_route_never_syncs_and_launches_k11():
+    """``moe_apply(per_token=True)`` at deepseek-v2-lite's full width (one
+    layer's experts, a bucket with 300 valid of 512) under
+    ``set_sync_debug_mode("error")``: no host read anywhere in the layer,
+    and the route ran through K11 (its launch count rose by 3)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.moe_grouped import kernel as mk
+    from repro_torch.models import moe
+    dev = _cuda()
+    cfg = get_config("deepseek-v2-lite-16b")
+    m, D = cfg.moe, cfg.d_model
+    g = torch.Generator(device=dev).manual_seed(3)
+
+    def rnd(*shape):
+        return (torch.randn(shape, generator=g, device=dev)
+                * shape[-2] ** -0.5).to(torch.bfloat16)
+    E, F = m.num_experts, m.d_ff_expert
+    fs = m.d_ff_shared or F * m.num_shared_experts
+    p = {"router": rnd(D, E), "w_gate": rnd(E, D, F), "w_up": rnd(E, D, F),
+         "w_down": rnd(E, F, D),
+         "shared": {"w_gate": rnd(D, fs), "w_up": rnd(D, fs),
+                    "w_down": rnd(fs, D)}}
+    x = torch.randn((1, 512, D), generator=g, device=dev).to(torch.bfloat16)
+    n0 = mk.moe_grouped.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, _ = moe.moe_apply(cfg, p, x, n_valid=300, per_token=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert mk.moe_grouped.launches == n0 + 3
+    assert y.shape == x.shape and bool(torch.isfinite(y[:, :300]).all())

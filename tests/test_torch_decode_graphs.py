@@ -163,15 +163,21 @@ def test_dense_moe_route_matches_jax_per_token(variant, n_valid):
     assert abs(float(got_aux) - float(want_aux)) < 1e-6
 
 
-def test_sorted_moe_route_reads_the_host():
-    """The sorted route (prefill chunks, verify rows) groups tokens by
-    expert with host-side sizes: ``NoSync`` refuses it, which is why the
-    decode steps take the dense route."""
+def test_sorted_moe_route_never_reads_the_host():
+    """The sorted route (prefill chunks, verify rows) groups the picks by
+    expert into a tile table on the device and runs one grouped GEMM over
+    it: ``NoSync`` passes it, a masked bucket tail included, and it gives
+    the dense route's output."""
     _, pcfg, ff = _moe_setup("smoke")
+    p = from_jax_params(ff)
     x = torch.from_numpy(np.random.default_rng(2).normal(
-        size=(1, 4, pcfg.d_model)).astype(np.float32))
-    with pytest.raises(AssertionError, match="bincount"), NoSync():
-        port_moe.moe_apply(pcfg, from_jax_params(ff), x, per_token=True)
+        size=(1, 6, pcfg.d_model)).astype(np.float32))
+    with NoSync() as mode:
+        got, _ = port_moe.moe_apply(pcfg, p, x, n_valid=4, per_token=True)
+    assert mode.ops > 0
+    want, _ = port_moe.moe_apply(pcfg, p, x, n_valid=4, per_token=True,
+                                 dense=True)
+    torch.testing.assert_close(got[:, :4], want[:, :4], rtol=0, atol=1e-5)
 
 
 # ---------------------------------------------------------------------------
