@@ -176,8 +176,9 @@ included, replays decode graphs.
     python3 chip_smoke.py --kernels K2,K6[,...] [SRC]
 
 builds and times only the named kernels (K1, K2, K4, K5, K6, K7, K9,
-K10; the K8 branches come with K1, K2, K4 and K5) at the kernel phase's
-cases, from
+K10, K11; the K8 branches come with K1, K2, K4 and K5) at the kernel
+phase's cases — or, named KX14, KX2 and KX5, K1 / K4, K2 and K5 at
+K-EXAONE's serving shapes (outside the full run's kernel phase) — from
 the package under SRC (default this checkout's ``src``): two checkouts'
 kernels side by side in one call.  ``--decode-kernels [SRC]`` is
 ``--kernels K1,K4 [SRC]``.  ``--train`` builds the kernels and runs the
@@ -1510,6 +1511,147 @@ def _rows_k10(torch, F, gen):
     return {"wkv6": [k10_case(torch, gen, *c) for c in K10_CASES]}
 
 
+#: K-EXAONE's serving geometry (the ``kexaone-mixed`` cell): 64 query /
+#: 8 KV heads of 128 (G 8), pages of 16, 32 slots, 512-token chunks; the
+#: 12 global layers on contiguous pages (K1, K2; no rope there, which the
+#: kernels never see) and the 36 windowed ones on a 128-token ring of 8
+#: cells (K4, K5; a chunk is longer than the window)
+KX_KV, KX_G, KX_WINDOW, KX_SLOTS, KX_SEQ = 8, 8, 128, 32, 16384
+#: the decode case's 32 lengths: both sides of the window and of a page,
+#: up to the cell's longest sequence
+KX_LENGTHS = [1, 2, 16, 17, 127, 128, 129, 130, 200, 333, 511, 512, 700,
+              1024, 1100, 1500, 2048, 2500, 3000, 3700, 4096, 5000, 6000,
+              7000, 8191, 9000, 10000, 11000, 12345, 14000, 15360, 16384]
+#: (S, start, n_valid) chunks: a prompt's first, an early and a late
+#: 512-token chunk, the last chunk of the longest prompt, and a ragged
+#: last chunk in a 64-token bucket (its short key walk takes the split
+#: path); the first is reported
+KX_CHUNKS = ((512, 0, 512), (512, 1024, 512), (512, 8192, 512),
+             (512, 14848, 512), (64, 1536, 40))
+
+
+def kx_decode_case(torch, gen, window, dtype, timed=True):
+    """K1 (``window`` 0, a global layer) or K4 (a windowed layer) at
+    K-EXAONE's decode step: 32 slots at ``KX_LENGTHS``."""
+    from repro_torch.kernels.paged_attention import kernel as pk
+    from repro_torch.kernels.paged_attention import ops, ref
+    n_table = KX_WINDOW // PS if window else KX_SEQ // PS
+    live = [min(n, window) if window else n for n in KX_LENGTHS]
+    n_pages = sum(-(-n // PS) for n in live) + 8
+    k, v, _ = _page_pair(torch, gen, (n_pages, PS, KX_KV, HD), dtype, False)
+    q = torch.randn((KX_SLOTS, KX_KV * KX_G, HD), generator=gen,
+                    device="cuda").to(dtype)
+    cpu = torch.Generator().manual_seed(SEED + 41)
+    perm = (torch.randperm(n_pages - 1, generator=cpu) + 1).tolist()
+    table = torch.zeros((KX_SLOTS, n_table), dtype=torch.int32)
+    for s, n in enumerate(live):
+        held = -(-n // PS)
+        table[s, :held] = torch.tensor(perm[:held], dtype=torch.int32)
+        perm = perm[held:]
+    table = table.cuda()
+    lens = torch.tensor(KX_LENGTHS, dtype=torch.int32, device="cuda")
+
+    def kern():
+        return ops.paged_attention(q, k, v, table, lens, window=window,
+                                   use_kernel=True)
+
+    def plain():
+        return ref.paged_attention_ref(q, k, v, table, lens, window=window)
+
+    err = (kern().float() - plain().float()).abs().max().item()
+    splits = pk.decode_splits(KX_SLOTS, KX_KV, n_table, PS, window,
+                              _sms(torch))
+    case = dict(case=f"{'K4' if window else 'K1'} {str(dtype)[6:]} slots="
+                     f"{KX_SLOTS} KV={KX_KV} G={KX_G} hd={HD} ps={PS} "
+                     f"window={window} lengths 1..{max(KX_LENGTHS)} "
+                     f"splits={splits}", max_abs_err=err,
+                tol=FP32_KERNEL_ATOL if dtype == torch.float32
+                else KERNEL_ATOL)
+    if not timed:
+        return case
+    tokens = sum(live)
+    nbytes = q.numel() * q.element_size() * 2 + _page_bytes(
+        tokens * KX_KV, dtype, False)
+    b_ms, b_by = bound(nbytes, 4 * HD * KX_G * KX_KV * tokens)
+    return dict(case, ms=time_ms(torch, kern), plain_ms=time_ms(torch, plain),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                launches_per_call=cuda_launches(torch, kern),
+                device_ms=device_ms(torch, kern))
+
+
+def kx_prefill_case(torch, gen, ring, dtype, S, start, n_valid, timed=True):
+    """K2 (a global layer's chunk, its keys written first) or K5 (a
+    windowed layer's chunk, snapshot before write, longer than the window)
+    at K-EXAONE's chunk shapes."""
+    from repro_torch.kernels.paged_attention import kernel as pk
+    from repro_torch.kernels.paged_attention import ops, ref
+    n_table = KX_WINDOW // PS if ring else KX_SEQ // PS
+    n_pages = n_table + 8
+    k, v, _ = _page_pair(torch, gen, (n_pages, PS, KX_KV, HD), dtype, False)
+    q = torch.randn((S, KX_KV * KX_G, HD), generator=gen,
+                    device="cuda").to(dtype)
+    row = _table_rows(torch, [min(start + n_valid, n_table * PS)], n_table,
+                      n_pages, SEED + 42 + S + start)[0]
+    if ring:
+        ck = torch.randn((S, KX_KV, HD), generator=gen,
+                         device="cuda").to(dtype)
+        cv = torch.randn((S, KX_KV, HD), generator=gen,
+                         device="cuda").to(dtype)
+        kern = lambda: ops.paged_ring_prefill(
+            q, k, v, ck, cv, row, start, n_valid, window=KX_WINDOW,
+            use_kernel=True)
+        plain = lambda: ref.paged_ring_prefill_ref(
+            q, k, v, ck, cv, row, start, n_valid, window=KX_WINDOW)
+        snap = min(start, KX_WINDOW)
+        pairs = _ring_pairs(S, start, n_valid, KX_WINDOW)
+        nbytes = (q.numel() * q.element_size() * 2
+                  + _page_bytes(snap * KX_KV, dtype, False)
+                  + ck.numel() * ck.element_size() * 2)
+    else:
+        kern = lambda: ops.paged_prefill(q, k, v, row, start, n_valid,
+                                         use_kernel=True)
+        plain = lambda: ref.paged_prefill_ref(q, k, v, row, start, n_valid)
+        pairs = sum(start + i + 1 for i in range(n_valid))
+        nbytes = (q.numel() * q.element_size() * 2
+                  + _page_bytes((start + n_valid) * KX_KV, dtype, False))
+    err = (kern()[:n_valid].float()
+           - plain()[:n_valid].float()).abs().max().item()
+    splits = 1 if dtype == torch.float32 else _prefill_splits(
+        torch, pk, S, KX_G, KX_KV, start, n_valid, KX_WINDOW if ring else 0)
+    case = dict(case=f"{'K5' if ring else 'K2'} {str(dtype)[6:]} S={S} "
+                     f"start={start} n_valid={n_valid} KV={KX_KV} G={KX_G} "
+                     f"hd={HD} ps={PS}"
+                     + (f" window={KX_WINDOW}" if ring else "")
+                     + f" splits={splits}", max_abs_err=err,
+                tol=FP32_KERNEL_ATOL if dtype == torch.float32
+                else KERNEL_ATOL)
+    if not timed:
+        return case
+    b_ms, b_by = bound(nbytes, 4 * HD * KX_G * KX_KV * pairs)
+    return dict(case, ms=time_ms(torch, kern), plain_ms=time_ms(torch, plain),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                device_ms=device_ms(torch, kern))
+
+
+def _rows_kx_decode(torch, F, gen):
+    bf16, fp32 = torch.bfloat16, torch.float32
+    return {"kexaone_decode": [
+        kx_decode_case(torch, gen, w, bf16) for w in (0, KX_WINDOW)] + [
+        kx_decode_case(torch, gen, w, fp32, timed=False)
+        for w in (0, KX_WINDOW)]}
+
+
+def _rows_kx_prefill(ring):
+    def rows(torch, F, gen):
+        bf16, fp32 = torch.bfloat16, torch.float32
+        name = "kexaone_ring_prefill" if ring else "kexaone_prefill"
+        return {name: [kx_prefill_case(torch, gen, ring, bf16, *c)
+                       for c in KX_CHUNKS]
+                + [kx_prefill_case(torch, gen, ring, fp32, *c, timed=False)
+                   for c in (KX_CHUNKS[0], KX_CHUNKS[-1])]}
+    return rows
+
+
 #: ``--kernels`` names -> (the source to build, the kernel phase's rows)
 KERNEL_ROWS = {"K1": ("paged_attention", _rows_k1),
                "K2": ("paged_prefill", _rows_k2),
@@ -1519,7 +1661,12 @@ KERNEL_ROWS = {"K1": ("paged_attention", _rows_k1),
                "K7": ("paged_mla_prefill", _rows_k7),
                "K9": ("lru_scan", _rows_k9),
                "K10": ("wkv6", _rows_k10),
-               "K11": ("moe_grouped", _rows_k11)}
+               "K11": ("moe_grouped", _rows_k11),
+               # K1 / K4, K2 and K5 at K-EXAONE's shapes (``--kernels``
+               # only: ``--kernels KX14,KX2,KX5``)
+               "KX14": ("paged_attention", _rows_kx_decode),
+               "KX2": ("paged_prefill", _rows_kx_prefill(False)),
+               "KX5": ("paged_ring_prefill", _rows_kx_prefill(True))}
 
 
 def k2_summary(rows):
@@ -1584,8 +1731,9 @@ def kernels_only_phase(torch, F, names):
 def kernel_phase(torch, F):
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = {}
-    for _, fn in KERNEL_ROWS.values():
-        rows.update(fn(torch, F, gen))
+    for name, (_, fn) in KERNEL_ROWS.items():
+        if not name.startswith("KX"):
+            rows.update(fn(torch, F, gen))
     rows["flash_attention"] = [k3_case(torch, F, gen, *c) for c in K3_CASES]
     failed = [f"{name} [{r['case']}]" for name, cases in rows.items()
               for r in cases if not report_row(name, r)]

@@ -374,13 +374,17 @@ class Session:
             auto["max_seq_len"] = -(-need // _SEQ_BUCKET) * _SEQ_BUCKET
         if max_new is not None:
             auto["max_new_tokens"] = max_new
+        layout = self.bundle.kv_layout
+        if layout is not None and layout.ring_window:
+            # what a two-kind pool has no form of yet stays off unless
+            # asked for (the engine then names what is missing)
+            auto.update(enable_prefix_cache=False, enable_spec=False)
         auto.update(overrides)
         seq = auto.get("max_seq_len", ServeConfig.max_seq_len)
         if "page_size" not in auto:
             # shrink pages for short batches; floor_pow2 keeps the prefix
             # cache's block hashing valid
             cap = floor_pow2(seq)
-            layout = self.bundle.kv_layout
             if layout is not None:
                 cap = min(cap, layout.max_page_size())
             if ServeConfig.page_size > cap:

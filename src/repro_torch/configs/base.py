@@ -28,6 +28,23 @@ class MoEConfig:
     aux_loss_weight: float = 0.01
     # capacity factor for dense one-hot dispatch (einsum-based)
     capacity_factor: float = 1.25
+    # router scoring: "softmax" (gates renormalised over the top-k) or
+    # "sigmoid" (DeepSeek-V3's: experts chosen on sigmoid(logits) plus a
+    # per-expert ``e_score_correction_bias`` leaf when ``correction_bias``,
+    # gates the sigmoid scores without it, normalised over the top-k)
+    scoring: str = "softmax"
+    correction_bias: bool = False
+    # the routed sum's multiplier (DeepSeek-V3's routed_scaling_factor)
+    routed_scaling: float = 1.0
+    # experts whose weights this device holds, the first ``experts_held``
+    # of ``num_experts`` (0 = all): one device's share of an expert-
+    # parallel deployment.  The router keeps its ``num_experts`` outputs
+    # and its top-k; picks of absent experts contribute nothing here
+    experts_held: int = 0
+
+    @property
+    def held(self) -> int:
+        return self.experts_held or self.num_experts
 
 
 @dataclass(frozen=True)
@@ -124,6 +141,22 @@ class ModelConfig:
     # set True for architectures whose attention is subquadratic / bounded-state,
     # which qualifies them for the long_500k cell.
     subquadratic: bool = False
+    # per-layer attention kinds, repeated over the layers: "L" a windowed
+    # layer (``attn_kind`` with ``window``), "G" a global one (full
+    # attention); "" = every layer ``attn_kind``
+    layer_pattern: str = ""
+    # per-head RMS norm of q and k before rope (their scales are leaves)
+    qk_norm: bool = False
+    # "pre": x + f(norm(x)); "post": x + norm(f(x)), no norm on the
+    # sublayer's input (EXAONE 4)
+    norm_placement: str = "pre"
+    # "all" layers rotate q / k, or only the "windowed" ones (the global
+    # layers of a layer_pattern then use no positional encoding)
+    rope_layers: str = "all"
+    # leading layers with a dense feed-forward of their own width before
+    # the MoE layers (0 = none; d_ff_dense 0 = d_ff)
+    first_dense_layers: int = 0
+    d_ff_dense: int = 0
 
     @property
     def resolved_head_dim(self) -> int:
@@ -136,6 +169,21 @@ class ModelConfig:
             assert self.moe is not None
         if self.attn_kind == "mla":
             assert self.mla is not None
+        assert set(self.layer_pattern) <= {"L", "G"}, self.layer_pattern
+        if "L" in self.layer_pattern:
+            assert self.attn_kind in ("swa", "local") and self.window > 0
+        assert self.norm_placement in ("pre", "post"), self.norm_placement
+        assert self.rope_layers in ("all", "windowed"), self.rope_layers
+        assert 0 <= self.first_dense_layers <= self.num_layers
+        if self.moe is not None:
+            assert self.moe.scoring in ("softmax", "sigmoid")
+            assert 0 <= self.moe.experts_held <= self.moe.num_experts
+
+    def layer_kind(self, i: int) -> str:
+        """"L" (windowed) or "G" (global) for layer ``i`` of a
+        ``layer_pattern``; "" without one."""
+        p = self.layer_pattern
+        return p[i % len(p)] if p else ""
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

@@ -65,6 +65,10 @@ def attention_specs(cfg):
         specs["bq"] = ParamSpec((h * hd,), ("heads",), init="zeros")
         specs["bk"] = ParamSpec((kv * hd,), ("kv_heads",), init="zeros")
         specs["bv"] = ParamSpec((kv * hd,), ("kv_heads",), init="zeros")
+    if cfg.qk_norm:
+        # one scale per head_dim channel, shared by the heads
+        specs["q_norm"] = ParamSpec((hd,), (None,), init="zeros")
+        specs["k_norm"] = ParamSpec((hd,), (None,), init="zeros")
     return specs
 
 
@@ -140,9 +144,19 @@ def _project_qkv_rope(cfg, p, x, positions):
     q = _split_heads(q, H, hd)
     k = _split_heads(k, KV, hd)
     v = _split_heads(v, KV, hd)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    return (norm_rope(cfg, p, q, positions, "q"),
+            norm_rope(cfg, p, k, positions, "k"), v)
+
+
+def norm_rope(cfg, p, t, positions, which: str):
+    """Queries or keys ``t`` [..., S, heads, hd] (``which`` "q" / "k")
+    after their per-head RMS norm (``cfg.qk_norm``) and rope, which a
+    global layer of ``rope_layers="windowed"`` goes without."""
+    if cfg.qk_norm:
+        t = rms_norm(t, p[which + "_norm"], cfg.norm_eps)
+    if cfg.rope_layers == "all" or cfg.attn_kind in ("swa", "local"):
+        t = apply_rope(t, positions, cfg.rope_theta)
+    return t
 
 
 def _gqa_scores(q, k, scale):
@@ -395,12 +409,16 @@ def _chunk_targets(page_ids, start: int, n_valid: int, S: int, ps: int,
     token i holds absolute position ``start + i`` (ring layouts: cell
     ``(start + i) % window // ps``); bucket padding (i >= n_valid) routes
     to the reserved trash page 0 so the fixed bucket shape never scatters
-    garbage into held pages."""
+    garbage into held pages.  A ring chunk longer than the window keeps
+    only its last ``window`` tokens: the earlier ones would land on the
+    same cells, and no later query reads them."""
     i = torch.arange(S, device=page_ids.device)
     pos = start + i
     idx = pos % window if window else pos
     blk = torch.clamp(idx // ps, 0, page_ids.shape[0] - 1)
-    page = torch.where(i < n_valid, page_ids.long()[blk], 0)
+    live = (i < n_valid) & (i >= n_valid - window) if window \
+        else i < n_valid
+    page = torch.where(live, page_ids.long()[blk], 0)
     return page, pos % ps
 
 
@@ -438,8 +456,9 @@ def paged_prefill_apply(cfg, p, x, positions, kv, page_ids, start: int,
     own early queries still need, so attention reads the ring as a
     snapshot BEFORE the write, with the chunk's own K/V as separate
     operands and ring-arithmetic key positions; the sliding-window mask
-    keeps every overwritten snapshot cell out of the scores.  The engine
-    caps ring chunks at ``window`` tokens.
+    keeps every overwritten snapshot cell out of the scores.  A chunk may
+    be longer than the window: its queries then reach back only into its
+    own keys, and only its last ``window`` keys are written.
 
     ``use_kernels`` runs the CUDA kernels (K2, K5); int8 pools go through
     the kernel family's ops even without them — the plain versions there

@@ -179,7 +179,7 @@ def _model_dims(model_cfg) -> dict:
         m = model_cfg.moe
         if m.num_shared_experts:          # the shared experts' "mlp"
             dims["mlp"] = m.d_ff_shared or m.d_ff_expert * m.num_shared_experts
-        dims["expert"] = m.num_experts
+        dims["expert"] = m.held
         dims["expert_mlp"] = m.d_ff_expert
     if model_cfg.rglru is not None:
         dims["lru"] = model_cfg.rglru.lru_width or model_cfg.d_model
@@ -216,7 +216,7 @@ def rules_for(mesh_cfg, model_cfg=None) -> dict:
         if a == "model":
             msize = s
     if model_cfg.moe is not None \
-            and model_cfg.moe.num_experts % max(msize, 1) != 0:
+            and model_cfg.moe.held % max(msize, 1) != 0:
         rules["expert"] = None
         rules["expert_mlp"] = "model"
     if msize > 1:

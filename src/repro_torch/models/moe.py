@@ -31,7 +31,20 @@ Numerics copied from the JAX package: router logits in fp32 from the cast
 router; softmax, then top-k (ties to the lower expert index); gates
 renormalised by ``max(sum, 1e-9)`` and cast to the compute dtype before
 they weight an expert's output; the top-k contributions summed in fp32 in
-ascending expert order and cast once; shared experts added after.
+ascending expert order and cast once; shared experts added after.  The
+sigmoid router (``MoEConfig.scoring``, DeepSeek-V3's at one group) chooses
+the top-k on sigmoid(logits) plus the ``e_score_correction_bias`` leaf and
+gates by sigmoid(logits) without it, normalised by ``sum + 1e-20``; either
+router's gates are then multiplied by ``routed_scaling``.  Routing, the
+held experts' mask and its count are the ``moe.route`` range of a profile.
+
+A device that holds only some experts (``MoEConfig.experts_held``: the
+first ``experts_held`` of ``num_experts``, one device's share of an
+expert-parallel deployment) routes over all of them and computes its own
+experts' part of the result, through the same ``first`` / ``n_local``
+bounds as expert parallelism, without the exchange; the picks that land
+on its experts are counted on the device (``held_picks``), with no host
+read.
 
 Tensor parallelism: expert-parallel where the expert count divides the
 model axis (each rank runs its own experts: the router's expert columns
@@ -56,13 +69,16 @@ from repro_torch.obs import profile_range
 
 def moe_specs(cfg):
     m = cfg.moe
-    d, f = cfg.d_model, m.d_ff_expert
+    d, f, n = cfg.d_model, m.d_ff_expert, m.held
     specs = {
         "router": ParamSpec((d, m.num_experts), ("embed", "expert"), init="small"),
-        "w_gate": ParamSpec((m.num_experts, d, f), ("expert", "embed", "expert_mlp")),
-        "w_up": ParamSpec((m.num_experts, d, f), ("expert", "embed", "expert_mlp")),
-        "w_down": ParamSpec((m.num_experts, f, d), ("expert", "expert_mlp", "embed2")),
+        "w_gate": ParamSpec((n, d, f), ("expert", "embed", "expert_mlp")),
+        "w_up": ParamSpec((n, d, f), ("expert", "embed", "expert_mlp")),
+        "w_down": ParamSpec((n, f, d), ("expert", "expert_mlp", "embed2")),
     }
+    if m.correction_bias:
+        specs["e_score_correction_bias"] = ParamSpec(
+            (m.num_experts,), (None,), init="small")
     if m.num_shared_experts:
         fs = m.d_ff_shared or f * m.num_shared_experts
         specs["shared"] = {
@@ -94,6 +110,55 @@ def _route(router, xf, K: int):
     return probs, gates, sel
 
 
+def _route_sigmoid(m, p, xf):
+    """The sigmoid router, as ``_route`` returns: experts chosen on the
+    scores plus the correction bias (when ``m.correction_bias``), gates
+    the scores without it normalised over the picks."""
+    logits = gather_model(torch.matmul(xf.float(), p["router"].float()),
+                          "expert")
+    probs = torch.sigmoid(logits)
+    choice = probs
+    if m.correction_bias:
+        choice = probs + p["e_score_correction_bias"].float()
+    sel = torch.sort(choice, dim=-1, descending=True,
+                     stable=True)[1][:, :m.top_k]
+    gates = probs.gather(1, sel)
+    return probs, gates / (gates.sum(dim=-1, keepdim=True) + 1e-20), sel
+
+
+def route(m, p, xf):
+    """The router of ``m`` (the ``MoEConfig``) on xf [N, D]: (probs,
+    gates, experts), the gates times ``routed_scaling``."""
+    if m.scoring == "sigmoid":
+        probs, gates, sel = _route_sigmoid(m, p, xf)
+    else:
+        probs, gates, sel = _route(p["router"], xf, m.top_k)
+    if m.routed_scaling != 1.0:
+        gates = gates * m.routed_scaling
+    return probs, gates, sel
+
+
+#: device -> picks that landed on this device's held experts (an int64
+#: counter the router adds to on the device: no host read)
+_HELD_PICKS: dict = {}
+
+
+def held_picks() -> int:
+    """Picks that landed on the held experts of the layers that hold only
+    some (``MoEConfig.experts_held``), on every device, since the process
+    started (reading it syncs the host)."""
+    return sum(int(t) for t in _HELD_PICKS.values())
+
+
+def _count_held(sel, keep, first: int, n_local: int) -> None:
+    mine = (sel >= first) & (sel < first + n_local) & keep[:, None]
+    t = _HELD_PICKS.get(sel.device)
+    if t is None:
+        t = _HELD_PICKS[sel.device] = torch.zeros(
+            (), dtype=torch.int64, device=sel.device)
+    t.add_(mine.sum())
+
+
 def _expert(act, w_gate, w_up, w_down, x, cd):
     return dot(act(dot(x, w_gate, cd)) * dot(x, w_up, cd), w_down, cd)
 
@@ -113,7 +178,7 @@ def _per_token(cfg, p, xf, gates, sel, keep, cd):
     (``keep`` False) route nowhere.  The grouping and the grouped GEMM
     are the ``moe.sorted`` range of a profile."""
     E = cfg.moe.num_experts
-    first = local_offset(E, "expert")   # this rank's experts: first + i
+    first = local_offset(cfg.moe.held, "expert")  # this rank's: first + i
     with profile_range("moe.sorted"):
         flat_e = torch.where(keep[:, None], sel, E).reshape(-1)  # E: nowhere
         acc = moe_grouped(xf, p["w_gate"], p["w_up"], p["w_down"], flat_e,
@@ -128,7 +193,7 @@ def _dense(cfg, p, xf, gates, sel, keep, cd):
     token's top-k and for padding) is nonzero — the reference's dispatch
     mask — and the weighted outputs sum in fp32, cast once."""
     E = cfg.moe.num_experts
-    first = local_offset(E, "expert")   # this rank's experts: first + i
+    first = local_offset(cfg.moe.held, "expert")  # this rank's: first + i
     n_local = p["w_gate"].shape[0]
     combine = torch.zeros((xf.shape[0], E), dtype=cd, device=xf.device)
     combine = combine.scatter(1, sel, gates.to(cd)) * keep[:, None]
@@ -156,7 +221,7 @@ def _capacity(cfg, p, xf, gates, onehot, G: int, g: int, cd):
         "gtke,gtkec->gtec",
         (gates.reshape(G, g, K)[..., None] * oh.float()).to(cd), slot)
     # this rank's experts (all of them unless expert-parallel)
-    first, n_local = local_offset(E, "expert"), p["w_gate"].shape[0]
+    first, n_local = local_offset(m.held, "expert"), p["w_gate"].shape[0]
     combine = combine[:, :, first:first + n_local]
     dispatch = (combine > 0).to(cd)
     act = activation(cfg.act)
@@ -187,11 +252,15 @@ def moe_apply(cfg, p, x, *, n_valid: Optional[int] = None,
     cd = x.dtype
     N = B * S
     xf = x.reshape(N, D)
-    # expert-parallel: the router's columns are this rank's experts
-    probs, gates, sel = _route(p["router"], to_model(xf, "expert"), K)
-    keep = torch.ones((N,), dtype=torch.bool, device=x.device)
-    if n_valid is not None:
-        keep = (torch.arange(S, device=x.device) < n_valid).repeat(B)
+    with profile_range("moe.route"):
+        # expert-parallel: the router's columns are this rank's experts
+        probs, gates, sel = route(m, p, to_model(xf, "expert"))
+        keep = torch.ones((N,), dtype=torch.bool, device=x.device)
+        if n_valid is not None:
+            keep = (torch.arange(S, device=x.device) < n_valid).repeat(B)
+        if m.held < E:
+            _count_held(sel, keep, local_offset(m.held, "expert"),
+                        p["w_gate"].shape[0])
     # one_hot by comparison: F.one_hot reads the class bounds back to the
     # host on the CPU
     onehot = ((sel[..., None] == torch.arange(E, device=x.device)).long()

@@ -334,15 +334,16 @@ def build(cfg: ModelConfig) -> ModelBundle:
 
 def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
     """Analytic parameter count (total, incl. embeddings); ``active_only``
-    leaves out the experts a token does not run (every layer's
-    ``num_experts - top_k`` routed experts)."""
+    leaves out the experts a token does not run (every MoE layer's held
+    experts but ``top_k``)."""
     bundle = build(cfg)
     total = sum(int(np.prod(leaf.shape))
                 for leaf in common.tree_leaves(bundle.specs))
     if active_only and cfg.moe is not None:
         m = cfg.moe
         per_expert = 3 * cfg.d_model * m.d_ff_expert       # gate + up + down
-        total -= (m.num_experts - m.top_k) * per_expert * cfg.num_layers
+        total -= (max(m.held - m.top_k, 0) * per_expert
+                  * (cfg.num_layers - cfg.first_dense_layers))
     return total
 
 

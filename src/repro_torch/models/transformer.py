@@ -40,8 +40,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (ParamSpec, apply_norm, cast_tree, dot,
-                                       gather_model, norm_specs, stack_specs,
-                                       to_model, torch_dtype)
+                                       gather_model, norm_specs, stack_len,
+                                       stack_specs, to_model, torch_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -66,30 +66,86 @@ def decoder_layer_specs(cfg):
             "ff": ff}
 
 
+def layer_cfg(cfg, i: int):
+    """Layer ``i``'s configuration: ``cfg`` itself in a stack of one kind;
+    a global layer of a ``layer_pattern`` attends fully (``attn_kind``
+    "full", no window), and a leading dense layer has no MoE and its own
+    ``d_ff_dense``."""
+    if not (cfg.layer_pattern or cfg.first_dense_layers):
+        return cfg
+    return _layer_cfg(cfg, i)
+
+
+@functools.lru_cache(maxsize=None)
+def _layer_cfg(cfg, i: int):
+    kw = {}
+    if cfg.layer_kind(i) == "G":
+        kw.update(attn_kind="full", window=0)
+    if i < cfg.first_dense_layers:
+        kw.update(moe=None, d_ff=cfg.d_ff_dense or cfg.d_ff)
+    return cfg.replace(**kw) if kw else cfg
+
+
 def lm_specs(cfg):
+    """Stacked leaves per group of equally shaped layers: ``layers``, and
+    ``dense_layers`` for leading dense layers of another width.  Windowed
+    and global layers share one stack (their weights have equal shapes)."""
+    nd = cfg.first_dense_layers
     specs = {
         "embed": embed_specs(cfg),
-        "layers": stack_specs(decoder_layer_specs(cfg), cfg.num_layers),
+        "layers": stack_specs(decoder_layer_specs(layer_cfg(cfg, nd)),
+                              cfg.num_layers - nd),
         "final_norm": norm_specs(cfg),
     }
+    if nd:
+        specs["dense_layers"] = stack_specs(
+            decoder_layer_specs(layer_cfg(cfg, 0)), nd)
     if not cfg.tie_embeddings:
         specs["lm_head"] = head_specs(cfg)
     return specs
 
 
 def layer_params(params, i: int):
-    """Layer ``i``'s parameters: views into the stacked ``[L, ...]`` leaves."""
-    def sl(t):
+    """Layer ``i``'s parameters: views into the stacked ``[L, ...]`` leaves
+    (the leading dense layers' stack first, where there is one)."""
+    def sl(t, j):
         if isinstance(t, dict):
-            return {k: sl(v) for k, v in t.items()}
-        return t[i]
-    return sl(params["layers"])
+            return {k: sl(v, j) for k, v in t.items()}
+        return t[j]
+    dense = params.get("dense_layers")
+    if dense is not None:
+        nd = stack_len(dense)
+        if i < nd:
+            return sl(dense, i)
+        i -= nd
+    return sl(params["layers"], i)
 
 
 def _layer_pages(pages, i: int):
     """Layer ``i``'s page pool: views, so kernels and in-place writes reach
     the shared [L, P, ps, KV, hd] tensors."""
     return {k: v[i] for k, v in pages.items()}
+
+
+@functools.lru_cache(maxsize=None)
+def _kind_index(cfg, i: int) -> int:
+    """Layer ``i``'s place among the layers of its own kind."""
+    return sum(cfg.layer_kind(j) == cfg.layer_kind(i) for j in range(i))
+
+
+def _layer_kv(cfg, state, i: int):
+    """(layer ``i``'s pages, its page table) of a paged ``state``.  A
+    two-kind pool (``ring_table`` in the state) holds the global layers'
+    contiguous pages under ``k`` / ``v`` and the windowed layers' ring
+    cells under ``ring_k`` / ``ring_v``, each stack in layer order."""
+    pages = state["pages"]
+    if "ring_table" not in state:
+        return _layer_pages(pages, i), state["page_table"]
+    j = _kind_index(cfg, i)
+    if cfg.layer_kind(i) == "G":
+        return {"k": pages["k"][j], "v": pages["v"][j]}, state["page_table"]
+    return ({"k": pages["ring_k"][j], "v": pages["ring_v"][j]},
+            state["ring_table"])
 
 
 # ---------------------------------------------------------------------------
@@ -108,14 +164,27 @@ def ff_apply(cfg, p, h, *, n_valid=None, per_token: bool = False,
         (), dtype=torch.float32, device=h.device)
 
 
+def sub_in(cfg, p_norm, x):
+    """A sublayer's input: the normed residual ("pre") or the residual
+    itself ("post": the norm comes after the sublayer)."""
+    return x if cfg.norm_placement == "post" else apply_norm(cfg, p_norm, x)
+
+
+def sub_out(cfg, p_norm, y):
+    """What a sublayer adds to the residual: its output, normed when the
+    norm comes after it ("post")."""
+    return apply_norm(cfg, p_norm, y) if cfg.norm_placement == "post" else y
+
+
 def decoder_layer_apply(cfg, p, x, positions, cache=None,
                         use_kernels=False, per_token: bool = False,
                         dense: bool = False):
-    """Returns (x, new_cache, aux).  MLA attention ignores ``use_kernels``
+    """Returns (x, new_cache, aux); ``cfg`` is the layer's own
+    (``layer_cfg``).  MLA attention ignores ``use_kernels``
     here, as the JAX package's does ``use_pallas``: its whole-sequence
     path is the expanded one.  ``per_token`` routes MoE drop-free per
     token (``moe_apply``), on its dense route with ``dense``."""
-    h = apply_norm(cfg, p["ln1"], x)
+    h = sub_in(cfg, p["ln1"], x)
     if cfg.attn_kind == "mla":
         a, new_cache = attn.mla_apply(cfg, p["attn"], h, positions,
                                       cache=cache)
@@ -123,10 +192,18 @@ def decoder_layer_apply(cfg, p, x, positions, cache=None,
         a, new_cache = attn.attention_apply(cfg, p["attn"], h, positions,
                                             cache=cache,
                                             use_kernels=use_kernels)
-    x = x + a
-    f, aux = ff_apply(cfg, p["ff"], apply_norm(cfg, p["ln2"], x),
+    x = x + sub_out(cfg, p["ln1"], a)
+    f, aux = ff_apply(cfg, p["ff"], sub_in(cfg, p["ln2"], x),
                       per_token=per_token, dense=dense)
-    return x + f, new_cache, aux
+    return x + sub_out(cfg, p["ln2"], f), new_cache, aux
+
+
+def _train_layer(cfg, positions, use_kernels, p, x):
+    """(x, aux) of one layer on the whole sequence (``cfg`` bound per
+    layer, so a recompute in the backward runs the same layer)."""
+    x, _, aux = decoder_layer_apply(cfg, p, x, positions,
+                                    use_kernels=use_kernels)
+    return x, aux
 
 
 #: matmuls without batch dims: what the "dots" policy keeps (the JAX
@@ -215,22 +292,22 @@ def layers_forward(cfg, params, x, *, collect_cache: bool = False,
     kv, hd = attn.local_heads(cfg)[1], cfg.resolved_head_dim
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
-    layer_fn = _remat(cfg, lambda lp, x: decoder_layer_apply(
-        cfg, lp, x, positions, use_kernels=use_kernels)[::2])
     for i in range(cfg.num_layers):
+        lcfg = layer_cfg(cfg, i)
         lp = layer_params(params, i)
         if not collect_cache:
-            x, a2 = layer_fn(lp, x)
+            x, a2 = _remat(cfg, functools.partial(
+                _train_layer, lcfg, positions, use_kernels))(lp, x)
             aux = aux + a2
             continue
-        h = apply_norm(cfg, lp["ln1"], x)
+        h = sub_in(lcfg, lp["ln1"], x)
         if cfg.attn_kind == "mla":
             # expanded attention; the cache keeps the latents
             a, _ = attn.mla_apply(cfg, lp["attn"], h, positions)
             ckv, krope = attn.mla_latents(cfg, lp["attn"], h, positions)
             leaves = {"ckv": ckv, "krope": krope}
         else:
-            a, _ = attn.attention_apply(cfg, lp["attn"], h, positions,
+            a, _ = attn.attention_apply(lcfg, lp["attn"], h, positions,
                                         use_kernels=use_kernels)
             # project k/v once more for the cache (cheap next to
             # attention; keeps attention_apply pure), as the JAX package
@@ -240,16 +317,16 @@ def layers_forward(cfg, params, x, *, collect_cache: bool = False,
             if cfg.qkv_bias:
                 k = k + lp["attn"]["bk"].to(cd)
                 v = v + lp["attn"]["bv"].to(cd)
-            k = attn.apply_rope(k.reshape(B, S, kv, hd), positions,
-                                cfg.rope_theta)
+            k = attn.norm_rope(lcfg, lp["attn"], k.reshape(B, S, kv, hd),
+                               positions, "k")
             leaves = {"k": k, "v": v.reshape(B, S, kv, hd)}
         caches.append(_fill_cache(leaves, positions, cache_len, n_valid))
-        x = x + a
+        x = x + sub_out(lcfg, lp["ln1"], a)
         # bucketed serving prefill: padding must not consume expert
         # capacity, and serving routes drop-free per token
-        f, a2 = ff_apply(cfg, lp["ff"], apply_norm(cfg, lp["ln2"], x),
+        f, a2 = ff_apply(lcfg, lp["ff"], sub_in(lcfg, lp["ln2"], x),
                          n_valid=n_valid, per_token=moe_dropless)
-        x = x + f
+        x = x + sub_out(lcfg, lp["ln2"], f)
         aux = aux + a2
     x = apply_norm(cfg, params["final_norm"], x)
     if not collect_cache:
@@ -378,17 +455,18 @@ def _paged_forward(cfg, params, tokens, state, *, use_kernels: bool = False):
     x = embed_lookup(cfg, params, tokens, cd)
     pages = state["pages"]
     for i in range(cfg.num_layers):
+        lcfg = layer_cfg(cfg, i)
         lp = layer_params(params, i)
-        h = apply_norm(cfg, lp["ln1"], x)
+        h = sub_in(lcfg, lp["ln1"], x)
         apply = attn.paged_mla_prefill_apply if cfg.attn_kind == "mla" \
             else attn.paged_prefill_apply
-        a, _ = apply(cfg, lp["attn"], h, positions, _layer_pages(pages, i),
-                     state["page_table"], start, n_valid,
-                     use_kernels=use_kernels)
-        x = x + a
-        f, _ = ff_apply(cfg, lp["ff"], apply_norm(cfg, lp["ln2"], x),
+        kv, table = _layer_kv(cfg, state, i)
+        a, _ = apply(lcfg, lp["attn"], h, positions, kv, table, start,
+                     n_valid, use_kernels=use_kernels)
+        x = x + sub_out(lcfg, lp["ln1"], a)
+        f, _ = ff_apply(lcfg, lp["ff"], sub_in(lcfg, lp["ln2"], x),
                         n_valid=n_valid, per_token=True)
-        x = x + f
+        x = x + sub_out(lcfg, lp["ln2"], f)
     x = apply_norm(cfg, params["final_norm"], x)
     return x, n_valid, pages
 
@@ -416,7 +494,8 @@ def lm_decode(cfg, params, tokens, caches):
     x = embed_lookup(cfg, params, tokens, cd)
     for i in range(cfg.num_layers):
         cache = {k: v[i] for k, v in caches.items()}
-        x, _, _ = decoder_layer_apply(cfg, layer_params(params, i), x,
+        x, _, _ = decoder_layer_apply(layer_cfg(cfg, i),
+                                      layer_params(params, i), x,
                                       positions, cache=cache,
                                       per_token=per_row, dense=per_row)
     x = apply_norm(cfg, params["final_norm"], x)
@@ -433,15 +512,15 @@ def paged_decoder_layer_apply(cfg, p, x, positions, kv, page_table, lengths,
     (``paged_mla_attention_apply``); MoE routes per token, so concurrently
     decoding slots never compete for expert capacity, on the dense route
     (no host sync: the engine captures this step in a CUDA graph)."""
-    h = apply_norm(cfg, p["ln1"], x)
+    h = sub_in(cfg, p["ln1"], x)
     apply = attn.paged_mla_attention_apply if cfg.attn_kind == "mla" \
         else attn.paged_attention_apply
     a, kv = apply(cfg, p["attn"], h, positions, kv, page_table, lengths,
                   use_kernels=use_kernels)
-    x = x + a
-    f, _ = ff_apply(cfg, p["ff"], apply_norm(cfg, p["ln2"], x),
+    x = x + sub_out(cfg, p["ln1"], a)
+    f, _ = ff_apply(cfg, p["ff"], sub_in(cfg, p["ln2"], x),
                     per_token=True, dense=True)
-    return x + f, kv
+    return x + sub_out(cfg, p["ln2"], f), kv
 
 
 def lm_paged_decode(cfg, params, tokens, state, *, use_kernels: bool = False):
@@ -465,19 +544,21 @@ def lm_paged_decode(cfg, params, tokens, state, *, use_kernels: bool = False):
     x = embed_lookup(cfg, params, tokens, cd)
     pages = state["pages"]
     for i in range(cfg.num_layers):
+        kv, table = _layer_kv(cfg, state, i)
         x, _ = paged_decoder_layer_apply(
-            cfg, layer_params(params, i), x, positions,
-            _layer_pages(pages, i), state["page_table"], lengths,
-            use_kernels=use_kernels)
+            layer_cfg(cfg, i), layer_params(params, i), x, positions, kv,
+            table, lengths, use_kernels=use_kernels)
     x = apply_norm(cfg, params["final_norm"], x)
     logits = lm_head(cfg, params, x)
     return logits[:, 0], pages
 
 
 def decode_cache_len(cfg, seq_len: int) -> int:
-    """Ring-buffer length: bounded by the attention window when
-    subquadratic."""
-    if cfg.attn_kind in ("swa", "local") and cfg.window:
+    """Ring-buffer length: bounded by the attention window when every
+    layer is windowed (a ``layer_pattern`` with global layers keeps the
+    whole sequence, and its windowed layers mask by position)."""
+    if cfg.attn_kind in ("swa", "local") and cfg.window \
+            and "G" not in cfg.layer_pattern:
         return min(seq_len, cfg.window)
     return seq_len
 

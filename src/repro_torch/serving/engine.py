@@ -93,6 +93,7 @@ from repro_torch.configs.base import ModelConfig, ServeConfig
 from repro_torch.models import registry
 from repro_torch.models.common import (logical_to_mesh, model_axis,
                                        torch_dtype)
+from repro_torch.models.moe import held_picks as moe_held_picks
 from repro_torch.obs import (INFLIGHT_COUNTER, NULL_TRACER, Tracer,
                              request_track, write_chrome_trace)
 from repro_torch.serving.graphs import DecodeGraphs
@@ -112,6 +113,23 @@ StreamFn = Callable[[int, int, bool], None]
 
 #: smallest prefill bucket — below this the pad overhead beats the reuse
 _MIN_BUCKET = 16
+
+def _check_two_kind(cfg: ServeConfig) -> None:
+    """What a two-kind (hybrid) pool does not have yet, each refused by
+    name: a prefix cache over its rings, speculative verify rows on them
+    (int8 pages are refused by ``check_kv_dtype``)."""
+    if cfg.enable_prefix_cache:
+        raise ValueError(
+            "enable_prefix_cache=True on the two-kind (hybrid) layout of "
+            "windowed and global layers: the pool has no prefix matching "
+            "for the windowed layers' rings yet — pass "
+            "enable_prefix_cache=False")
+    if cfg.enable_spec:
+        raise ValueError(
+            "enable_spec=True on the two-kind (hybrid) layout of windowed "
+            "and global layers: the pool has no speculative verify rows "
+            "for the windowed layers' rings yet — pass enable_spec=False")
+
 
 def resolve_device(device) -> torch.device:
     """The engine's device: ``"cuda"`` by default, and no CPU fallback —
@@ -343,6 +361,8 @@ class ServingEngine:
             # fail here with the JAX package's error naming both knobs
             self.cfg.check_kv_dtype(self.layout)
             self.layout = quantized_layout(self.layout, self.cfg.kv_dtype)
+            if self.layout.ring_window:
+                _check_two_kind(self.cfg)
             self.pool = PagedKVCachePool(
                 self.cfg.max_batch, self.cfg.page_size, self.cfg.max_seq_len,
                 lambda: self.bundle.init_decode_state(1, self.cfg.page_size,
@@ -384,7 +404,11 @@ class ServingEngine:
             self._slot_pos = np.zeros((self.cfg.max_batch,), np.int64)
 
         self.scheduler = Scheduler(self.cfg, tracer=self.tracer)
-        self.metrics = ServingMetrics(clock, tracer=self.tracer)
+        moe = model_cfg.moe
+        self.metrics = ServingMetrics(
+            clock, tracer=self.tracer,
+            held_picks=(moe_held_picks if moe is not None
+                        and moe.held < moe.num_experts else None))
         self.requests: Dict[int, Request] = {}
         self.results: Dict[int, List[int]] = {}
         self._rid = itertools.count()
@@ -481,18 +505,17 @@ class ServingEngine:
         freezes and idempotently replays the last in-budget step (same
         token, same position, same K/V write), so no slot writes past its
         prepared span and the rows past the budget are ignored at retire.
-        ``packed`` is the pool's [slots, width+2] operand (page table | pos
-        | limits); ``samp`` the packed sampling rows of a sampled cycle.
+        ``packed`` is the pool's [slots, width+2] operand (page table [|
+        ring table] | pos | limits); ``samp`` the packed sampling rows of a
+        sampled cycle.
         No host sync: this is the body a decode graph captures."""
-        table = packed[:, :-2].contiguous()
-        pos = packed[:, -2]
-        limits = packed[:, -1]
+        tables, pos, limits = self.pool.unpack_operands(packed)
         toks = toks0
         rows = []
         for k in range(self.cfg.decode_steps):
             logits, _ = self.bundle.paged_decode_fn(
                 self.params, toks[:, None],
-                {"pages": self.pool.pages, "page_table": table, "pos": pos},
+                {"pages": self.pool.pages, **tables, "pos": pos},
                 use_kernels=self.use_kernels)
             # the input token sits at pos -> its successor's absolute index
             # is pos + 1; frozen rows replay the same index, same draw
@@ -582,12 +605,13 @@ class ServingEngine:
             self.params, toks, cache_len=self._cache_len,
             use_kernels=self.use_kernels, **kw)
 
-    def _prefill_chunk(self, toks, table, start: int, n_valid: int):
-        """One request's suffix chunk straight into the page pool."""
+    def _prefill_chunk(self, toks, tables, start: int, n_valid: int):
+        """One request's suffix chunk straight into the page pool
+        (``tables``: the pool's ``chunk_tables`` of its slot)."""
         self._count_prefill_shape(toks)
         logits, _ = self.bundle.paged_prefill_fn(
             self.params, toks,
-            {"pages": self.pool.pages, "page_table": table, "start": start,
+            {"pages": self.pool.pages, **tables, "start": start,
              "n_valid": n_valid},
             use_kernels=self.use_kernels)
         return logits
@@ -751,6 +775,7 @@ class ServingEngine:
         slot, cached = out
         if cached:
             self.metrics.record_prefix_hit(cached)
+        self.metrics.record_ring_cells(self.pool.ring_width)
         self.tracer.end("queued", track=rt)
         self.tracer.begin("prefill", track=rt, prompt_tokens=len(prompt),
                           prefix_hit_tokens=cached)
@@ -859,6 +884,8 @@ class ServingEngine:
                 break
         self.metrics.sample_kv_bytes(self.pool.kv_bytes_held(),
                                      self.pool.kv_bytes_slotted())
+        if self.paged:
+            self.metrics.sample_global_pages(self.pool.pages_held)
         # 5. growth preemption may have evicted work planned above — keep
         # only what the current ownership map still stands behind
         admits = [a for a in admits
@@ -1003,8 +1030,7 @@ class ServingEngine:
                                     bucket=width):
                     logits = self._prefill_chunk(
                         upload(ctoks, self.device),
-                        upload(self.pool.tables[c.slot], self.device),
-                        c.start, c.chunk)
+                        self.pool.chunk_tables(c.slot), c.start, c.chunk)
             self.metrics.record_prefill(c.chunk)
             job.done = c.start + c.chunk
             # register fully-written blocks right away: requests admitted

@@ -6,11 +6,15 @@ cache: which decode-state ``leaves`` the pool tiles into pages, the ring
 is the single capability authority: the registry asks it whether a family
 pages, and the engine and pool take the returned layout as an argument.
 
-Three geometries: the contiguous per-head ``kv`` layout (full
-attention), MLA's latent ``ckv`` / ``krope`` layout, and the ring-wrapped
+Four geometries: the contiguous per-head ``kv`` layout (full
+attention), MLA's latent ``ckv`` / ``krope`` layout, the ring-wrapped
 ``window`` layout of sliding-window attention — the table is a ring of
 ``window // page_size`` cells, token ``t`` lives at cell ``(t % window) //
-page_size``, and a cell's page is reused in place as the sequence wraps.
+page_size``, and a cell's page is reused in place as the sequence wraps —
+and the two-kind ``hybrid`` layout of a model whose windowed and global
+layers alternate (``ModelConfig.layer_pattern``): the global layers take
+contiguous ``kv`` pages from the page budget, and each slot owns a fixed
+ring of ``ring_window // page_size`` cells for every windowed layer.
 Per-head layouts store their pages in the compute dtype or, with
 ``kv_dtype="int8"`` (``quantized_layout``), as int8 rows with one bf16
 scale per (page, offset, kv-head) row in an extra ``*_scale`` leaf;
@@ -70,6 +74,12 @@ def check_kv_dtype_layout(kv_dtype: str, layout: Optional["KVLayout"]) -> None:
             f"kv_dtype={kv_dtype!r} requires a paged KV layout, but this "
             "family serves slotted-only (no layout) — drop kv_dtype or "
             "pick a paged family")
+    if layout.ring_window:
+        raise ValueError(
+            f"kv_dtype={kv_dtype!r} has no int8 form of the two-kind "
+            "(hybrid) layout: the windowed layers' ring cells keep no "
+            "scale leaves — use kv_dtype='fp32' with a layer_pattern of "
+            "windowed and global layers")
     if layout.name == "latent":
         raise ValueError(
             f"kv_dtype={kv_dtype!r} cannot quantize MLA latent pages "
@@ -103,6 +113,11 @@ class KVLayout:
     leaves: Tuple[str, ...]      # decode-state leaves the pool pages
     window: int = 0              # > 0: ring-wrapped window pages
     kv_dtype: str = "fp32"       # "fp32" (native) | "int8" (+ scale leaves)
+    # two-kind ("hybrid") layouts: the windowed layers' ring (positions),
+    # and how many of the stacked layers are windowed; ``leaves`` are then
+    # the global layers' contiguous pages
+    ring_window: int = 0
+    ring_layers: int = 0
 
     # -- geometry ----------------------------------------------------------
 
@@ -137,13 +152,14 @@ class KVLayout:
         return one
 
     def check_page_size(self, page_size: int) -> None:
-        check_window_page_size(page_size, self.window)
+        check_window_page_size(page_size, self.window or self.ring_window)
 
     def max_page_size(self) -> int:
         """Largest power-of-two page the layout allows: the lowest set bit
-        of the window (unbounded for contiguous layouts — callers min() it
-        against their own caps)."""
-        return self.window & -self.window if self.window else 1 << 62
+        of the window or ring (unbounded for contiguous layouts — callers
+        min() it against their own caps)."""
+        w = self.window or self.ring_window
+        return w & -w if w else 1 << 62
 
     def table_width(self, pages_per_slot: int, page_size: int) -> int:
         """Page-table columns per slot: the full logical block count for
@@ -183,9 +199,13 @@ class KVLayout:
 
     def describe(self) -> dict:
         """Flat JSON-friendly identity for trace metadata."""
-        return {"layout": self.name, "leaves": list(self.leaves),
-                "window": self.window, "ring": self.ring,
-                "kv_dtype": self.kv_dtype}
+        out = {"layout": self.name, "leaves": list(self.leaves),
+               "window": self.window, "ring": self.ring,
+               "kv_dtype": self.kv_dtype}
+        if self.ring_window:
+            out.update(ring_window=self.ring_window,
+                       ring_layers=self.ring_layers)
+        return out
 
     # -- sharding ----------------------------------------------------------
 
@@ -233,7 +253,12 @@ def layout_for(cfg, kv_dtype: str = "fp32") -> Optional[KVLayout]:
     (attn_kind "none").  ``kv_dtype`` selects the storage variant
     (``quantized_layout``)."""
     kind = getattr(cfg, "attn_kind", "none")
-    if kind == "full":
+    pattern = getattr(cfg, "layer_pattern", "")
+    if "G" in pattern and "L" in pattern:
+        base = KVLayout("hybrid", ("k", "v"), ring_window=cfg.window,
+                        ring_layers=sum(cfg.layer_kind(i) == "L"
+                                        for i in range(cfg.num_layers)))
+    elif kind == "full" or (pattern and "L" not in pattern):
         base = KV_FULL
     elif kind == "mla":
         base = KV_LATENT

@@ -57,9 +57,13 @@ class ServingMetrics:
     """
 
     def __init__(self, clock: Optional[Callable[[], float]] = None,
-                 tracer=None):
+                 tracer=None,
+                 held_picks: Optional[Callable[[], int]] = None):
         self._clock = clock or time.monotonic
         self.tracer = tracer
+        # the MoE layers' device counter of picks that landed on held
+        # experts (a model holding only some of them), read at summary()
+        self._held_picks = held_picks
         self.reset()
 
     def reset(self) -> None:
@@ -86,6 +90,12 @@ class ServingMetrics:
         self.prefill_tokens = 0
         self.prefix_hit_tokens = 0                 # served from cached pages
         self.prefill_compiles = 0                  # distinct prefill shapes
+        # two-kind pools: ring cells bound at admission, and the most
+        # global (contiguous) pages held at once; any paged pool samples
+        # the latter
+        self.ring_cells = 0
+        self.global_pages_peak = 0
+        self._held_base = self._held_picks() if self._held_picks else 0
         self._t_start: Optional[float] = None
         self._t_end: Optional[float] = None
 
@@ -133,6 +143,23 @@ class ServingMetrics:
         power-of-two bucketing this stays O(log max_seq_len); unbounded
         growth here is one shape per prompt length."""
         self.prefill_compiles += 1
+
+    def record_ring_cells(self, n: int) -> None:
+        """An admission bound ``n`` ring cells (a two-kind pool's slot: one
+        ring per windowed layer, counted once)."""
+        self.ring_cells += n
+
+    def sample_global_pages(self, held: int) -> None:
+        """Global pages the pool holds this cycle (peak kept)."""
+        self.global_pages_peak = max(self.global_pages_peak, held)
+
+    @property
+    def moe_held_picks(self) -> int:
+        """Picks that landed on held experts since ``reset()`` (0 unless
+        the model holds only some experts); reading it syncs the host."""
+        if self._held_picks is None:
+            return 0
+        return self._held_picks() - self._held_base
 
     def record_first_token(self, rid: int) -> None:
         t = self.now()
@@ -256,6 +283,9 @@ class ServingMetrics:
             "kv_bytes_peak": self._kv[0],
             "kv_bytes_mean": _mean(self._kv),
             "kv_bytes_slotted": self.kv_bytes_slotted,
+            "ring_cells": self.ring_cells,
+            "global_pages_peak": self.global_pages_peak,
+            "moe_held_picks": self.moe_held_picks,
         }
 
 

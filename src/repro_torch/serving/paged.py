@@ -58,6 +58,17 @@ stays matchable: ring layouts map only the blocks still inside the new
 request's window (``KVLayout.needed_start``) and count everything before
 them as cached anyway (wholly window-masked, no page needed).
 
+**Two-kind pools** (the ``hybrid`` layout: windowed and global layers
+side by side) page the global layers as above, under the layout's leaves,
+and give each slot a fixed ring of ``ring_window // ps`` cells in every
+windowed layer, under ``ring_<leaf>``: cells ``1 + slot * width ..`` of
+``1 + slots * width`` (cell 0 is the rings' trash page).  A ring never
+changes owner or size, so admission binds it with the slot, and
+preemption and retire release only the global pages; the ring-position
+arithmetic masks what a slot's previous tenant left in its cells, as it
+masks a reused page.  Decode operands and prefill chunks carry both
+tables (``decode_operands``, ``chunk_tables``).
+
 Device state is fixed-shape:
   * ``pages``   {leaf: [L, P, ps, ...]}  — written in place by decode,
     prefill chunks and copy-on-write
@@ -187,14 +198,28 @@ class PagedKVCachePool:
         # (the bundle's native state never carries scales — the pool owns
         # the storage format)
         one = self.layout.page_template(blank)
+        n_ring = self.layout.ring_layers
         self.pages = {
-            n: torch.zeros((t.shape[0], P) + tuple(t.shape[2:]),
+            n: torch.zeros((t.shape[0] - n_ring, P) + tuple(t.shape[2:]),
                            dtype=t.dtype, device=self.device)
             for n, t in one.items()}
+        # two-kind layouts: every slot's fixed ring in each windowed layer
+        self.ring_width = (self.layout.ring_window // page_size
+                           if n_ring else 0)
+        self.ring_tables = 1 + np.arange(
+            num_slots * self.ring_width, dtype=np.int32).reshape(
+                num_slots, self.ring_width)
+        if n_ring:
+            cells = 1 + num_slots * self.ring_width
+            self.pages.update({
+                "ring_" + n: torch.zeros((n_ring, cells) + tuple(t.shape[2:]),
+                                         dtype=t.dtype, device=self.device)
+                for n, t in one.items()})
 
         # bytes of one page across layers and leaves (for telemetry)
         self.page_bytes = sum(
-            t.numel() * t.element_size() // P for t in self.pages.values())
+            self.pages[n].numel() * self.pages[n].element_size() // P
+            for n in self.layout.leaves)
         # fp32-equivalent page bytes (data leaves at 4 B/elt, no scale
         # leaves) — the denominator of the int8 savings ratio
         self.page_bytes_fp32 = sum(
@@ -254,8 +279,8 @@ class PagedKVCachePool:
     def _copy(self, dst: int, src: int) -> None:
         """Copy-on-write: duplicate page ``src`` into ``dst`` (every layer,
         every leaf) so the new tenant can overwrite its tail."""
-        for t in self.pages.values():
-            t[:, dst].copy_(t[:, src])
+        for n in self.layout.leaves:
+            self.pages[n][:, dst].copy_(self.pages[n][:, src])
 
     # -- host bookkeeping --------------------------------------------------
 
@@ -692,7 +717,7 @@ class PagedKVCachePool:
         re-queues the request).  Contiguous layouts only — a ring cache
         has no padded contiguous image (the prefix path, ``alloc_prefix``
         + paged prefill, serves ring layouts)."""
-        if self.layout.ring:
+        if self.layout.ring or self.ring_width:
             raise ValueError(
                 "ring (windowed) layouts prefill straight into pages via "
                 "alloc_prefix + PagedPrefillContract; the contiguous "
@@ -845,23 +870,44 @@ class PagedKVCachePool:
 
     def decode_operands(self, limits: Dict[int, int],
                         mask_slots=()) -> torch.Tensor:
-        """One packed ``[slots, table_width + 2]`` int32 device operand for
-        a decode dispatch: the page table, per-slot position and per-slot
-        step budget travel as a single upload and are sliced apart inside
-        the decode loop (views — no copies).  Packing matters
+        """One packed ``[slots, table_width (+ ring_width) + 2]`` int32
+        device operand for a decode dispatch: the page table (and a
+        two-kind pool's ring table), per-slot position and per-slot step
+        budget travel as a single upload and are sliced apart inside the
+        decode loop (``unpack_operands``).  Packing matters
         because at serving batch sizes the per-cycle cost is *dispatch
         count*, not bytes: one ``device_put`` here replaces the three
         (table, pos, limits) the unpacked path paid every cycle.  Slots in
         ``mask_slots`` (mid-prefill or not scheduled this cycle) present an
         all-trash table, pos 0 and budget 0, so the fixed-shape decode can
         run while they fill."""
-        packed = np.empty((self.num_slots, self.table_width + 2), np.int32)
-        packed[:, :-2] = self.tables
+        W = self.table_width
+        packed = np.empty((self.num_slots, W + self.ring_width + 2),
+                          np.int32)
+        packed[:, :W] = self.tables
+        packed[:, W:-2] = self.ring_tables
         packed[:, -2] = self.pos
         packed[:, -1] = [limits.get(s, 0) for s in range(self.num_slots)]
         if mask_slots:
             packed[list(mask_slots)] = 0
         return upload(packed, self.device)
+
+    def unpack_operands(self, packed):
+        """``decode_operands``' columns apart again, on the device (views):
+        ({"page_table"[, "ring_table"]}, pos, limits)."""
+        W = self.table_width
+        tables = {"page_table": packed[:, :W].contiguous()}
+        if self.ring_width:
+            tables["ring_table"] = packed[:, W:-2].contiguous()
+        return tables, packed[:, -2], packed[:, -1]
+
+    def chunk_tables(self, slot: int) -> Dict[str, torch.Tensor]:
+        """A prefill chunk's tables on the device: the slot's page-table row
+        and, in a two-kind pool, its ring row."""
+        out = {"page_table": upload(self.tables[slot], self.device)}
+        if self.ring_width:
+            out["ring_table"] = upload(self.ring_tables[slot], self.device)
+        return out
 
     def rewind(self, slot: int, new_pos: int) -> None:
         """Roll a slot's position back after a rejected speculative suffix.

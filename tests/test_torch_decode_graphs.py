@@ -69,6 +69,10 @@ class NoSync(TorchDispatchMode):
 #: serves from, greedy and sampled (int8 pages change the attention, not the
 #: sampler: greedy); mixtral's smoke window 8 wants ring pages of 4
 _MIXTRAL = {"page_size": 4, "num_pages": 40}
+#: K-EXAONE's share on the two-kind pool (rings of 2 cells of 4), which
+#: has no prefix cache or speculation yet
+_KEXAONE = {"page_size": 4, "enable_prefix_cache": False,
+            "enable_spec": False}
 CASES = {
     "qwen-paged-greedy": ("qwen2.5-14b", {}, False),
     "qwen-paged-sampled": ("qwen2.5-14b", {}, True),
@@ -85,6 +89,8 @@ CASES = {
     "recurrentgemma-slotted-sampled": ("recurrentgemma-2b", {}, True),
     "rwkv6-slotted-greedy": ("rwkv6-1.6b", {}, False),
     "rwkv6-slotted-sampled": ("rwkv6-1.6b", {}, True),
+    "kexaone-paged-greedy": ("k-exaone-236b-a23b-ep16", _KEXAONE, False),
+    "kexaone-paged-sampled": ("k-exaone-236b-a23b-ep16", _KEXAONE, True),
 }
 SAMPLED = SamplingParams(temperature=0.8, top_k=8, top_p=0.9, seed=13)
 
